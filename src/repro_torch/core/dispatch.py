@@ -1,0 +1,417 @@
+"""The single scheduling inner loop shared by both engines and the simulator.
+
+Before this abstraction existed, ``crossmatch/engine.py``,
+``serving/engine.py`` and ``core/simulate.py`` each re-implemented the
+select -> execute -> complete round with their own (divergent) handling of
+fuse_k, clocks and dispatch counting, and the adaptive controller was only
+consulted by one benchmark.  ``DispatchLoop`` owns that round now:
+
+    round():
+      1. snapshot Telemetry (queues, cache, occupancy, arrival EWMA,
+         prefetch stall/waste signals)
+      2. vector = ControlLoop.update(telemetry)     # the ONE consult point
+      3. apply vector.alpha to the scheduler (hot-swap re-key)
+      4. apply_spill: enforce the §6 overflow budget on the workload
+      5. select the top vector.fuse_k buckets (incremental heap path)
+      5b. prefetch stage (when a PrefetchPipeline is wired): harvest
+          completed stages, pay residual stall for demanded in-flight
+          buckets, recommit the scan horizon (H from vector.horizon when
+          the ControlLoop sizes it) and issue the next stages
+      6. cost = stall + execute(decisions, vector)  # engine-specific compute
+      7. advance the clock, run completion, count batches/dispatches
+
+Engines supply only ``execute`` (the device call + result routing) and
+optionally ``complete`` (defaults to ``wm.complete_bucket`` per decision).
+Without a ControlLoop the loop emits a static vector from the scheduler's
+current alpha and the configured fuse_k — the adaptive and static paths
+run the same code.
+
+With a ``TenantControlPlane`` the round goes multi-tenant: telemetry is
+sliced per tenant class (``tenant_of`` maps bucket -> class), every
+tenant's feedback laws run on their own slice, the resulting per-tenant
+alphas are threaded into the shared scheduler as per-bucket Eq. 2 blends
+(``set_tenant_alphas``), and §6 spill is enforced per tenant against the
+arbiter's byte grants.  Selection stays ONE shared argmax over all
+buckets — tenants are isolated in *policy*, not partitioned in data.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Mapping, Optional, Sequence, Union
+
+from .control import (
+    ControlLoop,
+    ControlVector,
+    ShardGrant,
+    Telemetry,
+    TenantControlPlane,
+    apply_spill,
+)
+from .scheduler import SchedulerDecision
+from .workload import DEFAULT_TENANT
+
+__all__ = ["DispatchOutcome", "DispatchLoop"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DispatchOutcome:
+    """What one scheduling round did.
+
+    Under the multi-tenant plane, ``vector`` is the merged round vector
+    actually applied to the dispatch mechanics (fuse_k = max over
+    tenants; alpha is informational — scoring used per-bucket tenant
+    alphas) and ``tenant_vectors`` carries each tenant's own decision.
+    """
+
+    decisions: tuple[SchedulerDecision, ...]
+    cost: float
+    vector: ControlVector
+    spill_changed: tuple[int, ...] = ()
+    tenant_vectors: Optional[Mapping[str, ControlVector]] = None
+    # Residual prefetch stall included in ``cost`` (0.0 without a pipeline
+    # or when every demanded bucket was already staged).
+    stall: float = 0.0
+
+
+class DispatchLoop:
+    def __init__(
+        self,
+        scheduler,
+        wm,
+        cache,
+        execute: Callable[[Sequence[SchedulerDecision], ControlVector], float],
+        *,
+        control: Optional[Union[ControlLoop, TenantControlPlane]] = None,
+        tenant_of: Optional[Callable[[int], str]] = None,
+        fuse_k: int = 1,
+        complete: Optional[Callable[[Sequence[SchedulerDecision], float], None]] = None,
+        batch_capacity: Optional[int] = None,
+        clock: float = 0.0,
+        on_round: Optional[Callable[[DispatchOutcome], None]] = None,
+        prefetch=None,  # Optional[PrefetchPipeline] (core/prefetch.py)
+    ) -> None:
+        self.scheduler = scheduler
+        self.wm = wm
+        self.cache = cache
+        self.control = control
+        self.tenant_of = tenant_of or (lambda b: DEFAULT_TENANT)
+        self._plane = control if isinstance(control, TenantControlPlane) else None
+        self._execute = execute
+        self._complete = complete
+        self._static_fuse_k = max(1, int(fuse_k))
+        self.batch_capacity = batch_capacity  # per-bucket batch cap (serving)
+        self.clock = clock
+        self.batches = 0  # buckets serviced
+        self.dispatches = 0  # scheduling rounds
+        self.device_dispatches = 0  # device calls issued by the executor
+        self.busy = 0.0  # total execute() cost
+        self.last_vector: Optional[ControlVector] = None
+        self.last_tenant_vectors: Optional[dict[str, ControlVector]] = None
+        self.on_round = on_round  # decision-log tap (tests/replay.py)
+        self._occupancy = 0.0  # last round's batch fill fraction
+        self._occ_by_tenant: dict[str, float] = {}
+        self._shared_occ = 0.0  # last shared-plan round's query fill
+        self._shared_occ_sum = 0.0  # occupancy-weighted shared-call total
+        self._shared_calls = 0  # shared-plan device calls (occupancy known)
+        self._dev_noted = False  # executor reported its own device calls
+        self.prefetch = prefetch
+        # Set by the shard tier (core/shard.py) before a round: the global
+        # ShardControlPlane's byte grant for this shard.  None (the
+        # default, and the whole story for unsharded loops) leaves the
+        # local spill law untouched — the off-path is bit-identical.
+        self.shard_grant: Optional[ShardGrant] = None
+        self._stall_frac = 0.0  # last round's stall share of round time
+        self._wasted_last = 0  # prefetched fills evicted untouched last round
+        self._wasted_base = 0
+        if prefetch is not None and hasattr(cache, "set_demand_probe"):
+            # Demand-aware eviction: a resident bucket with zero pending
+            # work is a strictly better victim than one queries wait on.
+            cache.set_demand_probe(
+                lambda b: q.size if (q := wm.queues.get(b)) else 0
+            )
+
+    # -- decision-log taps --------------------------------------------------------
+    def add_round_tap(
+        self, fn: Callable[[DispatchOutcome], None]
+    ) -> Callable[[DispatchOutcome], None]:
+        """Chain a second ``on_round`` consumer.  The write-ahead journal
+        tap (serving/daemon.py) rides alongside a golden-trace recorder
+        this way — neither clobbers the other; existing taps fire first,
+        in installation order.  Returns ``fn``."""
+        prev = self.on_round
+        if prev is None:
+            self.on_round = fn
+        else:
+            def chained(outcome, _prev=prev, _fn=fn):
+                _prev(outcome)
+                _fn(outcome)
+
+            self.on_round = chained
+        return fn
+
+    # -- executor-side sensor ----------------------------------------------------
+    def note_device_dispatches(
+        self, n: int, shared_occupancy: Optional[float] = None
+    ) -> None:
+        """Executor callback: the round just executed issued ``n`` device
+        calls (a shared plan issues fewer than one per bucket or per
+        predicate class).  ``shared_occupancy`` is the query fill of those
+        calls — queries / (chunks * share_width) — and feeds the
+        share_width AIMD law via telemetry.  Executors that never call
+        this get the legacy accounting of one device call per round."""
+        self.device_dispatches += max(0, int(n))
+        self._dev_noted = True
+        if shared_occupancy is not None:
+            self._shared_occ = min(1.0, max(0.0, shared_occupancy))
+            self._shared_occ_sum += self._shared_occ * max(0, int(n))
+            self._shared_calls += max(0, int(n))
+
+    @property
+    def shared_batch_occupancy(self) -> float:
+        """Mean query fill across all shared-plan device calls (0.0 when
+        the executor never reported one)."""
+        if self._shared_calls <= 0:
+            return 0.0
+        return self._shared_occ_sum / self._shared_calls
+
+    # -- intake-side sensor -----------------------------------------------------
+    def observe_arrival(self, t: float) -> None:
+        """Feed one arrival to the controller's saturation estimator."""
+        if self.control is not None:
+            self.control.observe_arrival(t)
+
+    # -- telemetry ---------------------------------------------------------------
+    def telemetry(self) -> Telemetry:
+        tels = self._tenant_telemetry(split=False)
+        return tels.get(DEFAULT_TENANT) or Telemetry(
+            now=self.clock,
+            arrival_rate=self.control.arrival_rate if self.control else 0.0,
+            pending_objects=0,
+            resident_objects=0,
+            n_queues=0,
+            oldest_age_ms=0.0,
+            cache_hit_rate=self._hit_rate(),
+            occupancy=self._occupancy,
+        )
+
+    def _hit_rate(self) -> float:
+        return (
+            self.cache.stats.hit_rate if hasattr(self.cache, "stats") else 0.0
+        )
+
+    def _tenant_telemetry(self, split: bool = True) -> dict[str, Telemetry]:
+        """One pass over the nonempty queues, sliced per tenant class when
+        ``split`` (the multi-tenant plane) and aggregated under the default
+        tenant otherwise.  Still O(B) per round — the select itself stays
+        O(dirty·logB); push these into subscription-maintained counters if
+        B ever dominates the round."""
+        wm = self.wm
+        tenant_of = self.tenant_of if split else (lambda b: DEFAULT_TENANT)
+        # per tenant: [pending, resident, pending_bytes, resident_bytes,
+        #             n_queues, oldest]
+        agg: dict[str, list] = {}
+        for q in wm.nonempty_queues():
+            t = tenant_of(q.bucket_id)
+            a = agg.setdefault(t, [0, 0, 0.0, 0.0, 0, self.clock])
+            size = q.size
+            a[0] += size
+            a[1] += getattr(q, "resident_size", size)
+            a[2] += getattr(q, "nbytes", float(size))
+            a[3] += getattr(q, "resident_bytes", float(size))
+            a[4] += 1
+            if q.oldest_arrival < a[5]:
+                a[5] = q.oldest_arrival
+        rate = self.control.arrival_rate if self.control else 0.0
+        hit = self._hit_rate()
+        inflight = self.prefetch.inflight if self.prefetch is not None else 0
+        return {
+            t: Telemetry(
+                now=self.clock,
+                arrival_rate=rate,
+                pending_objects=a[0],
+                resident_objects=a[1],
+                n_queues=a[4],
+                oldest_age_ms=max(0.0, (self.clock - a[5]) * 1e3),
+                cache_hit_rate=hit,
+                occupancy=self._occ_by_tenant.get(t, self._occupancy)
+                if split
+                else self._occupancy,
+                pending_bytes=a[2],
+                resident_bytes=a[3],
+                # Pipeline signals are machine-global (one staging channel),
+                # not per tenant: every slice sees the same values.
+                prefetch_stall_frac=self._stall_frac,
+                prefetch_wasted=self._wasted_last,
+                prefetch_inflight=inflight,
+                # Shared-plan fill is machine-global like the pipeline
+                # signals: one shared executor, every slice sees it.
+                shared_occupancy=self._shared_occ,
+            )
+            for t, a in agg.items()
+        }
+
+    # -- one scheduling round ----------------------------------------------------
+    def round(self) -> Optional[DispatchOutcome]:
+        tenant_vectors: Optional[dict[str, ControlVector]] = None
+        if self._plane is not None:
+            vector, spill_changed, tenant_vectors = self._consult_plane()
+        elif self.control is not None:
+            vector = self.control.update(self.telemetry())
+            if hasattr(self.scheduler, "alpha"):
+                self.scheduler.alpha = vector.alpha
+            grant = self.shard_grant
+            if grant is not None and grant.spill_bytes is not None:
+                # Global tier overrides the local law: the shard spills
+                # against its cross-shard byte grant, engagement decided
+                # by the tier's hysteresis (exactly how the tenant plane
+                # overrides per-loop spill bits with arbiter grants).
+                vector = dataclasses.replace(vector, spill=grant.engaged)
+            spill_changed = apply_spill(
+                self.wm, vector, self.control.cfg,
+                budget_bytes=(
+                    grant.spill_bytes if grant is not None else None
+                ),
+                cost=getattr(self.scheduler, "cost_model", None),
+                now=self.clock,
+            )
+        else:
+            vector = ControlVector(
+                alpha=getattr(self.scheduler, "alpha", 0.0),
+                fuse_k=self._static_fuse_k,
+                spill=False,
+            )
+            spill_changed = []
+
+        k = vector.fuse_k
+        if k > 1 and hasattr(self.scheduler, "select_topk"):
+            decisions = self.scheduler.select_topk(self.wm, self.cache, self.clock, k)
+        else:
+            d = self.scheduler.select(self.wm, self.cache, self.clock)
+            decisions = [] if d is None else [d]
+        if not decisions:
+            return None
+
+        stall = 0.0
+        self._dev_noted = False
+        if self.prefetch is not None:
+            # Between select and execute: harvest due stages, pay residual
+            # stall for demanded in-flight buckets (the executor then sees
+            # them resident and charges no read), recommit the horizon and
+            # issue the next stages to overlap this round's compute.
+            stall = self.prefetch.stage(
+                self.wm, self.clock, decisions,
+                horizon=vector.horizon or None,
+            )
+        cost = stall + self._execute(decisions, vector)
+        self.clock += cost
+        self.busy += cost
+        if self.prefetch is not None:
+            self.prefetch.note_serviced(decisions)
+            self._stall_frac = stall / cost if cost > 0 else 0.0
+            unused = self.cache.stats.prefetch_unused
+            self._wasted_last = unused - self._wasted_base
+            self._wasted_base = unused
+        if self._complete is not None:
+            self._complete(decisions, self.clock)
+        else:
+            for d in decisions:
+                self.wm.complete_bucket(d.bucket_id, self.clock)
+        self.batches += len(decisions)
+        self.dispatches += 1
+        if not self._dev_noted:
+            # Legacy executors issue exactly one device call per round.
+            self.device_dispatches += 1
+        self._occupancy = self._measure_occupancy(decisions)
+        if self._plane is not None:
+            self._measure_tenant_occupancy(decisions)
+        self.last_vector = vector
+        self.last_tenant_vectors = tenant_vectors
+        outcome = DispatchOutcome(
+            tuple(decisions), cost, vector, tuple(spill_changed),
+            tenant_vectors, stall,
+        )
+        if self.on_round is not None:
+            self.on_round(outcome)
+        return outcome
+
+    # -- multi-tenant consult -----------------------------------------------------
+    def _consult_plane(self):
+        """Per-tenant control: slice telemetry by tenant class, run every
+        tenant's feedback laws, thread per-tenant alphas into the shared
+        scheduler (per-bucket blends), and enforce spill per tenant against
+        the arbiter's byte grants.  Returns the merged round vector (what
+        the dispatch mechanics use), the spill transitions, and the
+        per-tenant vectors."""
+        plane = self._plane
+        vecs = plane.update(self._tenant_telemetry())
+        if hasattr(self.scheduler, "set_tenant_alphas"):
+            self.scheduler.set_tenant_alphas(
+                {t: v.alpha for t, v in vecs.items()}, self.tenant_of
+            )
+        changed: list[int] = []
+        cost = getattr(self.scheduler, "cost_model", None)
+        for t, v in vecs.items():
+            grant = (
+                plane.granted_bytes.get(t)
+                if plane.global_budget_bytes is not None
+                else None
+            )
+            changed += apply_spill(
+                self.wm, v, plane.policies[t].config,
+                budget_bytes=grant,
+                only=lambda b, _t=t: self.tenant_of(b) == _t,
+                cost=cost,
+                now=self.clock,
+            )
+        merged = ControlVector(
+            # alpha is informational here — scoring used per-bucket tenant
+            # alphas; fuse_k must cover the hungriest tenant's breadth,
+            # and the horizon the deepest lookahead any tenant asked for.
+            alpha=sum(v.alpha for v in vecs.values()) / max(len(vecs), 1),
+            fuse_k=max((v.fuse_k for v in vecs.values()), default=1),
+            spill=any(v.spill for v in vecs.values()),
+            horizon=max((v.horizon for v in vecs.values()), default=0),
+            share_width=max((v.share_width for v in vecs.values()), default=0),
+        )
+        return merged, changed, dict(vecs)
+
+    def _measure_tenant_occupancy(self, decisions: Sequence[SchedulerDecision]) -> None:
+        """Per-tenant fuse_k feedback: each tenant's AIMD law sees the fill
+        fraction of its own slice of the fused dispatch.  Tenants absent
+        from this round keep their previous signal.  One pass over the
+        queues total (not per tenant)."""
+        by_tenant: dict[str, list[SchedulerDecision]] = {}
+        for d in decisions:
+            by_tenant.setdefault(self.tenant_of(d.bucket_id), []).append(d)
+        if self.batch_capacity:
+            for t, ds in by_tenant.items():
+                cap = self.batch_capacity * len(ds)
+                serviced = sum(
+                    min(d.queue_size, self.batch_capacity) for d in ds
+                )
+                self._occ_by_tenant[t] = min(1.0, serviced / max(cap, 1))
+            return
+        remaining_by_tenant: dict[str, int] = {}
+        for q in self.wm.nonempty_queues():
+            t = self.tenant_of(q.bucket_id)
+            remaining_by_tenant[t] = remaining_by_tenant.get(t, 0) + q.size
+        for t, ds in by_tenant.items():
+            serviced = sum(d.queue_size for d in ds)
+            remaining = remaining_by_tenant.get(t, 0)
+            self._occ_by_tenant[t] = min(
+                1.0, serviced / max(serviced + remaining, 1)
+            )
+
+    def _measure_occupancy(self, decisions: Sequence[SchedulerDecision]) -> float:
+        """Fill fraction of the dispatch just executed, the fuse_k feedback
+        signal.  With a per-bucket batch cap (serving): serviced work over
+        k * cap.  Without one (crossmatch/simulate): the share of pending
+        work this dispatch covered — many shallow queues read as underfull,
+        pushing k up to amortize dispatch."""
+        serviced = sum(d.queue_size for d in decisions)
+        if self.batch_capacity:
+            cap = self.batch_capacity * len(decisions)
+            serviced = sum(min(d.queue_size, self.batch_capacity) for d in decisions)
+            return min(1.0, serviced / max(cap, 1))
+        remaining = sum(q.size for q in self.wm.nonempty_queues())
+        return min(1.0, serviced / max(serviced + remaining, 1))

@@ -1,0 +1,457 @@
+"""Workload decomposition and per-bucket workload queues.
+
+Paper §3.1: a query Q_i is pre-processed into sub-queries; the *workload*
+W_j^i is the set of Q_i's objects that overlap bucket B_j.  The workload
+queue of B_j is the union over queries — requests from many queries are
+interleaved in the same queue and joined in one pass.
+
+A query completes only when every one of its work units has been evaluated
+(the paper's "last-mile bottleneck", §3.3).
+
+§6 workload overflow is *partial* and *byte-accurate* in both directions:
+a queue can spill only its youngest work units to host
+(``spill_bucket(b, frac)``) while the oldest units stay resident — so the
+age term A(i) keeps its monotone now-independent rebase (the oldest
+pending arrival never moves on a spill) and the requesters who have
+waited longest never pay the host round-trip — and it pages back *paged*,
+oldest units first, never exceeding the arbiter's byte grant
+(``unspill_bucket(b, budget_bytes=...)``), so an unspill can never
+re-exceed the budget in one shot.  The mechanics live in the shared
+``SpillQueue`` primitive (``core/spillq.py``), the same container the
+serving engine's per-adapter queues run on.
+Accounting is in actual probe bytes (``CostModel.probe_bytes`` stamped
+onto each unit at submit), not the object-count proxy: the §6 budget is a
+memory budget, and probe payloads — not abstract objects — are what
+occupy it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import operator
+from collections import defaultdict
+from typing import Any, Callable, Iterable
+
+import numpy as np
+
+from .spillq import SpillBookkeepingMixin, SpillQueue
+
+__all__ = ["Query", "WorkUnit", "WorkloadQueue", "WorkloadManager", "DEFAULT_TENANT"]
+
+DEFAULT_TENANT = "default"
+
+
+@dataclasses.dataclass
+class Query:
+    """One incoming query: a set of objects to probe, with key ranges.
+
+    ``keys_lo``/``keys_hi`` are per-object SFC bounding ranges (the paper's
+    per-object HTM ID range covering all potential match regions).
+    ``payload`` carries whatever the evaluator needs (e.g. unit vectors).
+    ``meta['tenant']`` tags the query's tenant class (interactive vs batch)
+    for the multi-tenant control plane; untagged queries are 'default'.
+    """
+
+    query_id: int
+    arrival_time: float
+    keys_lo: np.ndarray
+    keys_hi: np.ndarray
+    payload: dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    meta: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @property
+    def n_objects(self) -> int:
+        return len(self.keys_lo)
+
+    @property
+    def tenant(self) -> str:
+        return self.meta.get("tenant", DEFAULT_TENANT)
+
+
+@dataclasses.dataclass
+class WorkUnit:
+    """W_j^i: the part of query ``query_id`` overlapping bucket ``bucket_id``.
+
+    ``nbytes`` is the unit's probe payload size (object count x the cost
+    model's ``probe_bytes``), stamped at submit — the currency of the §6
+    overflow budget.  ``tenant`` is the parent query's tenant class.
+    """
+
+    query_id: int
+    bucket_id: int
+    object_idx: np.ndarray  # indices into the parent query's object arrays
+    arrival_time: float
+    nbytes: float = 0.0
+    tenant: str = DEFAULT_TENANT
+
+    @property
+    def size(self) -> int:
+        return len(self.object_idx)
+
+
+class WorkloadQueue(SpillQueue):
+    """Pending work units for one bucket — the core instantiation of the
+    shared ``SpillQueue`` primitive (resident-oldest prefix / spilled-
+    youngest suffix; ``core/spillq.py`` owns the spill mechanics, shared
+    with serving's per-adapter queue).
+
+    Invariants the schedulers and the control plane rely on:
+      * ``oldest_arrival`` spans both sides and is maintained O(1) on push
+        (units leave only wholesale via ``drain``), so the incremental
+        scheduler's rebased key stays now-independent;
+      * spilling moves only the *youngest* units — for a partial spill the
+        oldest unit is always resident — and a paged unspill
+        (``unspill_oldest``) returns the *oldest* spilled units first,
+        never exceeding its byte grant;
+      * ``size``/``nbytes`` count all pending work (Eq. 1's |W_i| is
+        unchanged by residency); ``resident_size``/``resident_bytes``
+        count only the resident prefix (the §6 budget target).
+    """
+
+    __slots__ = ("_oldest", "_oldest_tenant")
+
+    def __init__(self, bucket_id: int) -> None:
+        super().__init__(
+            bucket_id,
+            bytes_of=operator.attrgetter("nbytes"),
+            arrival_of=operator.attrgetter("arrival_time"),
+            count_of=operator.attrgetter("size"),
+        )
+        self._oldest = np.inf
+        self._oldest_tenant = DEFAULT_TENANT
+
+    # Historical names for the two sides (tests and the cross-match
+    # engine's probe gather read these directly).
+    @property
+    def units(self) -> list[WorkUnit]:
+        """Resident prefix (the oldest pending work)."""
+        return self.resident
+
+    @property
+    def spilled_units(self) -> list[WorkUnit]:
+        """Spilled suffix (the youngest, on host)."""
+        return self.spilled
+
+    def push(self, unit: WorkUnit) -> None:
+        super().push(unit)
+        if unit.arrival_time < self._oldest:
+            self._oldest = unit.arrival_time
+            self._oldest_tenant = unit.tenant
+
+    def drain(self) -> list[WorkUnit]:
+        units = super().drain()
+        self._oldest = np.inf
+        self._oldest_tenant = DEFAULT_TENANT
+        return units
+
+    @property
+    def oldest_arrival(self) -> float:
+        """Arrival time of the oldest pending unit (either side), O(1)."""
+        return self._oldest if self._size else np.inf
+
+    @property
+    def oldest_tenant(self) -> str:
+        """Tenant class of the oldest pending unit — the bucket's tenant
+        for per-tenant alpha (the oldest requester is who the age term is
+        protecting)."""
+        return self._oldest_tenant
+
+
+class WorkloadManager(SpillBookkeepingMixin):
+    """The paper's Workload Manager (Fig. 3).
+
+    Maintains: per-bucket workload queues, the query -> outstanding-bucket
+    map, and per-queue oldest-request age.  ``decompose`` is the Query
+    Pre-Processor: it maps each query object to the buckets its key range
+    overlaps.  ``probe_bytes`` (normally set from ``CostModel.probe_bytes``
+    by the engine) prices each pending object's host-side state for the §6
+    overflow budget; ``min_unit_bytes`` floors each unit's price so no
+    pending unit is a zero-byte free-rider invisible to the budget and to
+    sigma (``CostModel.min_unit_bytes``).
+    """
+
+    def __init__(
+        self,
+        bucket_of_range: Callable[[int, int], np.ndarray],
+        bucket_of_keys: Callable[[np.ndarray], np.ndarray] | None = None,
+        probe_bytes: float = 1.0,
+        min_unit_bytes: float = 1.0,
+    ):
+        # bucket_of_range(key_lo, key_hi) -> array of overlapping bucket ids
+        # bucket_of_keys(keys) -> bucket id per key (vectorized fast path)
+        self._bucket_of_range = bucket_of_range
+        self._bucket_of_keys = bucket_of_keys
+        self.probe_bytes = float(probe_bytes)
+        self.min_unit_bytes = float(min_unit_bytes)
+        self.queues: dict[int, WorkloadQueue] = {}
+        self.outstanding: dict[int, set[int]] = {}  # query_id -> bucket ids
+        self.queries: dict[int, Query] = {}
+        self.completed: dict[int, float] = {}  # query_id -> completion time
+        self._listeners: list[Callable[[int], None]] = []
+        self._spilled: set[int] = set()  # buckets with any spilled units
+
+    # -- change notification -------------------------------------------------
+    def subscribe(self, fn: Callable[[int], None]) -> Callable[[int], None]:
+        """Register ``fn(bucket_id)`` to fire whenever a bucket's queue
+        contents change (submit/drain/spill).  Incremental schedulers use
+        this to rescore only touched buckets instead of rescanning every
+        queue."""
+        self._listeners.append(fn)
+        return fn
+
+    def unsubscribe(self, fn: Callable[[int], None]) -> None:
+        if fn in self._listeners:
+            self._listeners.remove(fn)
+
+    def _notify(self, bucket_id: int) -> None:
+        for fn in self._listeners:
+            fn(bucket_id)
+
+    def _decompose(self, query: Query) -> dict[int, list[int]]:
+        per_bucket: dict[int, list[int]] = defaultdict(list)
+        if self._bucket_of_keys is not None and query.n_objects:
+            lo_b = self._bucket_of_keys(query.keys_lo)
+            hi_b = self._bucket_of_keys(query.keys_hi)
+            simple = lo_b == hi_b  # the common case: one bucket per object
+            idx = np.nonzero(simple)[0]
+            if len(idx):
+                order = idx[np.argsort(lo_b[idx], kind="stable")]
+                ub, starts = np.unique(lo_b[order], return_index=True)
+                for b, grp in zip(ub, np.split(order, starts[1:])):
+                    per_bucket[int(b)].extend(grp.tolist())
+            for i in np.nonzero(~simple)[0]:
+                for b in range(int(lo_b[i]), int(hi_b[i]) + 1):
+                    per_bucket[int(b)].append(int(i))
+            return per_bucket
+        for i in range(query.n_objects):
+            for b in self._bucket_of_range(
+                int(query.keys_lo[i]), int(query.keys_hi[i])
+            ):
+                per_bucket[int(b)].append(i)
+        return per_bucket
+
+    # -- intake -------------------------------------------------------------
+    def decompose(self, query: Query) -> dict[int, list[int]]:
+        """Public face of the Query Pre-Processor: bucket -> object indices.
+
+        Shard routers decompose once centrally and hand each shard only its
+        owned slice via ``submit_decomposed`` — the object indices always
+        refer to the *original* query arrays, so a sharded engine's probe
+        gather stays valid without renumbering."""
+        return self._decompose(query)
+
+    def submit(self, query: Query) -> list[WorkUnit]:
+        """Pre-process a query into work units and enqueue them."""
+        return self.submit_decomposed(query, self._decompose(query))
+
+    def submit_decomposed(
+        self, query: Query, per_bucket: dict[int, list[int]]
+    ) -> list[WorkUnit]:
+        """Enqueue an already-decomposed query (possibly a shard-local
+        subset of its buckets).  An empty ``per_bucket`` completes the
+        query immediately — for a sharded run that means "this shard owns
+        none of it" and the router must not have routed it here."""
+        units = []
+        self.queries[query.query_id] = query
+        self.outstanding[query.query_id] = set(per_bucket)
+        for b, idx in per_bucket.items():
+            unit = WorkUnit(
+                query_id=query.query_id,
+                bucket_id=b,
+                object_idx=np.asarray(idx, dtype=np.int64),
+                arrival_time=query.arrival_time,
+                nbytes=max(len(idx) * self.probe_bytes, self.min_unit_bytes),
+                tenant=query.tenant,
+            )
+            self.queue(b).push(unit)
+            units.append(unit)
+            self._notify(b)
+        if not per_bucket:  # degenerate empty query completes immediately
+            self.completed[query.query_id] = query.arrival_time
+            del self.outstanding[query.query_id]
+        return units
+
+    # -- shard migration (work stealing) --------------------------------------
+    def migrate_out(self, bucket_id: int) -> list[WorkUnit]:
+        """Remove a bucket's entire pending queue *without* completing it.
+
+        The inverse of ``submit_decomposed`` for one bucket: every affected
+        query's outstanding set drops the bucket here, and the thief's
+        ``migrate_in`` re-adds it there — completion bookkeeping moves with
+        the units instead of firing.  Queries whose local outstanding set
+        empties are forgotten locally (their join lives in the shard tier,
+        never in ``completed``).  Returns the drained units in arrival
+        order (resident prefix then spilled suffix)."""
+        q = self.queues.pop(bucket_id, None)
+        if q is None:
+            return []
+        self._spilled.discard(bucket_id)
+        units = q.drain()
+        for unit in units:
+            pending = self.outstanding.get(unit.query_id)
+            if pending is None:
+                continue
+            pending.discard(bucket_id)
+            if not pending:
+                del self.outstanding[unit.query_id]
+        if units:
+            self._notify(bucket_id)
+        return units
+
+    def migrate_in(
+        self, units: Iterable[WorkUnit], queries: dict[int, Query]
+    ) -> list[WorkUnit]:
+        """Accept work units stolen from another manager.
+
+        ``queries`` maps query_id -> parent Query for any unit whose parent
+        this manager has not seen (the thief needs the original payload
+        arrays for its probe gather).  Units land *resident* — the thief
+        pays their bytes against its own §6 budget on its next enforcement
+        round — and keep their original arrival times, so the age term
+        A(i) is preserved across the migration."""
+        units = list(units)
+        touched: set[int] = set()
+        for unit in units:
+            src = queries.get(unit.query_id)
+            if src is not None:
+                self.queries.setdefault(unit.query_id, src)
+            self.outstanding.setdefault(unit.query_id, set()).add(unit.bucket_id)
+            self.queue(unit.bucket_id).push(unit)
+            touched.add(unit.bucket_id)
+        for b in sorted(touched):
+            self._notify(b)
+        return units
+
+    # -- scheduling support ---------------------------------------------------
+    def nonempty_queues(self) -> list[WorkloadQueue]:
+        return [q for q in self.queues.values() if q]
+
+    def queue(self, bucket_id: int) -> WorkloadQueue:
+        # get-or-create without constructing a throwaway queue per call
+        # (this sits on the per-unit submit hot path).
+        q = self.queues.get(bucket_id)
+        if q is None:
+            q = self.queues[bucket_id] = WorkloadQueue(bucket_id)
+        return q
+
+    def ages_ms(self, now: float) -> dict[int, float]:
+        """A(i): age in milliseconds of the oldest pending request per bucket
+        (§3.3).  Spilled units still age — overflow defers work, it never
+        forgets it."""
+        return {
+            b: (now - q.oldest_arrival) * 1e3
+            for b, q in self.queues.items()
+            if q
+        }
+
+    def tenant_of_bucket(self, bucket_id: int) -> str:
+        """The bucket's tenant class for per-tenant alpha: the tenant of
+        its oldest pending unit (whoever the age term is protecting).
+        Changes only on push/drain, both of which notify subscribers."""
+        q = self.queues.get(bucket_id)
+        return q.oldest_tenant if q else DEFAULT_TENANT
+
+    # -- §6 workload overflow (spill to host) ----------------------------------
+    # is_spilled / spilled_fraction / spill_bucket / unspill_bucket /
+    # spilled_buckets come from SpillBookkeepingMixin — ONE copy of the
+    # §6 bucket protocol, shared with serving's AdapterWorkload.
+
+    def resident_objects(self) -> int:
+        """Pending objects NOT spilled to host."""
+        return sum(q.resident_size for q in self.queues.values() if q)
+
+    def resident_bytes(self) -> float:
+        """Pending probe bytes NOT spilled to host (the §6 budget target)."""
+        return sum(q.resident_bytes for q in self.queues.values() if q)
+
+    def pending_bytes(self) -> float:
+        return sum(q.nbytes for q in self.queues.values() if q)
+
+    def spilled_bytes(self) -> float:
+        return sum(q.spilled_bytes for q in self.queues.values() if q)
+
+    def tenant_pending(self, tenant: str) -> tuple[int, float]:
+        """(pending objects, pending probe bytes) attributable to one
+        tenant class — the admission controller's view of how much of the
+        workload a tenant already occupies, counted over BOTH residency
+        sides (admission guards total pending state, not just the resident
+        prefix; spilling must not launder quota headroom)."""
+        objs, nbytes = 0, 0.0
+        for q in self.queues.values():
+            for unit in q.resident:
+                if unit.tenant == tenant:
+                    objs += unit.size
+                    nbytes += unit.nbytes
+            for unit in q.spilled:
+                if unit.tenant == tenant:
+                    objs += unit.size
+                    nbytes += unit.nbytes
+        return objs, nbytes
+
+    # -- state snapshot ----------------------------------------------------------
+    def snapshot(self) -> dict:
+        """Plain-data view of the manager's full scheduling state (queue
+        contents + order on both residency sides, outstanding joins,
+        completions, spill marks) for the durability tier's replayed-state
+        == live-state assertions."""
+
+        def unit(u: WorkUnit) -> list:
+            return [
+                int(u.query_id), int(u.bucket_id), int(u.size),
+                float(u.arrival_time), float(u.nbytes), u.tenant,
+            ]
+
+        return {
+            "queues": {
+                int(b): q.snapshot(unit)
+                for b, q in sorted(self.queues.items())
+                if q
+            },
+            "outstanding": {
+                int(qid): sorted(int(b) for b in pending)
+                for qid, pending in sorted(self.outstanding.items())
+            },
+            "completed": {
+                int(qid): float(t) for qid, t in sorted(self.completed.items())
+            },
+            "spilled": sorted(int(b) for b in self._spilled),
+        }
+
+    # -- completion ------------------------------------------------------------
+    def complete_bucket(self, bucket_id: int, now: float) -> list[int]:
+        """Drain bucket's queue (both sides — servicing pages the spilled
+        suffix back in); return ids of queries that fully completed."""
+        done = []
+        q = self.queues.get(bucket_id)
+        if q is None:
+            return done
+        self._spilled.discard(bucket_id)
+        if q:
+            self._notify(bucket_id)
+        for unit in q.drain():
+            pending = self.outstanding.get(unit.query_id)
+            if pending is None:
+                continue
+            pending.discard(bucket_id)
+            if not pending:
+                self.completed[unit.query_id] = now
+                del self.outstanding[unit.query_id]
+                done.append(unit.query_id)
+        return done
+
+    # -- introspection ----------------------------------------------------------
+    @property
+    def n_pending_queries(self) -> int:
+        return len(self.outstanding)
+
+    def pending_objects(self) -> int:
+        return sum(q.size for q in self.queues.values())
+
+    def response_times(self) -> dict[int, float]:
+        return {
+            qid: t - self.queries[qid].arrival_time
+            for qid, t in self.completed.items()
+        }
+
+    def tenant_of_query(self, query_id: int) -> str:
+        q = self.queries.get(query_id)
+        return q.tenant if q is not None else DEFAULT_TENANT
