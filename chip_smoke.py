@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's cross-match main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA card: the SkyQuery
+cross-match (K1-K3) and the LifeRaft serving decode of CodeQwen1.5-7B (K4).
 
     python3 chip_smoke.py
 
 Phases; any failure exits non-zero before the last line is printed:
 
-1. build   -- compile ``src/repro_torch/csrc/crossmatch.cu`` with nvcc (into
-              ``build/kernels/``) and load it.
+1. build   -- compile ``src/repro_torch/csrc/crossmatch.cu`` and
+              ``csrc/paged_attention.cu`` with nvcc (one process each, started
+              together, into ``build/kernels/``) and load them.
 2. kernels -- each CUDA kernel (K1 single bucket, K2 fused, K3 shared plan)
               against its plain PyTorch version on the card, at the main
               path's shapes: a bucket of 10,000 rows padded to 16,384 and
@@ -33,6 +35,24 @@ Phases; any failure exits non-zero before the last line is printed:
               with run A's largest probe batch; K2 and K3 on four
               10,000-row buckets (N = 65,536) with the largest probe batch
               of run B and run C.  These cases make the kernels' record.
+5. paged   -- K4 against its plain version on the card, bf16, with a
+              permuted page table and ragged lengths >= 1, at (a) the serving
+              path's own shape (B=8, H=KV=32, D=128, 64 slots in pages of 16,
+              lengths up to 16), (b) ``benchmarks/kernel_bench.py``'s (B=16,
+              H=16, KV=8, page 64 x 32 pages) and (c) CodeQwen's heads at a
+              long cache (B=8, H=KV=32, page 64 x 64 pages).  Tolerance: the
+              reference's for this kernel, rtol = atol = 5e-2 in bf16.  Kernel,
+              plain and one ``scaled_dot_product_attention`` call over the
+              dense K/V with a length mask (``library_ms``) are CUDA-event
+              medians of 20.
+6. serve   -- the port's ``launch/serve.py`` on ``cuda`` at CodeQwen1.5-7B's
+              full config (32 layers, bf16) with the launcher's defaults (40
+              requests, 4 tenants, rate 50, ``liferaft``).  K4's launches must
+              equal 32 x the decode steps; the engine summary must equal the
+              ``--no-decode`` run's; a 2-layer cut of the same widths, with the
+              same seeded weights made on the CPU, must decode 16 steps on the
+              card as on the CPU (step-1 logits within ``BF16_LOGIT_TOL``;
+              greedy tokens equal wherever the CPU's top-2 margin exceeds it).
 
 The last two lines are the kernels' JSON record and the device record.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -41,10 +61,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -61,9 +83,17 @@ from repro_torch.crossmatch import (  # noqa: E402
 )
 from repro_torch.kernels.crossmatch import kernel as K  # noqa: E402
 from repro_torch.kernels.crossmatch import ops, ref  # noqa: E402
+from repro_torch.kernels.paged_attention import kernel as PK  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
+from repro_torch.models import registry as models  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, bf16
+# dense tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 ULPS = 2
 PROBE_COUNTS = (256, 4096, 32768)  # kernel-check probe counts (M)
@@ -77,6 +107,25 @@ REPLACES = {
     "crossmatch_fused": "src/repro/kernels/crossmatch/kernel.py:248",
     "crossmatch_shared": "src/repro/kernels/crossmatch/kernel.py:206",
 }
+PAGED_SOURCE = "src/repro_torch/csrc/paged_attention.cu"
+PAGED_REPLACES = "src/repro/kernels/paged_attention/kernel.py:102"
+PAGED_TOL = 5e-2  # bf16, the reference's (tests/test_kernels.py:235)
+# Phase 5's shapes: (B, H, KV, D, page, pages, longest length).
+PAGED_SHAPES = {
+    "a": (8, 32, 32, 128, math.gcd(64, attn_mod.DECODE_PAGE),
+          64 // math.gcd(64, attn_mod.DECODE_PAGE), 16),
+    "b": (16, 16, 8, 128, 64, 32, 2048),
+    "c": (8, 32, 32, 128, 64, 64, 4096),
+}
+SERVE_ARCH = "codeqwen1.5-7b"
+CPU_LAYERS = 2  # the CPU comparison's cut in depth
+CPU_STEPS = 16
+# Step-1 logits, bf16, cpu vs card: four bf16 ulps at the largest logits
+# (|logit| in [4, 8), ulp 2^-5).  Both runs round every product's f32 sum
+# to bf16; a sum summed in another order lands on the other side of a
+# rounding boundary now and then, one ulp, and the unembedding adds its own.
+BF16_LOGIT_TOL = 2.0**-3
+PROFILE_STEPS = 4
 
 
 def main() -> int:
@@ -94,13 +143,19 @@ def main() -> int:
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    K.build()
-    info = K.build_info()
-    print(f"[build] {info['path']} compiled={info['compiled']} "
-          f"{time.perf_counter() - t0:.2f}s", flush=True)
-    for line in info["log"].splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(m.build) for m in (K, PK)]:
+            fut.result()
+    print(f"[build] both libraries in {time.perf_counter() - t0:.2f}s",
+          flush=True)
+    for mod in (K, PK):
+        info = mod.build_info()
+        print(f"[build] {info['path']} compiled={info['compiled']} "
+              f"{info['seconds']:.2f}s", flush=True)
+        for line in info["log"].splitlines():
+            if ("registers" in line or "Compiling entry" in line
+                    or "spill" in line):
+                print(f"[build]   {line.strip()}")
 
     # -- data: the main path's catalog --------------------------------------
     t0 = time.perf_counter()
@@ -128,24 +183,34 @@ def main() -> int:
     by_run, batches = run_main_path(cat, trace)
 
     # -- 4. kernels at the main path's shapes --------------------------------
-    records = []
-    for c in main_shape_cases(buckets, batches, rng, dev):
-        rec = measure(c)
+    records = [measure(c) for c in main_shape_cases(buckets, batches, rng, dev)]
+
+    # -- 5. K4 against its plain version -------------------------------------
+    paged = {key: measure_paged(key, shape, dev)
+             for key, shape in PAGED_SHAPES.items()}
+    k4 = dict(paged["a"], shapes={k: v for k, v in paged.items() if k != "a"})
+    records.append(k4)
+
+    # -- 6. the serving path ---------------------------------------------------
+    by_run["serve"] = run_serve_path()
+
+    for rec in records:
         rec["launches_by_run"] = {
-            run: counts[c["name"]] for run, counts in by_run.items()
+            run: counts[rec["name"]] for run, counts in by_run.items()
         }
         rec["launches"] = sum(rec["launches_by_run"].values())
-        records.append(rec)
     missing = [r["name"] for r in records if r["launches"] <= 0]
     if missing:
         raise SystemExit(f"main path never launched {missing}")
     for r in records:
-        print(f"[summary] {r['name']} (M={r['m']}, N={r['n']}): kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, dots-only "
-              f"{r['dots_mm_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), main-path launches "
+        extra = (f"dots-only {r['dots_mm_ms']:.4f} ms" if "dots_mm_ms" in r
+                 else f"library {r['library_ms']:.4f} ms")
+        print(f"[summary] {r['name']} ({r['shape']}): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, {extra}, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), launches "
               f"{r['launches_by_run']}")
 
+    print_k5_bound()
     kind = torch.cuda.get_device_name(0)
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": records}))
@@ -402,7 +467,7 @@ def measure(c) -> dict:
         name=c["name"], route="cuda", source=SOURCE,
         replaces=REPLACES[c["name"]], launches=0, max_abs_err=err,
         ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
-        library_ms=None, dots_mm_ms=mm_ms, m=m, n=n,
+        library_ms=None, dots_mm_ms=mm_ms, shape=f"M={m}, N={n}",
     )
 
 
@@ -566,6 +631,15 @@ def compare_results(cat, eng, queries, got, want, label):
     return len(g), n_explained
 
 
+def all_launches() -> dict:
+    return {**K.LAUNCHES, **PK.LAUNCHES}
+
+
+def reset_all_launches() -> None:
+    K.reset_launches()
+    PK.reset_launches()
+
+
 def run_main_path(cat, trace):
     """Phase 3; returns each run's kernel launches and its largest probe
     batch (the engine's ``max_probe_batch``)."""
@@ -575,11 +649,11 @@ def run_main_path(cat, trace):
               "C": "crossmatch_shared"}
     by_run, batches = {}, {}
     for kind in ("A", "B", "C"):
-        K.reset_launches()
+        reset_all_launches()
         eng, log, res, queries, (t_in, t_out) = drive(
             cat, records, kind, DEVICE, len(records)
         )
-        launches = dict(K.LAUNCHES)
+        launches = all_launches()
         by_run[kind] = launches
         batches[kind] = int(eng.max_probe_batch)
         dd = eng.summary()["device_dispatches"]
@@ -617,6 +691,241 @@ def run_main_path(cat, trace):
     for kind in ("A", "B", "C"):
         profile_drain(cat, records, kind)
     return by_run, batches
+
+
+def print_k5_bound() -> None:
+    """The bound of the unported grouped matmul (K5,
+    src/repro/kernels/grouped_matmul/kernel.py:48) at
+    ``benchmarks/kernel_bench.py``'s shape, on this card's peaks."""
+    T, d, f, groups = 4096, 1024, 1024, 4
+    flops = 2.0 * T * d * f
+    nbytes = (T * d + groups * d * f + T * f) * 2  # bf16
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    print(f"[bound] K5 grouped_matmul (not ported) at T={T}, d=f={d}, "
+          f"{groups} groups, bf16: {flops / 1e9:.3f} GFLOP -> "
+          f"{t_ops * 1e3:.5f} ms, {nbytes / 1e6:.3f} MB -> {t_bytes * 1e3:.5f} "
+          f"ms; bound {max(t_ops, t_bytes) * 1e3:.5f} ms "
+          f"({'operations' if t_ops >= t_bytes else 'bytes'})")
+
+# ---------------------------------------------------------------- phase 5
+def paged_inputs(B, H, KV, D, page, pages, max_len, dev, seed):
+    """bf16 q and pools of B * pages pages on the card, a permuted page
+    table and ragged lengths in [1, max_len] (the first at max_len)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = B * pages
+    bf = dict(device=dev, dtype=torch.bfloat16, generator=gen)
+    q = torch.randn(B, H, D, **bf)
+    kp = torch.randn(n, page, KV, D, **bf)
+    vp = torch.randn(n, page, KV, D, **bf)
+    table = torch.randperm(n, device=dev, generator=gen).to(torch.int32)
+    lens = torch.randint(1, max_len + 1, (B,), device=dev, generator=gen,
+                         dtype=torch.int32)
+    lens[0] = max_len
+    return q, kp, vp, table.view(B, pages), lens
+
+
+def measure_paged(key, shape, dev) -> dict:
+    """Phase 5, one shape: K4 against its plain version on the same card
+    inputs, then the CUDA-event medians of the kernel, the plain version and
+    one SDPA call over the dense K/V (gathered once, outside the timing)
+    with a length mask; the bound counts the valid K/V slots' bytes."""
+    B, H, KV, D, page, pages, max_len = shape
+    q, kp, vp, table, lens = paged_inputs(*shape, dev, seed=20 + ord(key))
+    got = PK.paged_attention_kernel(q, kp, vp, table, lens)
+    want = paged_attention_ref(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=PAGED_TOL,
+                          atol=PAGED_TOL):
+        raise SystemExit(f"K4 ({key}) differs from its plain version: "
+                         f"max |diff| {err}")
+    S = page * pages
+    idx = table.long()
+    kd = kp[idx].reshape(B, S, KV, D).transpose(1, 2).contiguous()
+    vd = vp[idx].reshape(B, S, KV, D).transpose(1, 2).contiguous()
+    q4 = q.view(B, H, 1, D)
+    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None]).view(
+        B, 1, 1, S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        return sdpa(q4, kd, vd, attn_mask=mask, enable_gqa=H != KV)
+
+    lib_err = float((library().view(B, H, D).float() - want.float()).abs().max())
+    k_ms = cuda_ms(lambda: PK.paged_attention_kernel(q, kp, vp, table, lens),
+                   REPS)
+    p_ms = cuda_ms(lambda: paged_attention_ref(q, kp, vp, table, lens), REPS)
+    l_ms = cuda_ms(library, REPS)
+    slots = int(lens.sum())
+    esize = q.element_size()
+    nbytes = (2 * slots * KV * D * esize + 2 * q.numel() * esize
+              + table.numel() * 4 + lens.numel() * 4)
+    flops = 4.0 * slots * H * D  # QK and PV, one FMA each
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    bound = max(t_ops, t_bytes) * 1e3
+    label = (f"({key}) B={B} H={H} KV={KV} D={D} page={page}x{pages} "
+             f"lens<= {max_len}, {slots} slots")
+    print(f"[paged] {label}: max |diff| {err:.3e} (SDPA {lib_err:.3e}); "
+          f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA {l_ms:.4f} ms, "
+          f"bound {bound:.4f} ms ({bound_by}, {nbytes / 1e6:.3f} MB)",
+          flush=True)
+    return dict(
+        name="paged_attention", route="cuda", source=PAGED_SOURCE,
+        replaces=PAGED_REPLACES, launches=0, max_abs_err=err, ms=k_ms,
+        plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, library_ms=l_ms,
+        shape=label,
+    )
+
+
+# ---------------------------------------------------------------- phase 6
+def serve_args(*extra):
+    return serve_launcher.build_parser().parse_args(
+        ["--arch", SERVE_ARCH, "--full-config", "--device", DEVICE, *extra])
+
+
+def to_device(tree, dev):
+    return {k: to_device(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def profile_steps(cfg, params, dev) -> None:
+    """Device busy share of a few decode steps under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step = serve_launcher.make_serve_step(cfg, serve_launcher.MAX_SEQ)
+    B = serve_launcher.DECODE_BATCH
+    cache = models.make_cache(cfg, B, serve_launcher.MAX_SEQ, device=dev)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    tok, cache = step(params, tok, cache)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            tok, cache = step(params, tok, cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ev:
+        print(f"[serve] device time not measured (the profiler saw no device "
+              f"events); {PROFILE_STEPS} steps {wall:.4f}s", flush=True)
+        return
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    by_name: dict = {}
+    for e in ev:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    print(f"[serve] profile of {PROFILE_STEPS} steps: wall {wall * 1e3:.3f} ms "
+          f"(profiler on), device busy {busy:.3f} ms "
+          f"({100 * busy / (wall * 1e3):.2f}%), {len(ev)} device events, "
+          f"{len(by_name)} kernel names; the heaviest:", flush=True)
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"[serve]   {ms:9.3f} ms in {n:5d} launches  {name[:90]}")
+    ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    print(f"[serve] host: the operators with the most self time in those "
+          f"{PROFILE_STEPS} steps:", flush=True)
+    for a in ops[:8]:
+        print(f"[serve]   {a.self_cpu_time_total / 1e3:9.3f} ms self in "
+              f"{a.count:5d} calls  {a.key[:60]}")
+
+
+def compare_with_cpu(cfg) -> None:
+    """A 2-layer cut at full width: the same seeded weights, made on the
+    CPU and copied to the card, decode ``CPU_STEPS`` steps on both from
+    zero tokens.  Both runs are fed the CPU's greedy tokens, so a close
+    call on one step does not change the inputs of the next."""
+    cut = dataclasses.replace(cfg, n_layers=CPU_LAYERS)
+    t0 = time.perf_counter()
+    cpu_params = models.init_params(cut, torch.Generator().manual_seed(1))
+    gpu_params = to_device(cpu_params, DEVICE)
+    B, S = serve_launcher.DECODE_BATCH, serve_launcher.MAX_SEQ
+    step = models.decode_fn(cut, S)
+    caches = {d: models.make_cache(cut, B, S, device=d) for d in ("cpu", DEVICE)}
+    tok = torch.zeros((B, 1), dtype=torch.int32)
+    checked, agree, margins = 0, 0, []
+    for i in range(CPU_STEPS):
+        lc, caches["cpu"] = step(cpu_params, tok, caches["cpu"])
+        lg, caches[DEVICE] = step(gpu_params, tok.to(DEVICE), caches[DEVICE])
+        lc, lg = lc[:, -1].float(), lg[:, -1].float().cpu()
+        if i == 0:
+            err = float((lc - lg).abs().max())
+            print(f"[serve] cpu vs card, step 1 logits ({tuple(lc.shape)}, "
+                  f"|logit| <= {float(lc.abs().max()):.3f}): max |diff| "
+                  f"{err:.5f} (tolerance {BF16_LOGIT_TOL})", flush=True)
+            if not (err <= BF16_LOGIT_TOL and torch.isfinite(lg).all()):
+                raise SystemExit("cpu and card step-1 logits differ")
+        top2 = torch.topk(lc, 2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        margins.append(float(margin.min()))
+        sure = margin > BF16_LOGIT_TOL
+        same = lc.argmax(-1) == lg.argmax(-1)
+        checked += int(sure.sum())
+        agree += int((same & sure).sum())
+        if not bool(same[sure].all()):
+            raise SystemExit(f"step {i + 1}: greedy tokens differ where the "
+                             f"cpu margin exceeds {BF16_LOGIT_TOL}")
+        tok = lc.argmax(-1).to(torch.int32)[:, None]
+    print(f"[serve] cpu vs card, {CPU_STEPS} steps at {CPU_LAYERS} layers: "
+          f"greedy tokens agree on {agree} of {checked} checked rows (rows "
+          f"with a cpu top-2 margin > {BF16_LOGIT_TOL}; smallest margin a "
+          f"step {min(margins):.4f}); {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+
+def run_serve_path() -> dict:
+    """Phase 6; returns the serving run's kernel launches."""
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = models.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in iter_leaves(params))
+    print(f"[serve] {SERVE_ARCH}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params / 1e9:.3f} G parameters in "
+          f"{cfg.dtype}, made on the card in {time.perf_counter() - t0:.2f}s",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    summary, stats = serve_launcher.serve(serve_args(), params=params,
+                                          time_steps=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    step_ms = sorted(stats.step_ms())
+    med = step_ms[len(step_ms) // 2]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[serve] engine run: {wall:.3f}s wall, {stats.calls} decode calls, "
+          f"{stats.steps} steps, {stats.request_tokens} request tokens, "
+          f"{stats.padded_tokens} decoded rows (B={serve_launcher.DECODE_BATCH}"
+          f" x steps); step {med:.3f} ms median ({step_ms[0]:.3f}-"
+          f"{step_ms[-1]:.3f}), {serve_launcher.DECODE_BATCH / med * 1e3:.1f} "
+          f"decoded rows/s at the median step, "
+          f"{stats.padded_tokens / wall:.1f} over the wall; peak memory "
+          f"{peak / 2**30:.3f} GiB; launches {launches}", flush=True)
+    if stats.steps <= 0 or launches["paged_attention"] != cfg.n_layers * stats.steps:
+        raise SystemExit(f"K4 launched {launches['paged_attention']} times "
+                         f"for {stats.steps} steps of {cfg.n_layers} layers")
+    dry, dry_stats = serve_launcher.serve(serve_args("--no-decode"))
+    if dry != summary or dry_stats.calls:
+        raise SystemExit("the engine summary differs from the --no-decode run")
+    print(f"[serve] engine summary equals the --no-decode run: "
+          f"{summary['n_completed']} completed, makespan "
+          f"{summary['makespan']!r}, {summary['batches']} batches", flush=True)
+    profile_steps(cfg, params, torch.device(DEVICE))
+    del params
+    torch.cuda.empty_cache()
+    compare_with_cpu(cfg)
+    return launches
+
+
+def iter_leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from iter_leaves(v)
+        else:
+            yield v
 
 
 if __name__ == "__main__":

@@ -14,26 +14,19 @@ wrapper given CPU tensors runs the plain PyTorch version from ``ref``;
 given CUDA tensors it launches the kernel on the current stream, or
 raises.  ``LAUNCHES`` counts kernel launches, one per launch, per kernel.
 
-The source is compiled at first use with ``nvcc`` into a shared library
-with a plain C interface, in ``build/kernels/`` of the checkout (or
-``$REPRO_TORCH_BUILD_DIR``), named by the hash of the source and flags so
-an edited source rebuilds.  Nothing is built when this module is
-imported.
+The source is compiled at first use (``nvcc.CudaLibrary``: nvcc into a
+shared library with a plain C interface, in ``build/kernels/``, rebuilt
+when the source changes).  Nothing is built when this module is imported.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
 import threading
-import time
 from typing import Optional
 
 import torch
 
+from ..nvcc import CudaLibrary
 from .ref import crossmatch_fused_ref, crossmatch_ref, crossmatch_shared_ref
 
 __all__ = [
@@ -51,17 +44,8 @@ __all__ = [
 COORD_PAD = 8  # zero-padded coordinate dimension
 PAD_SEG = float(2**20)  # segment id of padded rows (sorts last, matches none)
 
-SOURCE = pathlib.Path(__file__).resolve().parents[2] / "csrc" / "crossmatch.cu"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-
 LAUNCHES = {"crossmatch": 0, "crossmatch_fused": 0, "crossmatch_shared": 0}
 _count_lock = threading.Lock()
-_build_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-_build_info: dict = {}
 
 
 def reset_launches() -> None:
@@ -75,77 +59,28 @@ def _count(name: str) -> None:
         LAUNCHES[name] += 1
 
 
-def _build_dir() -> pathlib.Path:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return pathlib.Path(env)
-    return pathlib.Path(__file__).resolve().parents[4] / "build" / "kernels"
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.crossmatch_launch.argtypes = [p, p, i, i, f, i, i, i, p, p, p, p]
+    lib.crossmatch_fused_launch.argtypes = [p, p, p, p, i, i, f, p, p, p, p]
+    lib.crossmatch_shared_launch.argtypes = [p, p, p, p, p, i, i, p, p, p, p]
+    for fn in ("crossmatch_launch", "crossmatch_fused_launch",
+               "crossmatch_shared_launch"):
+        getattr(lib, fn).restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = pathlib.Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+LIBRARY = CudaLibrary("crossmatch", _bind)
 
 
 def build() -> ctypes.CDLL:
     """Compile (if the source's hash is new) and load the kernel library."""
-    global _lib
-    with _build_lock:
-        if _lib is not None:
-            return _lib
-        digest = hashlib.sha256(
-            SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        out_dir = _build_dir()
-        out_dir.mkdir(parents=True, exist_ok=True)
-        lib_path = out_dir / f"libcrossmatch_{digest}.so"
-        t0 = time.perf_counter()
-        compiled = False
-        log = ""
-        if not lib_path.exists():
-            tmp = out_dir / f".{lib_path.name}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-            os.replace(tmp, lib_path)
-            (out_dir / f"libcrossmatch_{digest}.log").write_text(log)
-            compiled = True
-        lib = ctypes.CDLL(str(lib_path))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.crossmatch_launch.argtypes = [p, p, i, i, f, i, i, i, p, p, p, p]
-        lib.crossmatch_fused_launch.argtypes = [p, p, p, p, i, i, f, p, p, p, p]
-        lib.crossmatch_shared_launch.argtypes = [p, p, p, p, p, i, i, p, p, p, p]
-        for fn in ("crossmatch_launch", "crossmatch_fused_launch",
-                   "crossmatch_shared_launch"):
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.crossmatch_error_string.argtypes = [ctypes.c_int]
-        lib.crossmatch_error_string.restype = ctypes.c_char_p
-        _build_info.update(
-            path=str(lib_path), compiled=compiled,
-            seconds=time.perf_counter() - t0, log=log,
-        )
-        _lib = lib
-        return lib
+    return LIBRARY.load()
 
 
 def build_info() -> dict:
     """Library path, whether this process compiled it, the build's wall
     seconds and nvcc's output (ptxas register/shared-memory report)."""
-    return dict(_build_info)
-
-
-def _check_launch(lib: ctypes.CDLL, code: int, name: str) -> None:
-    if code != 0:
-        msg = lib.crossmatch_error_string(code).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
+    return LIBRARY.info()
 
 
 def _check_rows(x: torch.Tensor, what: str, dev: torch.device) -> None:
@@ -217,7 +152,7 @@ def crossmatch_kernel(
             -1 if band is None else int(band), bm, bn,
             idx.data_ptr(), dot.data_ptr(), cnt.data_ptr(), _stream(),
         )
-    _check_launch(lib, code, "crossmatch")
+    LIBRARY.check(code, "crossmatch")
     _count("crossmatch")
     return idx, dot, cnt
 
@@ -247,7 +182,7 @@ def crossmatch_fused_kernel(
             probe_seg.data_ptr(), n, m, float(cos_thr),
             idx.data_ptr(), dot.data_ptr(), cnt.data_ptr(), _stream(),
         )
-    _check_launch(lib, code, "crossmatch_fused")
+    LIBRARY.check(code, "crossmatch_fused")
     _count("crossmatch_fused")
     return idx, dot, cnt
 
@@ -279,6 +214,6 @@ def crossmatch_shared_kernel(
             probe_seg.data_ptr(), probe_thr.data_ptr(), n, m,
             idx.data_ptr(), dot.data_ptr(), cnt.data_ptr(), _stream(),
         )
-    _check_launch(lib, code, "crossmatch_shared")
+    LIBRARY.check(code, "crossmatch_shared")
     _count("crossmatch_shared")
     return idx, dot, cnt

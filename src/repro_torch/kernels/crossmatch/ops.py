@@ -34,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...device import resolve_device
 from .kernel import (
     COORD_PAD,
     PAD_SEG,
@@ -47,19 +48,6 @@ __all__ = ["crossmatch", "crossmatch_fused", "crossmatch_shared", "resolve_devic
 _PAD_THR = 2.0  # threshold for padded probe rows: above any dot, passes never
 _MARKER_COL = 3  # first zero-padded coordinate column; see module docstring
 _MIN_SHAPE = 8  # floor for power-of-two shape buckets
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a torch device; ``None`` means ``cuda``, which must
-    exist -- there is no silent fall back to the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run the plain PyTorch "
-                "version"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def _pow2_ceil(n: int, floor: int = _MIN_SHAPE) -> int:

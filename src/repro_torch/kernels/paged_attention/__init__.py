@@ -1,0 +1,2 @@
+"""Paged decode attention: the CUDA kernel (``kernel``), its plain PyTorch
+version (``ref``) and the wrappers the model calls (``ops``)."""

@@ -11,6 +11,11 @@ CPU, through ``torch.mm`` at the padded power-of-two shapes; the JAX
 reference's jnp.dot on the CPU takes that order from a padded bucket of 64
 rows up, and another one below, where the two differ by up to 2**-23.
 
+The paged decode-attention kernel (K4) is held to its plain version at the
+reference's tolerances for it: rtol = atol = 5e-2 in bfloat16 and 2e-5 in
+float32 (``tests/test_kernels.py:220``, ``:235``), at the serving path's
+shape and at ``benchmarks/kernel_bench.py``'s.
+
 The tests here are marked ``cuda``: they run the CUDA kernels on a card
 against the plain versions on the CPU, and skip without one.  They import
 only the port (the card's machine has no JAX):
@@ -28,6 +33,8 @@ from repro_torch import crossmatch as tcm  # noqa: E402
 from repro_torch.core.sfc import htm_id  # noqa: E402
 from repro_torch.kernels.crossmatch import kernel as tkernel  # noqa: E402
 from repro_torch.kernels.crossmatch import ops as tops  # noqa: E402
+from repro_torch.kernels.paged_attention import kernel as pkernel  # noqa: E402
+from repro_torch.kernels.paged_attention import ops as pops  # noqa: E402
 
 CPU = "cpu"
 DOT_TOL = 2.0**-23  # one ulp at 1.0
@@ -176,3 +183,81 @@ def test_concurrent_shards_match_the_cpu(card):
         for k, res in out.items()
     }
     assert flat["cpu"] == flat["cuda"]
+
+
+# ------------------------------------------------------------------ K4
+PAGED_TOL = {torch.bfloat16: 5e-2, torch.float32: 2e-5}
+
+
+def _paged_case(rng, B, H, KV, D, page, pages, max_len, dtype):
+    """Pools of B * pages pages in a shuffled order (the table is a
+    permutation, not the identity) and ragged lengths in [1, max_len]."""
+    n = B * pages
+    q = torch.from_numpy(rng.normal(size=(B, H, D)).astype(np.float32))
+    kp = torch.from_numpy(rng.normal(size=(n, page, KV, D)).astype(np.float32))
+    vp = torch.from_numpy(rng.normal(size=(n, page, KV, D)).astype(np.float32))
+    pt = torch.from_numpy(rng.permutation(n).astype(np.int32).reshape(B, pages))
+    lens = rng.integers(1, max_len + 1, B).astype(np.int32)
+    lens[0] = max_len
+    return [x.to(dtype) for x in (q, kp, vp)] + [pt, torch.from_numpy(lens)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [
+    (8, 32, 32, 128, 16, 4, 16),  # (a) the serving path: S_alloc 64, lens 16
+    (16, 16, 8, 128, 64, 32, 64 * 32),  # (b) kernel_bench's shape
+    (3, 12, 4, 64, 8, 5, 40),  # G = 3, D = 64, a ragged last page
+], ids=["serve", "kernel_bench", "ragged"])
+def test_k4_kernel_matches_plain(card, shape, dtype):
+    B, H, KV, D, page, pages, max_len = shape
+    args = _paged_case(np.random.default_rng(B * H), B, H, KV, D, page,
+                       pages, max_len, dtype)
+    want = pops.paged_attention(*args)
+    before = pkernel.LAUNCHES["paged_attention"]
+    got = pops.paged_attention(*[x.to(card) for x in args])
+    torch.cuda.synchronize()
+    assert pkernel.LAUNCHES["paged_attention"] == before + 1
+    assert got.is_cuda and got.dtype == dtype and got.shape == want.shape
+    tol = PAGED_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_k4_zero_length_and_bad_pages(card):
+    """seq_len 0 gives 0 (as the Pallas kernel); a page index out of range
+    gives NaN rows instead of a read out of bounds."""
+    args = _paged_case(np.random.default_rng(1), 2, 4, 2, 32, 8, 2, 16,
+                       torch.float32)
+    q, kp, vp, pt, lens = [x.to(card) for x in args]
+    lens[0] = 0
+    out = pops.paged_attention(q, kp, vp, pt, lens)
+    assert torch.count_nonzero(out[0]).item() == 0
+    pt[1, 0] = kp.shape[0]
+    out = pops.paged_attention(q, kp, vp, pt, lens)
+    assert torch.isnan(out[1]).all() and not torch.isnan(out[0]).any()
+
+
+@pytest.mark.cuda
+def test_k4_wrapper_refuses_what_the_kernel_does_not_take(card):
+    q, kp, vp, pt, lens = [x.to(card) for x in _paged_case(
+        np.random.default_rng(2), 2, 4, 2, 32, 8, 2, 16, torch.float32)]
+    k = pkernel.paged_attention_kernel
+    with pytest.raises(ValueError):
+        k(q.half(), kp.half(), vp.half(), pt, lens)  # dtype
+    with pytest.raises(ValueError):
+        k(q, kp.bfloat16(), vp, pt, lens)  # mixed dtypes
+    with pytest.raises(ValueError):
+        k(q, kp, vp, pt.long(), lens)  # table type
+    with pytest.raises(ValueError):
+        k(q, kp, vp, pt, lens.cpu())  # device
+    with pytest.raises(ValueError):
+        k(q[:, :3], kp, vp, pt, lens)  # H % KV
+    big = torch.zeros(2, 4, 512, device=card)
+    with pytest.raises(ValueError):
+        k(big, torch.zeros(4, 8, 2, 512, device=card),
+          torch.zeros(4, 8, 2, 512, device=card), pt, lens)  # head_dim
+    with pytest.raises(ValueError):
+        k(q.transpose(0, 1).contiguous().transpose(0, 1), kp, vp, pt, lens)

@@ -2,8 +2,8 @@
 shares with the JAX reference.
 
 * No file of ``src/repro_torch/`` nor ``chip_smoke.py`` imports ``jax`` or
-  the JAX package ``repro``; importing and running the port leaves both
-  out of ``sys.modules``.
+  the JAX package ``repro``; importing and running the port (a cross-match
+  and the serving launcher) leaves both out of ``sys.modules``.
 * The device picks the path: without ``device`` an entry point runs on
   ``cuda`` and raises where there is none; nothing falls back to the CPU
   (the kernel package has no ``try``).
@@ -30,6 +30,12 @@ from repro_torch.crossmatch import make_catalog as t_make_catalog  # noqa: E402
 from repro_torch.crossmatch import make_trace as t_make_trace, TraceConfig as TTC  # noqa: E402
 from repro_torch.kernels.crossmatch import kernel as tkernel  # noqa: E402
 from repro_torch.kernels.crossmatch import ops as tops  # noqa: E402
+from repro_torch.kernels import nvcc  # noqa: E402
+from repro_torch.kernels.paged_attention import kernel as pkernel  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.models import registry as tmodels  # noqa: E402
+from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.serving import PagePool  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -72,12 +78,15 @@ def test_running_the_port_imports_neither_jax_nor_repro():
         "import numpy as np\n"
         "from repro_torch.crossmatch import CrossMatchEngine, TraceConfig, "
         "make_catalog, make_trace\n"
+        "from repro_torch.launch import serve\n"
         "cat = make_catalog(n_objects=2000, objects_per_bucket=100, "
         "htm_level=6, seed=1)\n"
         "tr = make_trace(cat, TraceConfig(n_queries=4, objects_median=20, seed=2))\n"
         "eng = CrossMatchEngine(cat, match_radius_rad=4e-3, fuse_k=2, device='cpu')\n"
         "res = eng.run(tr)\n"
         "assert len(eng.wm.response_times()) == 4\n"
+        "serve.main(['--arch', 'codeqwen1.5-7b', '--requests', '2', "
+        "'--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -89,7 +98,7 @@ def test_running_the_port_imports_neither_jax_nor_repro():
         timeout=300,
     )
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_default_device_is_cuda_and_never_the_cpu():
@@ -97,11 +106,17 @@ def test_default_device_is_cuda_and_never_the_cpu():
     pts = cat.positions[:4]
     if torch.cuda.is_available():
         assert tops.resolve_device(None).type == "cuda"
+        assert PagePool(4, 4, 1, 8).k_pages.is_cuda
         assert CrossMatchEngine(cat).device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="no CUDA"):
         CrossMatchEngine(cat)
+    cfg = smoke_config("codeqwen1.5-7b")
     for call in (
+        lambda: tmodels.init_params(cfg),
+        lambda: tmodels.make_cache(cfg, 2, 16),
+        lambda: PagePool(4, 4, 1, 8),
+        lambda: tserve.main(["--arch", cfg.name, "--requests", "2"]),
         lambda: tops.crossmatch(pts, pts, 0.9),
         lambda: tops.crossmatch_fused(pts, pts, np.zeros(4), np.zeros(4), 0.9),
         lambda: tops.crossmatch_shared(
@@ -112,15 +127,28 @@ def test_default_device_is_cuda_and_never_the_cpu():
             call()
 
 
-def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+@pytest.mark.parametrize("module", [tkernel, pkernel],
+                         ids=["crossmatch", "paged_attention"])
+def test_build_without_nvcc_raises(monkeypatch, tmp_path, module):
     """No toolkit: the build raises rather than leaving a stub behind."""
-    monkeypatch.setattr(tkernel.shutil, "which", lambda name: None)
+    monkeypatch.setattr(nvcc.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
-    monkeypatch.setattr(tkernel, "_lib", None)
+    monkeypatch.setattr(module.LIBRARY, "_lib", None)
     with pytest.raises(RuntimeError, match="nvcc"):
-        tkernel.build()
+        module.build()
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_both_kernel_modules_share_one_build_helper():
+    """One nvcc/ctypes build path, one set of flags, for every source."""
+    assert tkernel.LIBRARY.source == nvcc.CSRC / "crossmatch.cu"
+    assert pkernel.LIBRARY.source == nvcc.CSRC / "paged_attention.cu"
+    assert all(m.LIBRARY.source.exists() for m in (tkernel, pkernel))
+    assert nvcc.NVCC_FLAGS == (
+        "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    )
 
 
 def test_launch_counts_lose_no_update_across_threads():
