@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card: the SkyQuery
-cross-match (K1-K3) and the LifeRaft serving decode of CodeQwen1.5-7B (K4).
+cross-match (K1-K3), the LifeRaft serving decode of CodeQwen1.5-7B (K4) and
+of the MoE moonshot-v1-16b-a3b (K4 and the grouped matmul K5).
 
     python3 chip_smoke.py
 
 Phases; any failure exits non-zero before the last line is printed:
 
-1. build   -- compile ``src/repro_torch/csrc/crossmatch.cu`` and
-              ``csrc/paged_attention.cu`` with nvcc (one process each, started
-              together, into ``build/kernels/``) and load them.
+1. build   -- compile ``src/repro_torch/csrc/crossmatch.cu``,
+              ``csrc/paged_attention.cu`` and ``csrc/grouped_matmul.cu`` with
+              nvcc (one process each, started together, into
+              ``build/kernels/``) and load them.
 2. kernels -- each CUDA kernel (K1 single bucket, K2 fused, K3 shared plan)
               against its plain PyTorch version on the card, at the main
               path's shapes: a bucket of 10,000 rows padded to 16,384 and
@@ -39,12 +41,13 @@ Phases; any failure exits non-zero before the last line is printed:
               permuted page table and ragged lengths >= 1, at (a) the serving
               path's own shape (B=8, H=KV=32, D=128, 64 slots in pages of 16,
               lengths up to 16), (b) ``benchmarks/kernel_bench.py``'s (B=16,
-              H=16, KV=8, page 64 x 32 pages) and (c) CodeQwen's heads at a
-              long cache (B=8, H=KV=32, page 64 x 64 pages).  Tolerance: the
-              reference's for this kernel, rtol = atol = 5e-2 in bf16.  Kernel,
-              plain and one ``scaled_dot_product_attention`` call over the
-              dense K/V with a length mask (``library_ms``) are CUDA-event
-              medians of 20.
+              H=16, KV=8, page 64 x 32 pages), (c) CodeQwen's heads at a
+              long cache (B=8, H=KV=32, page 64 x 64 pages) and (d) the MoE
+              serving path's own shape (moonshot: H=KV=16, otherwise as
+              (a)).  Tolerance: the reference's for this kernel, rtol = atol
+              = 5e-2 in bf16.  Kernel, plain and one
+              ``scaled_dot_product_attention`` call over the dense K/V with a
+              length mask (``library_ms``) are CUDA-event medians of 20.
 6. serve   -- the port's ``launch/serve.py`` on ``cuda`` at CodeQwen1.5-7B's
               full config (32 layers, bf16) with the launcher's defaults (40
               requests, 4 tenants, rate 50, ``liferaft``).  K4's launches must
@@ -53,6 +56,24 @@ Phases; any failure exits non-zero before the last line is printed:
               same seeded weights made on the CPU, must decode 16 steps on the
               card as on the CPU (step-1 logits within ``BF16_LOGIT_TOL``;
               greedy tokens equal wherever the CPU's top-2 margin exceeds it).
+              CodeQwen's weights are freed before phase 8.
+7. grouped -- K5 against its plain version on the card at (a) moonshot's
+              gate/up products (T = 16,384 capacity rows, 64 groups of 256,
+              d = 2048, f = 1408, bf16), (a') its down product (d = 1408,
+              f = 2048) and (b) ``benchmarks/kernel_bench.py``'s shape (T =
+              4096, d = f = 1024, groups [512, 1024, 512, 2048]) in bf16 and
+              f32.  Tolerance: the reference's, rtol = atol = 5e-2 in bf16 and
+              1e-5 in f32 (``tests/test_kernels.py:173``).  Kernel, plain and
+              library call (``torch.bmm`` on the (E, C, d) view at (a)/(a'),
+              ``torch._grouped_mm`` with offsets at (b) bf16 where the card's
+              torch has it) are CUDA-event medians of 20.
+8. moe     -- ``launch/serve.py`` on ``cuda`` at moonshot-v1-16b-a3b's full
+              config (48 layers, 64 experts top-6, 28.06 G parameters in
+              bf16) with the launcher's defaults.  K5's launches must equal
+              3 x 48 x the decode steps and K4's 48 x the steps; the engine
+              summary must equal the ``--no-decode`` run's; a 2-layer cut at
+              full width decodes 4 steps on the card as on the CPU under
+              phase 6's rules.
 
 The last two lines are the kernels' JSON record and the device record.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -83,6 +104,9 @@ from repro_torch.crossmatch import (  # noqa: E402
 )
 from repro_torch.kernels.crossmatch import kernel as K  # noqa: E402
 from repro_torch.kernels.crossmatch import ops, ref  # noqa: E402
+from repro_torch.kernels.grouped_matmul import kernel as GK  # noqa: E402
+from repro_torch.kernels.grouped_matmul import ops as gmm_ops  # noqa: E402
+from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_tiles_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as PK  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
@@ -116,10 +140,28 @@ PAGED_SHAPES = {
           64 // math.gcd(64, attn_mod.DECODE_PAGE), 16),
     "b": (16, 16, 8, 128, 64, 32, 2048),
     "c": (8, 32, 32, 128, 64, 64, 4096),
+    "d": (8, 16, 16, 128, math.gcd(64, attn_mod.DECODE_PAGE),
+          64 // math.gcd(64, attn_mod.DECODE_PAGE), 16),
 }
 SERVE_ARCH = "codeqwen1.5-7b"
+MOE_ARCH = "moonshot-v1-16b-a3b"
 CPU_LAYERS = 2  # the CPU comparison's cut in depth
 CPU_STEPS = 16
+# The MoE cut's CPU expert products are 567 GFLOP a step: 4 steps.
+MOE_CPU_STEPS = 4
+GMM_SOURCE = "src/repro_torch/csrc/grouped_matmul.cu"
+GMM_REPLACES = "src/repro/kernels/grouped_matmul/kernel.py:48"
+GMM_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-5}  # tests/test_kernels.py:173
+GMM_BT = 128
+# Phase 7's shapes: (T, d, f, group sizes, dtype, weight scale).  The
+# weights of (a)/(a') are the model's init scale, 1/sqrt(d); (b) takes
+# kernel_bench's 0.02.
+GMM_SHAPES = {
+    "a": (16384, 2048, 1408, [256] * 64, torch.bfloat16, 2048 ** -0.5),
+    "a'": (16384, 1408, 2048, [256] * 64, torch.bfloat16, 1408 ** -0.5),
+    "b bf16": (4096, 1024, 1024, [512, 1024, 512, 2048], torch.bfloat16, 0.02),
+    "b f32": (4096, 1024, 1024, [512, 1024, 512, 2048], torch.float32, 0.02),
+}
 # Step-1 logits, bf16, cpu vs card: four bf16 ulps at the largest logits
 # (|logit| in [4, 8), ulp 2^-5).  Both runs round every product's f32 sum
 # to bf16; a sum summed in another order lands on the other side of a
@@ -143,12 +185,12 @@ def main() -> int:
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(m.build) for m in (K, PK)]:
+    with ThreadPoolExecutor(3) as pool:
+        for fut in [pool.submit(m.build) for m in (K, PK, GK)]:
             fut.result()
-    print(f"[build] both libraries in {time.perf_counter() - t0:.2f}s",
+    print(f"[build] three libraries in {time.perf_counter() - t0:.2f}s",
           flush=True)
-    for mod in (K, PK):
+    for mod in (K, PK, GK):
         info = mod.build_info()
         print(f"[build] {info['path']} compiled={info['compiled']} "
               f"{info['seconds']:.2f}s", flush=True)
@@ -192,7 +234,20 @@ def main() -> int:
     records.append(k4)
 
     # -- 6. the serving path ---------------------------------------------------
-    by_run["serve"] = run_serve_path()
+    t0 = time.perf_counter()
+    by_run["serve"] = run_serve_path(SERVE_ARCH, "serve", CPU_STEPS)
+    print(f"[serve] phase 6 in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # -- 7. K5 against its plain version -------------------------------------
+    grouped = {key: measure_grouped(key, shape, dev)
+               for key, shape in GMM_SHAPES.items()}
+    records.append(dict(grouped["a"], shapes={
+        k: v for k, v in grouped.items() if k != "a"}))
+
+    # -- 8. the MoE serving path ----------------------------------------------
+    t0 = time.perf_counter()
+    by_run["moe"] = run_serve_path(MOE_ARCH, "moe", MOE_CPU_STEPS)
+    print(f"[moe] phase 8 in {time.perf_counter() - t0:.1f}s", flush=True)
 
     for rec in records:
         rec["launches_by_run"] = {
@@ -203,14 +258,15 @@ def main() -> int:
     if missing:
         raise SystemExit(f"main path never launched {missing}")
     for r in records:
+        lib = r.get("library_ms")
         extra = (f"dots-only {r['dots_mm_ms']:.4f} ms" if "dots_mm_ms" in r
-                 else f"library {r['library_ms']:.4f} ms")
+                 else f"library {lib:.4f} ms" if lib is not None
+                 else "library none")
         print(f"[summary] {r['name']} ({r['shape']}): kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, {extra}, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), launches "
               f"{r['launches_by_run']}")
 
-    print_k5_bound()
     kind = torch.cuda.get_device_name(0)
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": records}))
@@ -632,12 +688,13 @@ def compare_results(cat, eng, queries, got, want, label):
 
 
 def all_launches() -> dict:
-    return {**K.LAUNCHES, **PK.LAUNCHES}
+    return {**K.LAUNCHES, **PK.LAUNCHES, **GK.LAUNCHES}
 
 
 def reset_all_launches() -> None:
     K.reset_launches()
     PK.reset_launches()
+    GK.reset_launches()
 
 
 def run_main_path(cat, trace):
@@ -692,20 +749,6 @@ def run_main_path(cat, trace):
         profile_drain(cat, records, kind)
     return by_run, batches
 
-
-def print_k5_bound() -> None:
-    """The bound of the unported grouped matmul (K5,
-    src/repro/kernels/grouped_matmul/kernel.py:48) at
-    ``benchmarks/kernel_bench.py``'s shape, on this card's peaks."""
-    T, d, f, groups = 4096, 1024, 1024, 4
-    flops = 2.0 * T * d * f
-    nbytes = (T * d + groups * d * f + T * f) * 2  # bf16
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    print(f"[bound] K5 grouped_matmul (not ported) at T={T}, d=f={d}, "
-          f"{groups} groups, bf16: {flops / 1e9:.3f} GFLOP -> "
-          f"{t_ops * 1e3:.5f} ms, {nbytes / 1e6:.3f} MB -> {t_bytes * 1e3:.5f} "
-          f"ms; bound {max(t_ops, t_bytes) * 1e3:.5f} ms "
-          f"({'operations' if t_ops >= t_bytes else 'bytes'})")
 
 # ---------------------------------------------------------------- phase 5
 def paged_inputs(B, H, KV, D, page, pages, max_len, dev, seed):
@@ -778,10 +821,12 @@ def measure_paged(key, shape, dev) -> dict:
     )
 
 
-# ---------------------------------------------------------------- phase 6
-def serve_args(*extra):
+
+
+# ---------------------------------------------------------------- phase 6, 8
+def serve_args(arch, *extra):
     return serve_launcher.build_parser().parse_args(
-        ["--arch", SERVE_ARCH, "--full-config", "--device", DEVICE, *extra])
+        ["--arch", arch, "--full-config", "--device", DEVICE, *extra])
 
 
 def to_device(tree, dev):
@@ -789,8 +834,9 @@ def to_device(tree, dev):
             for k, v in tree.items()}
 
 
-def profile_steps(cfg, params, dev) -> None:
-    """Device busy share of a few decode steps under torch.profiler."""
+def profile_steps(cfg, params, dev, tag) -> None:
+    """Device busy share of a few decode steps under torch.profiler, K5's
+    share of the device time and the heaviest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -808,7 +854,7 @@ def profile_steps(cfg, params, dev) -> None:
         wall = time.perf_counter() - t0
     ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not ev:
-        print(f"[serve] device time not measured (the profiler saw no device "
+        print(f"[{tag}] device time not measured (the profiler saw no device "
               f"events); {PROFILE_STEPS} steps {wall:.4f}s", flush=True)
         return
     busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
@@ -816,25 +862,28 @@ def profile_steps(cfg, params, dev) -> None:
     for e in ev:
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    print(f"[serve] profile of {PROFILE_STEPS} steps: wall {wall * 1e3:.3f} ms "
+    k5 = [v for name, v in by_name.items() if "gmm_" in name]
+    k5_ms, k5_n = sum(v[0] for v in k5), sum(v[1] for v in k5)
+    print(f"[{tag}] profile of {PROFILE_STEPS} steps: wall {wall * 1e3:.3f} ms "
           f"(profiler on), device busy {busy:.3f} ms "
-          f"({100 * busy / (wall * 1e3):.2f}%), {len(ev)} device events, "
-          f"{len(by_name)} kernel names; the heaviest:", flush=True)
+          f"({100 * busy / (wall * 1e3):.2f}%), K5 {k5_ms:.3f} ms in {k5_n} "
+          f"launches ({k5_ms / PROFILE_STEPS:.3f} ms a step), {len(ev)} device "
+          f"events, {len(by_name)} kernel names; the heaviest:", flush=True)
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"[serve]   {ms:9.3f} ms in {n:5d} launches  {name[:90]}")
-    ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
-    print(f"[serve] host: the operators with the most self time in those "
+        print(f"[{tag}]   {ms:9.3f} ms in {n:5d} launches  {name[:90]}")
+    ops_ = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    print(f"[{tag}] host: the operators with the most self time in those "
           f"{PROFILE_STEPS} steps:", flush=True)
-    for a in ops[:8]:
-        print(f"[serve]   {a.self_cpu_time_total / 1e3:9.3f} ms self in "
+    for a in ops_[:8]:
+        print(f"[{tag}]   {a.self_cpu_time_total / 1e3:9.3f} ms self in "
               f"{a.count:5d} calls  {a.key[:60]}")
 
 
-def compare_with_cpu(cfg) -> None:
+def compare_with_cpu(cfg, steps, tag) -> None:
     """A 2-layer cut at full width: the same seeded weights, made on the
-    CPU and copied to the card, decode ``CPU_STEPS`` steps on both from
-    zero tokens.  Both runs are fed the CPU's greedy tokens, so a close
-    call on one step does not change the inputs of the next."""
+    CPU and copied to the card, decode ``steps`` steps on both from zero
+    tokens.  Both runs are fed the CPU's greedy tokens, so a close call on
+    one step does not change the inputs of the next."""
     cut = dataclasses.replace(cfg, n_layers=CPU_LAYERS)
     t0 = time.perf_counter()
     cpu_params = models.init_params(cut, torch.Generator().manual_seed(1))
@@ -844,17 +893,17 @@ def compare_with_cpu(cfg) -> None:
     caches = {d: models.make_cache(cut, B, S, device=d) for d in ("cpu", DEVICE)}
     tok = torch.zeros((B, 1), dtype=torch.int32)
     checked, agree, margins = 0, 0, []
-    for i in range(CPU_STEPS):
+    for i in range(steps):
         lc, caches["cpu"] = step(cpu_params, tok, caches["cpu"])
         lg, caches[DEVICE] = step(gpu_params, tok.to(DEVICE), caches[DEVICE])
         lc, lg = lc[:, -1].float(), lg[:, -1].float().cpu()
         if i == 0:
             err = float((lc - lg).abs().max())
-            print(f"[serve] cpu vs card, step 1 logits ({tuple(lc.shape)}, "
+            print(f"[{tag}] cpu vs card, step 1 logits ({tuple(lc.shape)}, "
                   f"|logit| <= {float(lc.abs().max()):.3f}): max |diff| "
                   f"{err:.5f} (tolerance {BF16_LOGIT_TOL})", flush=True)
             if not (err <= BF16_LOGIT_TOL and torch.isfinite(lg).all()):
-                raise SystemExit("cpu and card step-1 logits differ")
+                raise SystemExit(f"{tag}: cpu and card step-1 logits differ")
         top2 = torch.topk(lc, 2, dim=-1).values
         margin = top2[:, 0] - top2[:, 1]
         margins.append(float(margin.min()))
@@ -863,32 +912,34 @@ def compare_with_cpu(cfg) -> None:
         checked += int(sure.sum())
         agree += int((same & sure).sum())
         if not bool(same[sure].all()):
-            raise SystemExit(f"step {i + 1}: greedy tokens differ where the "
-                             f"cpu margin exceeds {BF16_LOGIT_TOL}")
+            raise SystemExit(f"{tag} step {i + 1}: greedy tokens differ where "
+                             f"the cpu margin exceeds {BF16_LOGIT_TOL}")
         tok = lc.argmax(-1).to(torch.int32)[:, None]
-    print(f"[serve] cpu vs card, {CPU_STEPS} steps at {CPU_LAYERS} layers: "
+    print(f"[{tag}] cpu vs card, {steps} steps at {CPU_LAYERS} layers: "
           f"greedy tokens agree on {agree} of {checked} checked rows (rows "
           f"with a cpu top-2 margin > {BF16_LOGIT_TOL}; smallest margin a "
           f"step {min(margins):.4f}); {time.perf_counter() - t0:.1f}s",
           flush=True)
 
 
-def run_serve_path() -> dict:
-    """Phase 6; returns the serving run's kernel launches."""
-    cfg = get_config(SERVE_ARCH)
+def run_serve_path(arch, tag, cpu_steps) -> dict:
+    """Phase 6 (dense) or 8 (MoE) for ``arch`` at its full config; returns
+    the serving run's kernel launches, after checking them: K4 once a
+    layer a step, and for MoE layers K5 three times (gate, up, down)."""
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = models.init_params(
         cfg, torch.Generator(device=DEVICE).manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in iter_leaves(params))
-    print(f"[serve] {SERVE_ARCH}: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {n_params / 1e9:.3f} G parameters in "
-          f"{cfg.dtype}, made on the card in {time.perf_counter() - t0:.2f}s",
-          flush=True)
+    print(f"[{tag}] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, {n_params / 1e9:.3f} G "
+          f"parameters in {cfg.dtype}, made on the card in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
     torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
     t0 = time.perf_counter()
-    summary, stats = serve_launcher.serve(serve_args(), params=params,
+    summary, stats = serve_launcher.serve(serve_args(arch), params=params,
                                           time_steps=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -896,7 +947,7 @@ def run_serve_path() -> dict:
     step_ms = sorted(stats.step_ms())
     med = step_ms[len(step_ms) // 2]
     peak = torch.cuda.max_memory_allocated()
-    print(f"[serve] engine run: {wall:.3f}s wall, {stats.calls} decode calls, "
+    print(f"[{tag}] engine run: {wall:.3f}s wall, {stats.calls} decode calls, "
           f"{stats.steps} steps, {stats.request_tokens} request tokens, "
           f"{stats.padded_tokens} decoded rows (B={serve_launcher.DECODE_BATCH}"
           f" x steps); step {med:.3f} ms median ({step_ms[0]:.3f}-"
@@ -904,19 +955,25 @@ def run_serve_path() -> dict:
           f"decoded rows/s at the median step, "
           f"{stats.padded_tokens / wall:.1f} over the wall; peak memory "
           f"{peak / 2**30:.3f} GiB; launches {launches}", flush=True)
-    if stats.steps <= 0 or launches["paged_attention"] != cfg.n_layers * stats.steps:
-        raise SystemExit(f"K4 launched {launches['paged_attention']} times "
-                         f"for {stats.steps} steps of {cfg.n_layers} layers")
-    dry, dry_stats = serve_launcher.serve(serve_args("--no-decode"))
+    moe_layers = cfg.n_layers if cfg.n_experts else 0
+    want = {"paged_attention": cfg.n_layers * stats.steps,
+            "grouped_matmul": 3 * moe_layers * stats.steps}
+    got = {k: launches[k] for k in want}
+    if stats.steps <= 0 or got != want:
+        raise SystemExit(f"{tag}: launches {got} for {stats.steps} steps of "
+                         f"{cfg.n_layers} layers; expected {want}")
+    dry, dry_stats = serve_launcher.serve(serve_args(arch, "--no-decode"))
     if dry != summary or dry_stats.calls:
-        raise SystemExit("the engine summary differs from the --no-decode run")
-    print(f"[serve] engine summary equals the --no-decode run: "
+        raise SystemExit(f"{tag}: the engine summary differs from the "
+                         f"--no-decode run")
+    print(f"[{tag}] engine summary equals the --no-decode run: "
           f"{summary['n_completed']} completed, makespan "
           f"{summary['makespan']!r}, {summary['batches']} batches", flush=True)
-    profile_steps(cfg, params, torch.device(DEVICE))
+    profile_steps(cfg, params, torch.device(DEVICE), tag)
     del params
     torch.cuda.empty_cache()
-    compare_with_cpu(cfg)
+    compare_with_cpu(cfg, cpu_steps, tag)
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -926,6 +983,75 @@ def iter_leaves(tree):
             yield from iter_leaves(v)
         else:
             yield v
+
+
+# ---------------------------------------------------------------- phase 7
+def grouped_library(x, w, sizes):
+    """One PyTorch call computing K5's function on the same inputs: a
+    batched product where the groups are equal, ``torch._grouped_mm``
+    (bf16, with offsets) where they are not and the card's torch has it;
+    else None."""
+    G, d, f = w.shape
+    if len(set(sizes)) == 1:
+        xv = x.view(G, sizes[0], d)
+        return lambda: torch.bmm(xv, w).view(-1, f), "torch.bmm"
+    if x.dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
+        offs = torch.tensor(np.cumsum(sizes), dtype=torch.int32,
+                            device=x.device)
+        wt = w.transpose(-2, -1).contiguous().transpose(-2, -1)
+        return (lambda: torch._grouped_mm(x, wt, offs=offs),
+                "torch._grouped_mm")
+    return None, "none"
+
+
+def measure_grouped(key, shape, dev) -> dict:
+    """Phase 7, one shape: K5 against its plain version on the same card
+    inputs, then the CUDA-event medians of the kernel, the plain version
+    and the library call; the bound counts x, w and tile_gid read once and
+    y written once, and 2 T d f operations."""
+    T, d, f, sizes, dtype, scale = shape
+    G = len(sizes)
+    gen = torch.Generator(device=dev).manual_seed(70 + len(key) + d)
+    x = torch.randn(T, d, device=dev, generator=gen).to(dtype)
+    w = (torch.randn(G, d, f, device=dev, generator=gen) * scale).to(dtype)
+    gid = gmm_ops.tile_groups(torch.tensor(sizes, device=dev), T, GMM_BT, G)
+    got = GK.grouped_matmul_kernel(x, gid, w, GMM_BT)
+    want = grouped_matmul_tiles_ref(x, gid, w, GMM_BT)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = GMM_TOL[dtype]
+    if not (torch.isfinite(got).all()
+            and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)):
+        raise SystemExit(f"K5 ({key}) differs from its plain version: "
+                         f"max |diff| {err}")
+    library, lib_name = grouped_library(x, w, sizes)
+    lib_ms, lib_err = None, None
+    if library is not None:
+        lib_err = float((library().float() - want.float()).abs().max())
+        lib_ms = cuda_ms(library, REPS)
+    k_ms = cuda_ms(lambda: GK.grouped_matmul_kernel(x, gid, w, GMM_BT), REPS)
+    p_ms = cuda_ms(lambda: grouped_matmul_tiles_ref(x, gid, w, GMM_BT), REPS)
+    esize = x.element_size()
+    nbytes = (T * d + G * d * f + T * f) * esize + gid.numel() * 4
+    flops = 2.0 * T * d * f
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    bound = max(t_ops, t_bytes) * 1e3
+    label = (f"({key}) T={T} d={d} f={f} groups={G} "
+             f"{str(dtype).replace('torch.', '')}")
+    lib_txt = (f"{lib_name} {lib_ms:.4f} ms (max |diff| {lib_err:.3e})"
+               if lib_ms is not None else f"library none")
+    print(f"[grouped] {label}: max |diff| {err:.3e} (tolerance {tol}); "
+          f"kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain "
+          f"{p_ms:.4f} ms, {lib_txt}, bound {bound:.4f} ms ({bound_by}, "
+          f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.3f} GFLOP)", flush=True)
+    return dict(
+        name="grouped_matmul", route="cuda", source=GMM_SOURCE,
+        replaces=GMM_REPLACES, launches=0, max_abs_err=err, ms=k_ms,
+        plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
+        library=lib_name, shape=label,
+    )
 
 
 if __name__ == "__main__":

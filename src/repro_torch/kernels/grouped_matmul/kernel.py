@@ -1,0 +1,136 @@
+"""CUDA ragged grouped matmul (K5): ctypes binding and launch wrapper.
+
+``csrc/grouped_matmul.cu`` is the Hopper counterpart of the Pallas TPU
+kernel ``grouped_matmul_pallas`` of the JAX reference
+(``repro/kernels/grouped_matmul/kernel.py:48``): y[r] = x[r] @
+w[tile_gid[r // bt]] with f32 sums, on the tensor cores in bfloat16 and
+with CUDA-core FMA in float32.  At the MoE decode shapes it is bound by
+the bytes of the experts' weights; see the source's note for its design.
+
+A wrapper given CPU tensors runs the plain PyTorch version from ``ref``;
+given CUDA tensors it launches the kernel on the current stream, or
+raises.  ``LAUNCHES["grouped_matmul"]`` counts kernel launches.  The
+source is compiled at first use (``nvcc.CudaLibrary``); nothing is built
+when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from ..nvcc import CudaLibrary
+from .ref import grouped_matmul_tiles_ref
+
+__all__ = [
+    "LAUNCHES",
+    "ROW_TILE",
+    "reset_launches",
+    "build",
+    "build_info",
+    "grouped_matmul_kernel",
+]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Rows of one block's tile (kBM / kFBM in the source): ``bt`` must be a
+# multiple of it, so that a block's rows lie in one group.
+ROW_TILE = {torch.float32: 64, torch.bfloat16: 128}
+_MAX_GRID_Y = 65535
+_INT32_MAX = 2**31 - 1
+
+LAUNCHES = {"grouped_matmul": 0}
+_count_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    with _count_lock:
+        LAUNCHES["grouped_matmul"] = 0
+
+
+def _count() -> None:
+    with _count_lock:
+        LAUNCHES["grouped_matmul"] += 1
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.grouped_matmul_launch.argtypes = [p, p, p, p] + [i] * 7 + [p]
+    lib.grouped_matmul_launch.restype = ctypes.c_int
+    lib.grouped_matmul_row_tile.argtypes = [i]
+    lib.grouped_matmul_row_tile.restype = ctypes.c_int
+
+
+LIBRARY = CudaLibrary("grouped_matmul", _bind)
+
+
+def build() -> ctypes.CDLL:
+    """Compile (if the source's hash is new) and load the kernel library."""
+    return LIBRARY.load()
+
+
+def build_info() -> dict:
+    """Library path, whether this process compiled it, the build's wall
+    seconds and nvcc's output (ptxas register/shared-memory report)."""
+    return LIBRARY.info()
+
+
+def _check(x, tile_gid, w, bt) -> None:
+    for name, t in (("tile_gid", tile_gid), ("w", w)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, expected {x.device}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if w.dtype != x.dtype:
+        raise ValueError(f"x and w must share one dtype: {x.dtype}, {w.dtype}")
+    if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1]:
+        raise ValueError(f"expected x (T, d) and w (G, d, f); got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
+    T = x.shape[0]
+    tile = ROW_TILE[x.dtype]
+    if bt <= 0 or bt % tile:
+        raise ValueError(f"bt={bt} is not a multiple of the kernel's "
+                         f"{tile}-row tile for {x.dtype}")
+    if T % bt:
+        raise ValueError(f"{T} rows are not a whole number of {bt}-row tiles")
+    if tile_gid.dtype != torch.int32 or tile_gid.shape != (T // bt,):
+        raise ValueError(f"tile_gid must be int32 ({T // bt},), got "
+                         f"{tile_gid.dtype} {tuple(tile_gid.shape)}")
+    if T // tile > _MAX_GRID_Y or max(x.numel(), w.shape[0] * w.shape[1],
+                                      T * w.shape[2]) > _INT32_MAX:
+        raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)}: too large "
+                         f"for one launch")
+    for name, t in (("x", x), ("tile_gid", tile_gid), ("w", w)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def grouped_matmul_kernel(
+    x: torch.Tensor,  # (T, d) f32 or bf16, T % bt == 0
+    tile_gid: torch.Tensor,  # (T // bt,) int32, group of each row tile
+    w: torch.Tensor,  # (G, d, f), x's dtype
+    bt: int,
+) -> torch.Tensor:
+    """Tile-mapped grouped matmul (K5): (T, f) in x's dtype."""
+    if x.device.type == "cpu":
+        return grouped_matmul_tiles_ref(x, tile_gid, w, bt)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check(x, tile_gid, w, bt)
+    T, d = x.shape
+    G, _, f = w.shape
+    out = torch.empty((T, f), dtype=x.dtype, device=x.device)
+    if T == 0 or f == 0:
+        return out
+    vec = (x.dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
+           and all(t.data_ptr() % 16 == 0 for t in (x, w, out)))
+    lib = build()
+    with torch.cuda.device(x.device):
+        code = lib.grouped_matmul_launch(
+            x.data_ptr(), tile_gid.data_ptr(), w.data_ptr(), out.data_ptr(),
+            T, d, f, G, bt, _DTYPES[x.dtype], int(vec),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    LIBRARY.check(code, "grouped_matmul")
+    _count()
+    return out

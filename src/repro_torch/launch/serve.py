@@ -10,8 +10,13 @@ tokens, into a fresh ``MAX_SEQ``-slot cache.  Weights come from
 defaults to ``cuda`` and raises without a card; ``--device cpu`` runs the
 plain PyTorch versions of the kernels.
 
+The dense (``codeqwen1.5-7b``) and MoE (``moonshot-v1-16b-a3b``,
+``mixtral-8x22b``) families decode; the others raise.
+
     python -m repro_torch.launch.serve --arch codeqwen1.5-7b --device cpu
     python -m repro_torch.launch.serve --arch codeqwen1.5-7b --full-config
+    python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --device cpu
+    python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --full-config
 """
 from __future__ import annotations
 

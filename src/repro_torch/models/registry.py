@@ -1,9 +1,10 @@
 """Model API for the port: init / decode / cache.
 
 The port of ``repro.models.registry`` for what the serving decode path
-calls: ``init_params``, ``decode_fn`` and ``make_cache``.  Only the dense
-family is ported; every other family raises ``NotImplementedError``
-naming its roadmap item (``transformer.require_dense``).
+calls: ``init_params``, ``decode_fn`` and ``make_cache``.  The dense and
+MoE families are ported; every other family raises
+``NotImplementedError`` naming its roadmap item
+(``transformer.require_ported``).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """Parameters drawn from ``generator`` on its device; with none, from a
     generator seeded 0 on ``device`` (``cuda`` by default; ``meta`` gives
     shapes only)."""
-    _lm.require_dense(cfg)
+    _lm.require_ported(cfg)
     if generator is None:
         dev = resolve_device(device)
         if dev.type != "meta":
@@ -33,7 +34,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 def decode_fn(cfg: ModelConfig, max_seq: int):
-    _lm.require_dense(cfg)
+    _lm.require_ported(cfg)
 
     def step(params, token, cache):
         return _lm.lm_decode_step(cfg, params, token, cache, max_seq)
@@ -43,6 +44,6 @@ def decode_fn(cfg: ModelConfig, max_seq: int):
 
 def make_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> dict:
     """Zero decode cache on ``device`` (``cuda`` by default)."""
-    _lm.require_dense(cfg)
+    _lm.require_ported(cfg)
     f = ParamFactory(None, cfg.activation_dtype, resolve_device(device))
     return _lm.make_decode_cache(cfg, f, batch, max_seq)

@@ -1,10 +1,11 @@
-"""Decoder-only LM backbone, the dense decode path.
+"""Decoder-only LM backbone, the dense and MoE decode paths.
 
 The port of ``repro.models.transformer``'s ``init_lm``,
-``make_decode_cache`` and ``lm_decode_step`` for the dense family.  The
-reference's ``lax.scan`` over the stacked (L, ...) layer parameters
-becomes a Python loop over the layer index.  The MoE, SSM and VLM
-variants and the full-sequence (train/prefill) forward are not ported yet.
+``make_decode_cache`` and ``lm_decode_step`` for the dense and MoE
+families.  The reference's ``lax.scan`` over the stacked (L, ...) layer
+parameters becomes a Python loop over the layer index.  The SSM, hybrid,
+encoder-decoder and VLM variants and the full-sequence (train/prefill)
+forward are not ported yet.
 """
 from __future__ import annotations
 
@@ -13,17 +14,20 @@ import torch
 from .attention import attn_decode, cache_layout, init_attention
 from .common import ParamFactory, pad_vocab, rms_norm
 from .mlp import init_mlp, mlp_apply
+from .moe import init_moe, moe_apply_with_aux
 
-__all__ = ["init_lm", "make_decode_cache", "lm_decode_step", "require_dense"]
+__all__ = ["init_lm", "make_decode_cache", "lm_decode_step", "require_ported"]
+
+PORTED_FAMILIES = ("dense", "moe")
 
 
-def require_dense(cfg) -> None:
+def require_ported(cfg) -> None:
     """Raise for a family whose decode is not ported yet (ROADMAP.md §1,
-    item 2: MoE, SSM, hybrid, encoder-decoder and VLM decode)."""
-    family = "moe" if cfg.n_experts else cfg.family
-    if family != "dense":
+    item 2: SSM, hybrid, encoder-decoder and VLM decode).  A hybrid config
+    with experts (jamba) is hybrid, not MoE."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {family} family is not ported yet; see "
+            f"{cfg.name}: the {cfg.family} family is not ported yet; see "
             f"ROADMAP.md §1, item 2"
         )
 
@@ -32,16 +36,20 @@ def require_dense(cfg) -> None:
 def _init_layer_stack(cfg, f: ParamFactory) -> dict:
     L = cfg.n_layers
     d = cfg.d_model
-    return {
+    p = {
         "ln1": f.const(1.0, (L, d), ("layers", "embed")),
         "attn": init_attention(cfg, f, layers=L),
         "ln2": f.const(1.0, (L, d), ("layers", "embed")),
-        "mlp": init_mlp(cfg, f, cfg.d_ff, layers=L),
     }
+    if cfg.n_experts and cfg.moe_every == 1:
+        p["moe"] = init_moe(cfg, f, layers=L)
+    else:
+        p["mlp"] = init_mlp(cfg, f, cfg.d_ff, layers=L)
+    return p
 
 
 def init_lm(cfg, f: ParamFactory) -> dict:
-    require_dense(cfg)
+    require_ported(cfg)
     V = pad_vocab(cfg.vocab_size)
     d = cfg.d_model
     params = {
@@ -64,7 +72,7 @@ def _layer(tree: dict, i: int) -> dict:
 def make_decode_cache(cfg, f: ParamFactory, batch: int, max_seq: int) -> dict:
     """Pre-allocated decode cache: zero K/V (L, B, S_alloc, KV, D) in the
     factory's dtype on its device, and ``pos`` as a Python int."""
-    require_dense(cfg)
+    require_ported(cfg)
     layout = cache_layout(cfg, max_seq)
     kv = (cfg.n_layers, batch, layout.seq, cfg.n_kv_heads, cfg.head_dim)
     lax_ = ("layers", "batch", "cache_seq", "cache_kv_heads", "head_dim")
@@ -81,7 +89,7 @@ def lm_decode_step(cfg, params: dict, token: torch.Tensor, cache: dict,
 
     The returned cache holds the same K/V tensors, written in place, and
     ``pos + 1``."""
-    require_dense(cfg)
+    require_ported(cfg)
     x = params["embed"][token.long()].to(cfg.activation_dtype)
     pos = int(cache["pos"])
     layout = cache_layout(cfg, max_seq)
@@ -92,7 +100,11 @@ def lm_decode_step(cfg, params: dict, token: torch.Tensor, cache: dict,
                               cache["v"][i], pos, layout)
         x = x + a
         hn = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(cfg, lp["mlp"], hn)
+        if "moe" in lp:
+            m, _ = moe_apply_with_aux(cfg, lp["moe"], hn)
+        else:
+            m = mlp_apply(cfg, lp["mlp"], hn)
+        x = x + m
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     logits = torch.einsum("bsd,vd->bsv", x, table)

@@ -16,6 +16,20 @@ reference's tolerances for it: rtol = atol = 5e-2 in bfloat16 and 2e-5 in
 float32 (``tests/test_kernels.py:220``, ``:235``), at the serving path's
 shape and at ``benchmarks/kernel_bench.py``'s.
 
+The grouped matmul (K5) is held to its plain version at the reference's
+tolerances for it, rtol = atol = 5e-2 in bfloat16 and 1e-5 in float32
+(``tests/test_kernels.py:173``), at aligned row tiles with ragged column
+and depth edges, with weights at the model's init scale 1/sqrt(d) (what K5
+sees on the MoE path).  The reference's 1e-5 is set for its depths (d <=
+512); two f32 sums over d terms in different orders drift apart by about
+sqrt(d) ulps of the partial sums (at d = 2048 with weights x0.1 the card
+and the CPU differed by 1.3e-5 on an element of 0.04, neither wrong).  So
+at d > 512 both the kernel and the plain version are held to the float64
+product within the f32 dot-product bound sqrt(d) * 2**-24 * sum|x||w|
+(Higham's probabilistic bound), elementwise; a wrong group or tile would be
+off by O(1).  The MoE decode at smoke size on the card is held to the same
+decode on the CPU.
+
 The tests here are marked ``cuda``: they run the CUDA kernels on a card
 against the plain versions on the CPU, and skip without one.  They import
 only the port (the card's machine has no JAX):
@@ -35,6 +49,11 @@ from repro_torch.kernels.crossmatch import kernel as tkernel  # noqa: E402
 from repro_torch.kernels.crossmatch import ops as tops  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as pkernel  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pops  # noqa: E402
+from repro_torch.kernels.grouped_matmul import kernel as gkernel  # noqa: E402
+from repro_torch.kernels.grouped_matmul import ops as gops  # noqa: E402
+from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref  # noqa: E402
+from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.models import registry as tmodels  # noqa: E402
 
 CPU = "cpu"
 DOT_TOL = 2.0**-23  # one ulp at 1.0
@@ -261,3 +280,120 @@ def test_k4_wrapper_refuses_what_the_kernel_does_not_take(card):
           torch.zeros(4, 8, 2, 512, device=card), pt, lens)  # head_dim
     with pytest.raises(ValueError):
         k(q.transpose(0, 1).contiguous().transpose(0, 1), kp, vp, pt, lens)
+
+
+# ------------------------------------------------------------------ K5
+GMM_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-5}
+
+
+def _gmm_case(rng, sizes, d, f, dtype, scale=None):
+    scale = d ** -0.5 if scale is None else scale
+    T, G = sum(sizes), len(sizes)
+    x = torch.from_numpy(rng.normal(size=(T, d)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(G, d, f)) * scale).astype(np.float32))
+    return x.to(dtype), torch.tensor(sizes), w.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("sizes,d,f", [
+    ([256] * 4, 2048, 1408),  # moonshot's gate/up widths: f = 11 x 128
+    ([256] * 4, 1408, 2048),  # its down product: d = 1408
+    ([128, 256, 128, 512], 256, 192),  # f = 192: a ragged column tile
+    ([256, 256], 100, 37),  # d, f not multiples of 8: element loads
+], ids=["moe_up", "moe_down", "f192", "odd"])
+def test_k5_kernel_matches_plain(card, sizes, d, f, dtype):
+    x, gs, w = _gmm_case(np.random.default_rng(d + f), sizes, d, f, dtype)
+    want = gops.grouped_matmul(x, gs, w)
+    before = gkernel.LAUNCHES["grouped_matmul"]
+    got = gops.grouped_matmul(x.to(card), gs.to(card), w.to(card))
+    torch.cuda.synchronize()
+    assert gkernel.LAUNCHES["grouped_matmul"] == before + 1
+    assert got.is_cuda and got.dtype == dtype and got.shape == want.shape
+    tol = GMM_TOL[dtype]
+    if dtype == torch.float32 and d > 512:
+        exact = grouped_matmul_ref(x.double(), gs, w.double())
+        bound = d ** 0.5 * 2.0**-24 * grouped_matmul_ref(
+            x.double().abs(), gs, w.double().abs())
+        for out in (got.cpu(), want):
+            assert bool(((out.double() - exact).abs() <= bound).all())
+    else:
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_k5_row_tiles_and_bad_groups(card):
+    """The wrapper's row tiles are the source's; a group id outside [0, G)
+    gives NaN rows instead of a read out of bounds."""
+    lib = gkernel.build()
+    assert lib.grouped_matmul_row_tile(0) == gkernel.ROW_TILE[torch.float32]
+    assert lib.grouped_matmul_row_tile(1) == gkernel.ROW_TILE[torch.bfloat16]
+    x, _, w = _gmm_case(np.random.default_rng(1), [128, 128], 64, 32,
+                        torch.bfloat16)
+    gid = torch.tensor([0, 2], dtype=torch.int32, device=card)
+    out = gkernel.grouped_matmul_kernel(x.to(card), gid, w.to(card), 128)
+    assert not torch.isnan(out[:128]).any() and torch.isnan(out[128:]).all()
+
+
+@pytest.mark.cuda
+def test_k5_wrapper_refuses_what_the_kernel_does_not_take(card):
+    x, _, w = [t.to(card) for t in _gmm_case(
+        np.random.default_rng(2), [256, 256], 64, 32, torch.bfloat16)]
+    gid = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=card)
+    k = gkernel.grouped_matmul_kernel
+    with pytest.raises(ValueError):
+        k(x, gid[:2].repeat(4), w, 64)  # bt below the bf16 row tile
+    with pytest.raises(ValueError):
+        k(x[:500], gid, w, 128)  # T % bt
+    with pytest.raises(ValueError):
+        k(x, gid[:3], w, 128)  # tile_gid length
+    with pytest.raises(ValueError):
+        k(x, gid.long(), w, 128)  # tile_gid type
+    with pytest.raises(ValueError):
+        k(x, gid, w[:, :32], 128)  # d
+    with pytest.raises(ValueError):
+        k(x, gid, w.float(), 128)  # mixed dtypes
+    with pytest.raises(ValueError):
+        k(x.half(), gid, w.half(), 128)  # dtype
+    with pytest.raises(ValueError):
+        k(x, gid.cpu(), w, 128)  # device
+    with pytest.raises(ValueError):
+        k(x.t().contiguous().t(), gid, w, 128)  # layout
+    xf, wf = x.float(), w.float()
+    with pytest.raises(ValueError):
+        k(xf, torch.zeros(16, dtype=torch.int32, device=card), wf, 32)
+    assert k(xf, torch.zeros(8, dtype=torch.int32, device=card), wf, 64).shape \
+        == (512, 32)  # f32's 64-row tile takes bt = 64
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "mixtral-8x22b"])
+def test_moe_decode_on_card_matches_cpu(card, arch):
+    """Four greedy decode steps of the MoE smoke config (f32) from the same
+    weights: logits within 1e-4 and the same tokens on the card as on the
+    CPU; every expert product went through K5, every attention through
+    K4."""
+    cfg = smoke_config(arch)
+    params = tmodels.init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = _tree_to(params, card)
+    step = tmodels.decode_fn(cfg, 32)
+    caches = {CPU: tmodels.make_cache(cfg, 8, 32, device=CPU),
+              "cuda": tmodels.make_cache(cfg, 8, 32, device=card)}
+    tok = torch.zeros((8, 1), dtype=torch.int32)
+    g0, p0 = gkernel.LAUNCHES["grouped_matmul"], pkernel.LAUNCHES["paged_attention"]
+    for _ in range(4):
+        lc, caches[CPU] = step(params, tok, caches[CPU])
+        lg, caches["cuda"] = step(on_card, tok.to(card), caches["cuda"])
+        np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+        tok = lc[:, -1].argmax(-1).to(torch.int32)[:, None]
+        assert torch.equal(lg[:, -1].argmax(-1).cpu(), tok[:, 0].long())
+    assert gkernel.LAUNCHES["grouped_matmul"] - g0 == 4 * 3 * cfg.n_layers
+    assert pkernel.LAUNCHES["paged_attention"] - p0 == 4 * cfg.n_layers

@@ -32,6 +32,7 @@ from repro_torch.kernels.crossmatch import kernel as tkernel  # noqa: E402
 from repro_torch.kernels.crossmatch import ops as tops  # noqa: E402
 from repro_torch.kernels import nvcc  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as pkernel  # noqa: E402
+from repro_torch.kernels.grouped_matmul import kernel as gkernel  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import registry as tmodels  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
@@ -87,6 +88,8 @@ def test_running_the_port_imports_neither_jax_nor_repro():
         "assert len(eng.wm.response_times()) == 4\n"
         "serve.main(['--arch', 'codeqwen1.5-7b', '--requests', '2', "
         "'--device', 'cpu'])\n"
+        "serve.main(['--arch', 'moonshot-v1-16b-a3b', '--requests', '2', "
+        "'--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -112,9 +115,12 @@ def test_default_device_is_cuda_and_never_the_cpu():
     with pytest.raises(RuntimeError, match="no CUDA"):
         CrossMatchEngine(cat)
     cfg = smoke_config("codeqwen1.5-7b")
+    moe = smoke_config("moonshot-v1-16b-a3b")
     for call in (
         lambda: tmodels.init_params(cfg),
         lambda: tmodels.make_cache(cfg, 2, 16),
+        lambda: tmodels.init_params(moe),
+        lambda: tserve.main(["--arch", moe.name, "--requests", "2"]),
         lambda: PagePool(4, 4, 1, 8),
         lambda: tserve.main(["--arch", cfg.name, "--requests", "2"]),
         lambda: tops.crossmatch(pts, pts, 0.9),
@@ -127,8 +133,8 @@ def test_default_device_is_cuda_and_never_the_cpu():
             call()
 
 
-@pytest.mark.parametrize("module", [tkernel, pkernel],
-                         ids=["crossmatch", "paged_attention"])
+@pytest.mark.parametrize("module", [tkernel, pkernel, gkernel],
+                         ids=["crossmatch", "paged_attention", "grouped_matmul"])
 def test_build_without_nvcc_raises(monkeypatch, tmp_path, module):
     """No toolkit: the build raises rather than leaving a stub behind."""
     monkeypatch.setattr(nvcc.shutil, "which", lambda name: None)
@@ -144,7 +150,10 @@ def test_both_kernel_modules_share_one_build_helper():
     """One nvcc/ctypes build path, one set of flags, for every source."""
     assert tkernel.LIBRARY.source == nvcc.CSRC / "crossmatch.cu"
     assert pkernel.LIBRARY.source == nvcc.CSRC / "paged_attention.cu"
-    assert all(m.LIBRARY.source.exists() for m in (tkernel, pkernel))
+    assert gkernel.LIBRARY.source == nvcc.CSRC / "grouped_matmul.cu"
+    assert all(m.LIBRARY.source.exists() for m in (tkernel, pkernel, gkernel))
+    assert sorted(p.name for p in nvcc.CSRC.glob("*.cu")) == [
+        "crossmatch.cu", "grouped_matmul.cu", "paged_attention.cu"]
     assert nvcc.NVCC_FLAGS == (
         "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -225,16 +225,28 @@ def test_param_scale_rule_and_chunked_draws(monkeypatch):
         TFactory(None, torch.float32, "cpu").param((2, 2), ("a", "b"))
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "falcon-mamba-7b",
-                                  "jamba-v0.1-52b", "seamless-m4t-large-v2",
-                                  "paligemma-3b"])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-v0.1-52b",
+                                  "seamless-m4t-large-v2", "paligemma-3b"])
 def test_other_families_name_their_roadmap_item(arch):
+    """The dense and MoE families decode (the MoE one is held in
+    ``test_torch_moe.py``); every other family raises."""
     cfg = t_smoke(arch)
     for call in (lambda: TR.init_params(cfg, device="cpu"),
                  lambda: TR.decode_fn(cfg, 16),
                  lambda: TR.make_cache(cfg, 2, 16, device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
+
+
+def test_hybrid_with_experts_is_not_taken_for_moe():
+    """jamba has experts on every other layer but is the hybrid family:
+    admitting MoE does not admit it."""
+    cfg = t_smoke("jamba-v0.1-52b")
+    assert cfg.n_experts and cfg.family == "hybrid"
+    with pytest.raises(NotImplementedError, match="hybrid family"):
+        TR.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="hybrid family"):
+        t_serve.main(["--arch", cfg.name, "--requests", "2", "--device", "cpu"])
 
 
 # ------------------------------------------------------------------ engine
