@@ -60,13 +60,20 @@ Phases; any failure exits non-zero before the last line is printed:
 7. grouped -- K5 against its plain version on the card at (a) moonshot's
               gate/up products (T = 16,384 capacity rows, 64 groups of 256,
               d = 2048, f = 1408, bf16), (a') its down product (d = 1408,
-              f = 2048) and (b) ``benchmarks/kernel_bench.py``'s shape (T =
+              f = 2048), (b) ``benchmarks/kernel_bench.py``'s shape (T =
               4096, d = f = 1024, groups [512, 1024, 512, 2048]) in bf16 and
-              f32.  Tolerance: the reference's, rtol = atol = 5e-2 in bf16 and
-              1e-5 in f32 (``tests/test_kernels.py:173``).  Kernel, plain and
-              library call (``torch.bmm`` on the (E, C, d) view at (a)/(a'),
+              f32, and (e) the decode call: (a)'s shape with the real rows of
+              each tile (``tile_rows``) from a seeded top-6 routing of 8
+              tokens over the 64 experts, computed by the MoE layer's own
+              ``expert_tiles``, and x zero past them.  Tolerance: the
+              reference's, rtol = atol = 5e-2 in bf16 and 1e-5 in f32
+              (``tests/test_kernels.py:173``).  Kernel, plain and library
+              call (``torch.bmm`` on the (E, C, d) view at (a)/(a')/(e),
               ``torch._grouped_mm`` with offsets at (b) bf16 where the card's
-              torch has it) are CUDA-event medians of 20.
+              torch has it) are CUDA-event medians of 20.  (e)'s bound counts
+              what the call must move: the weights of the experts with a
+              token, x's row tiles with a real row, the tile maps and y
+              written whole.
 8. moe     -- ``launch/serve.py`` on ``cuda`` at moonshot-v1-16b-a3b's full
               config (48 layers, 64 experts top-6, 28.06 G parameters in
               bf16) with the launcher's defaults.  K5's launches must equal
@@ -111,6 +118,7 @@ from repro_torch.kernels.paged_attention import kernel as PK  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import registry as models  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 
@@ -153,6 +161,10 @@ GMM_SOURCE = "src/repro_torch/csrc/grouped_matmul.cu"
 GMM_REPLACES = "src/repro/kernels/grouped_matmul/kernel.py:48"
 GMM_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-5}  # tests/test_kernels.py:173
 GMM_BT = 128
+# Phase 7 (e): the decode call's routing, B tokens top-k over E experts,
+# at the gate/up shape (e) and the down shape (e') as (d, f).
+GMM_DECODE = dict(B=8, k=6, E=64, C=256)
+GMM_DECODE_SHAPES = {"e": (2048, 1408), "e'": (1408, 2048)}
 # Phase 7's shapes: (T, d, f, group sizes, dtype, weight scale).  The
 # weights of (a)/(a') are the model's init scale, 1/sqrt(d); (b) takes
 # kernel_bench's 0.02.
@@ -241,6 +253,8 @@ def main() -> int:
     # -- 7. K5 against its plain version -------------------------------------
     grouped = {key: measure_grouped(key, shape, dev)
                for key, shape in GMM_SHAPES.items()}
+    for key, (d, f) in GMM_DECODE_SHAPES.items():
+        grouped[key] = measure_grouped_decode(key, d, f, dev)
     records.append(dict(grouped["a"], shapes={
         k: v for k, v in grouped.items() if k != "a"}))
 
@@ -248,6 +262,11 @@ def main() -> int:
     t0 = time.perf_counter()
     by_run["moe"] = run_serve_path(MOE_ARCH, "moe", MOE_CPU_STEPS)
     print(f"[moe] phase 8 in {time.perf_counter() - t0:.1f}s", flush=True)
+    spread = get_config(MOE_ARCH).n_layers * (
+        2 * grouped["e"]["ms"] + grouped["e'"]["ms"])
+    print(f"[moe] K5 a step at phase 7's spread routing "
+          f"({grouped['e']['active_experts']} active experts): layers x "
+          f"(2 x (e) + (e')) = {spread:.3f} ms", flush=True)
 
     for rec in records:
         rec["launches_by_run"] = {
@@ -868,7 +887,8 @@ def profile_steps(cfg, params, dev, tag) -> None:
           f"(profiler on), device busy {busy:.3f} ms "
           f"({100 * busy / (wall * 1e3):.2f}%), K5 {k5_ms:.3f} ms in {k5_n} "
           f"launches ({k5_ms / PROFILE_STEPS:.3f} ms a step), {len(ev)} device "
-          f"events, {len(by_name)} kernel names; the heaviest:", flush=True)
+          f"events ({len(ev) / PROFILE_STEPS:.1f} a step), {len(by_name)} "
+          f"kernel names; the heaviest:", flush=True)
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"[{tag}]   {ms:9.3f} ms in {n:5d} launches  {name[:90]}")
     ops_ = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
@@ -877,6 +897,40 @@ def profile_steps(cfg, params, dev, tag) -> None:
     for a in ops_[:8]:
         print(f"[{tag}]   {a.self_cpu_time_total / 1e3:9.3f} ms self in "
               f"{a.count:5d} calls  {a.key[:60]}")
+
+
+def count_active_experts(cfg, params, dev, steps, tag) -> None:
+    """The experts each MoE layer routed a token to, read on the card from
+    the tile_rows that ``moe.expert_tiles`` hands K5, over one decode call
+    of the serving run: ``steps`` greedy steps from zero tokens into a fresh
+    cache, as every call of ``launch/serve.py``'s decode function runs."""
+    seen = []
+    inner = moe_mod.expert_tiles
+
+    def recording(top_idx, E, C, bt=moe_mod.EXPERT_BT):
+        gid, rows = inner(top_idx, E, C, bt)
+        seen.append((rows.view(E, -1).sum(dim=1) > 0).sum())
+        return gid, rows
+
+    step = serve_launcher.make_serve_step(cfg, serve_launcher.MAX_SEQ)
+    B = serve_launcher.DECODE_BATCH
+    cache = models.make_cache(cfg, B, serve_launcher.MAX_SEQ, device=dev)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    moe_mod.expert_tiles = recording
+    try:
+        for _ in range(steps):
+            tok, cache = step(params, tok, cache)
+    finally:
+        moe_mod.expert_tiles = inner
+    if len(seen) != steps * cfg.n_layers:
+        raise SystemExit(f"{tag}: {len(seen)} expert tilings for {steps} "
+                         f"steps of {cfg.n_layers} layers")
+    active = torch.stack(seen).view(steps, cfg.n_layers).cpu()
+    print(f"[{tag}] active experts a layer over one decode call ({steps} "
+          f"steps x {cfg.n_layers} layers, B={B}, top-{cfg.top_k} of "
+          f"{cfg.n_experts}): min {int(active.min())}, max "
+          f"{int(active.max())}, mean {float(active.float().mean()):.3f}; "
+          f"step 1: {active[0].tolist()}", flush=True)
 
 
 def compare_with_cpu(cfg, steps, tag) -> None:
@@ -970,6 +1024,9 @@ def run_serve_path(arch, tag, cpu_steps) -> dict:
           f"{summary['n_completed']} completed, makespan "
           f"{summary['makespan']!r}, {summary['batches']} batches", flush=True)
     profile_steps(cfg, params, torch.device(DEVICE), tag)
+    if cfg.n_experts:
+        count_active_experts(cfg, params, torch.device(DEVICE),
+                             stats.steps // stats.calls, tag)
     del params
     torch.cuda.empty_cache()
     compare_with_cpu(cfg, cpu_steps, tag)
@@ -1005,52 +1062,94 @@ def grouped_library(x, w, sizes):
 
 
 def measure_grouped(key, shape, dev) -> dict:
-    """Phase 7, one shape: K5 against its plain version on the same card
-    inputs, then the CUDA-event medians of the kernel, the plain version
-    and the library call; the bound counts x, w and tile_gid read once and
-    y written once, and 2 T d f operations."""
+    """Phase 7, one dense shape: every row real.  The bound counts x, w and
+    tile_gid read once and y written once, and 2 T d f operations."""
     T, d, f, sizes, dtype, scale = shape
     G = len(sizes)
     gen = torch.Generator(device=dev).manual_seed(70 + len(key) + d)
     x = torch.randn(T, d, device=dev, generator=gen).to(dtype)
     w = (torch.randn(G, d, f, device=dev, generator=gen) * scale).to(dtype)
     gid = gmm_ops.tile_groups(torch.tensor(sizes, device=dev), T, GMM_BT, G)
-    got = GK.grouped_matmul_kernel(x, gid, w, GMM_BT)
-    want = grouped_matmul_tiles_ref(x, gid, w, GMM_BT)
+    nbytes = (T * d + G * d * f + T * f) * x.element_size() + gid.numel() * 4
+    label = (f"({key}) T={T} d={d} f={f} groups={G} "
+             f"{str(dtype).replace('torch.', '')}")
+    return time_grouped(x, gid, w, None, grouped_library(x, w, sizes),
+                        nbytes, 2.0 * T * d * f, label)
+
+
+def measure_grouped_decode(key, d, f, dev) -> dict:
+    """Phase 7 (e), (e'): the MoE decode's call.  tile_rows from a seeded
+    top-k routing (the same at every shape) through ``moe.expert_tiles``;
+    x random in the real rows and zero past them, so ``torch.bmm`` on the
+    dense view computes the same function.  The bound counts the active
+    experts' weights, x's real rows, tile_gid and tile_rows read once, y
+    (all T rows) written once, and 2 d f operations a real row."""
+    c = GMM_DECODE
+    E, C = c["E"], c["C"]
+    T = E * C
+    gen = torch.Generator(device=dev).manual_seed(75)
+    top = torch.rand(c["B"], E, device=dev, generator=gen).argsort(
+        dim=1)[:, :c["k"]]
+    gid, rows = moe_mod.expert_tiles(top, E, C, GMM_BT)
+    real = (torch.arange(GMM_BT, device=dev) < rows[:, None]).reshape(T)
+    n_real = int(real.sum())
+    x = torch.zeros(T, d, device=dev, dtype=torch.bfloat16)
+    x[real] = torch.randn(n_real, d, device=dev, generator=gen).to(x.dtype)
+    w = (torch.randn(E, d, f, device=dev, generator=gen)
+         * d ** -0.5).to(torch.bfloat16)
+    active = int((rows.view(E, -1).sum(dim=1) > 0).sum())
+    used_tiles = int((rows > 0).sum())
+    nbytes = ((active * d * f + n_real * d + T * f) * 2
+              + (gid.numel() + rows.numel()) * 4)
+    label = (f"({key}) T={T} d={d} f={f} groups={E} bfloat16, decode: "
+             f"{c['B']} tokens top-{c['k']}, {active} active experts, "
+             f"{n_real} real rows in {used_tiles} row tiles")
+    rec = time_grouped(x, gid, w, rows, grouped_library(x, w, [C] * E),
+                       nbytes, 2.0 * n_real * d * f, label)
+    rec.update(active_experts=active, real_rows=n_real)
+    return rec
+
+
+def time_grouped(x, gid, w, rows, library, nbytes, flops, label) -> dict:
+    """K5 against its plain version on the same card inputs, then the
+    CUDA-event medians of the kernel, the plain version and the library
+    call, beside the bound for ``nbytes`` and ``flops``."""
+    got = GK.grouped_matmul_kernel(x, gid, w, GMM_BT, rows)
+    want = grouped_matmul_tiles_ref(x, gid, w, GMM_BT, rows)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    tol = GMM_TOL[dtype]
+    tol = GMM_TOL[x.dtype]
     if not (torch.isfinite(got).all()
             and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)):
-        raise SystemExit(f"K5 ({key}) differs from its plain version: "
+        raise SystemExit(f"K5 {label} differs from its plain version: "
                          f"max |diff| {err}")
-    library, lib_name = grouped_library(x, w, sizes)
+    lib_fn, lib_name = library
     lib_ms, lib_err = None, None
-    if library is not None:
-        lib_err = float((library().float() - want.float()).abs().max())
-        lib_ms = cuda_ms(library, REPS)
-    k_ms = cuda_ms(lambda: GK.grouped_matmul_kernel(x, gid, w, GMM_BT), REPS)
-    p_ms = cuda_ms(lambda: grouped_matmul_tiles_ref(x, gid, w, GMM_BT), REPS)
-    esize = x.element_size()
-    nbytes = (T * d + G * d * f + T * f) * esize + gid.numel() * 4
-    flops = 2.0 * T * d * f
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    if lib_fn is not None:
+        lib_err = float((lib_fn().float() - want.float()).abs().max())
+        lib_ms = cuda_ms(lib_fn, REPS)
+    k_ms = cuda_ms(lambda: GK.grouped_matmul_kernel(x, gid, w, GMM_BT, rows),
+                   REPS)
+    p_ms = cuda_ms(lambda: grouped_matmul_tiles_ref(x, gid, w, GMM_BT, rows),
+                   REPS)
+    peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     bound = max(t_ops, t_bytes) * 1e3
-    label = (f"({key}) T={T} d={d} f={f} groups={G} "
-             f"{str(dtype).replace('torch.', '')}")
+    path = GK.kernel_path(x, w)
     lib_txt = (f"{lib_name} {lib_ms:.4f} ms (max |diff| {lib_err:.3e})"
-               if lib_ms is not None else f"library none")
-    print(f"[grouped] {label}: max |diff| {err:.3e} (tolerance {tol}); "
-          f"kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain "
+               if lib_ms is not None else "library none")
+    print(f"[grouped] {label}: K5 path {path}, max |diff| {err:.3e} "
+          f"(tolerance {tol}); kernel {k_ms:.4f} ms "
+          f"({flops / k_ms / 1e9:.1f} TFLOP/s, "
+          f"{nbytes / k_ms / 1e9:.3f} TB/s of the bound's bytes), plain "
           f"{p_ms:.4f} ms, {lib_txt}, bound {bound:.4f} ms ({bound_by}, "
           f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.3f} GFLOP)", flush=True)
     return dict(
         name="grouped_matmul", route="cuda", source=GMM_SOURCE,
         replaces=GMM_REPLACES, launches=0, max_abs_err=err, ms=k_ms,
         plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
-        library=lib_name, shape=label,
+        library=lib_name, shape=label, path=path,
     )
 
 

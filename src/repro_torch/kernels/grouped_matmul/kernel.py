@@ -3,9 +3,13 @@
 ``csrc/grouped_matmul.cu`` is the Hopper counterpart of the Pallas TPU
 kernel ``grouped_matmul_pallas`` of the JAX reference
 (``repro/kernels/grouped_matmul/kernel.py:48``): y[r] = x[r] @
-w[tile_gid[r // bt]] with f32 sums, on the tensor cores in bfloat16 and
-with CUDA-core FMA in float32.  At the MoE decode shapes it is bound by
-the bytes of the experts' weights; see the source's note for its design.
+w[tile_gid[r // bt]] with f32 sums.  In bfloat16 it runs a TMA ring and
+``wgmma`` where TMA can describe the operands (``kernel_path`` says which
+kernel a call takes), wmma with element loads where it cannot; in float32
+CUDA-core FMA.  An optional ``tile_rows`` names the real leading rows of
+each ``bt``-row tile: the other rows count as zero and are written as +0,
+and a tile with none reads no weights.  At the MoE decode shapes K5 is
+bound by the bytes of the experts' weights; see the source's note.
 
 A wrapper given CPU tensors runs the plain PyTorch version from ``ref``;
 given CUDA tensors it launches the kernel on the current stream, or
@@ -30,6 +34,7 @@ __all__ = [
     "build",
     "build_info",
     "grouped_matmul_kernel",
+    "kernel_path",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,7 +60,7 @@ def _count() -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.grouped_matmul_launch.argtypes = [p, p, p, p] + [i] * 7 + [p]
+    lib.grouped_matmul_launch.argtypes = [p, p, p, p, p] + [i] * 7 + [p]
     lib.grouped_matmul_launch.restype = ctypes.c_int
     lib.grouped_matmul_row_tile.argtypes = [i]
     lib.grouped_matmul_row_tile.restype = ctypes.c_int
@@ -75,8 +80,25 @@ def build_info() -> dict:
     return LIBRARY.info()
 
 
-def _check(x, tile_gid, w, bt) -> None:
-    for name, t in (("tile_gid", tile_gid), ("w", w)):
+def kernel_path(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel a CUDA call on these operands takes, by dtype and shape:
+    "tma" (``gmm_bf16_tma``: bf16 with d and f multiples of 8 and 16-byte
+    aligned bases, what TMA can describe), "elem" (``gmm_bf16_elem``, other
+    bf16) or "f32" (``gmm_f32``).  The wrapper launches by it."""
+    if x.dtype == torch.float32:
+        return "f32"
+    d, f = w.shape[1], w.shape[2]
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    return "tma" if d % 8 == 0 and f % 8 == 0 and aligned else "elem"
+
+
+def _check(x, tile_gid, w, bt, tile_rows) -> None:
+    named = [("tile_gid", tile_gid), ("w", w)]
+    if tile_rows is not None:
+        named.append(("tile_rows", tile_rows))
+    for name, t in named:
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"{name} must be a tensor, got {type(t)}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, expected {x.device}")
     if x.dtype not in _DTYPES:
@@ -96,11 +118,15 @@ def _check(x, tile_gid, w, bt) -> None:
     if tile_gid.dtype != torch.int32 or tile_gid.shape != (T // bt,):
         raise ValueError(f"tile_gid must be int32 ({T // bt},), got "
                          f"{tile_gid.dtype} {tuple(tile_gid.shape)}")
+    if tile_rows is not None and (tile_rows.dtype != torch.int32
+                                  or tile_rows.shape != (T // bt,)):
+        raise ValueError(f"tile_rows must be int32 ({T // bt},), got "
+                         f"{tile_rows.dtype} {tuple(tile_rows.shape)}")
     if T // tile > _MAX_GRID_Y or max(x.numel(), w.shape[0] * w.shape[1],
                                       T * w.shape[2]) > _INT32_MAX:
         raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)}: too large "
                          f"for one launch")
-    for name, t in (("x", x), ("tile_gid", tile_gid), ("w", w)):
+    for name, t in [("x", x)] + named:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -110,26 +136,29 @@ def grouped_matmul_kernel(
     tile_gid: torch.Tensor,  # (T // bt,) int32, group of each row tile
     w: torch.Tensor,  # (G, d, f), x's dtype
     bt: int,
+    tile_rows: torch.Tensor | None = None,  # (T // bt,) int32 real rows
 ) -> torch.Tensor:
-    """Tile-mapped grouped matmul (K5): (T, f) in x's dtype."""
+    """Tile-mapped grouped matmul (K5): (T, f) in x's dtype.  With
+    ``tile_rows``, the rows of each tile past its count are taken as zero
+    and come out +0."""
     if x.device.type == "cpu":
-        return grouped_matmul_tiles_ref(x, tile_gid, w, bt)
+        return grouped_matmul_tiles_ref(x, tile_gid, w, bt, tile_rows)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check(x, tile_gid, w, bt)
+    _check(x, tile_gid, w, bt, tile_rows)
     T, d = x.shape
     G, _, f = w.shape
     out = torch.empty((T, f), dtype=x.dtype, device=x.device)
     if T == 0 or f == 0:
         return out
-    vec = (x.dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
-           and all(t.data_ptr() % 16 == 0 for t in (x, w, out)))
+    path = kernel_path(x, w)
     lib = build()
     with torch.cuda.device(x.device):
         code = lib.grouped_matmul_launch(
-            x.data_ptr(), tile_gid.data_ptr(), w.data_ptr(), out.data_ptr(),
-            T, d, f, G, bt, _DTYPES[x.dtype], int(vec),
-            torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), tile_gid.data_ptr(),
+            None if tile_rows is None else tile_rows.data_ptr(),
+            w.data_ptr(), out.data_ptr(), T, d, f, G, bt, _DTYPES[x.dtype],
+            int(path == "tma"), torch.cuda.current_stream().cuda_stream,
         )
     LIBRARY.check(code, "grouped_matmul")
     _count()

@@ -12,7 +12,9 @@ adapter bucket).
   the group of a row is that of its ``bt``-row tile, ``tile_gid[r // bt]``,
   as in the Pallas kernel.  Each run of tiles with one group id is one
   float32 product, cast to x's dtype, as the kernel accumulates in f32 and
-  casts once.
+  casts once.  With ``tile_rows`` the rows of each tile past its count are
+  taken as zero: they come out +0, by a mask on the device, with no host
+  sync for the counts.
 """
 from __future__ import annotations
 
@@ -48,16 +50,23 @@ def grouped_matmul_ref(x: torch.Tensor, group_sizes: torch.Tensor,
 
 
 def grouped_matmul_tiles_ref(x: torch.Tensor, tile_gid: torch.Tensor,
-                             w: torch.Tensor, bt: int) -> torch.Tensor:
+                             w: torch.Tensor, bt: int,
+                             tile_rows: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """The plain version of K5: y[r] = x[r] @ w[tile_gid[r // bt]], in
     float32, cast to x's dtype.  x: (T, d) with T % bt == 0; tile_gid:
-    (T // bt,) int; w: (G, d, f)."""
+    (T // bt,) int; w: (G, d, f).  tile_rows: None (every row real) or
+    (T // bt,) int, the real leading rows of each tile; the others are
+    taken as zero, so their outputs are +0."""
     T = x.shape[0]
     if bt <= 0 or T % bt:
         raise ValueError(f"{T} rows are not a whole number of {bt}-row tiles")
     if tile_gid.shape != (T // bt,):
         raise ValueError(f"tile_gid must be ({T // bt},), got "
                          f"{tuple(tile_gid.shape)}")
+    if tile_rows is not None and tile_rows.shape != (T // bt,):
+        raise ValueError(f"tile_rows must be ({T // bt},), got "
+                         f"{tuple(tile_rows.shape)}")
     gids = tile_gid.tolist()
     if gids and (min(gids) < 0 or max(gids) >= w.shape[0]):
         raise ValueError(f"tile_gid outside [0, {w.shape[0]})")
@@ -70,4 +79,7 @@ def grouped_matmul_tiles_ref(x: torch.Tensor, tile_gid: torch.Tensor,
         rows = slice(i * bt, j * bt)
         out[rows] = (x[rows].float() @ w[gids[i]].float()).to(x.dtype)
         i = j
+    if tile_rows is not None:
+        past = torch.arange(bt, device=x.device) >= tile_rows[:, None]
+        out.masked_fill_(past.reshape(T, 1), 0)
     return out

@@ -8,9 +8,14 @@ Tokens past an expert's capacity are dropped (token-choice semantics).
 
 The expert buffer's rows are group-sorted with every group C rows long, C
 a multiple of 256, so the three expert products are the grouped-matmul
-kernel (K5) on the (E*C, d) view with ``group_sizes = full(E, C)``: the
-reference's ``einsum("ecd,edf->ecf")``, summed in f32.  Where the
-reference relies on JAX's semantics the port spells them out:
+kernel (K5) on the (E*C, d) view, every ``EXPERT_BT``-row tile in one
+expert: the reference's ``einsum("ecd,edf->ecf")``, summed in f32.  Only
+the first min(tokens routed to e, C) rows of expert e's C are real (the
+rest stay zero); ``expert_tiles`` hands K5 that count for each tile, once
+a layer and on the device, so K5 writes the other rows as +0 (what the
+einsum gives for a zero row) and reads no weights of an expert with no
+token.  Where the reference relies on JAX's semantics the port spells them
+out:
 
 * ``jax.lax.top_k`` takes the lower index first among equal gates; the
   port takes its top k from a stable descending sort.
@@ -23,11 +28,19 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.grouped_matmul import ops as gmm
+from ..kernels.grouped_matmul.kernel import grouped_matmul_kernel
+from ..kernels.grouped_matmul.ops import tile_groups
 from .common import ParamFactory
 from .mlp import act_fn, is_gated
 
-__all__ = ["init_moe", "moe_apply", "moe_apply_with_aux", "moe_capacity"]
+__all__ = ["EXPERT_BT", "expert_tiles", "init_moe", "moe_apply",
+           "moe_apply_with_aux", "moe_capacity"]
+
+EXPERT_BT = 128  # K5's row tile on the expert buffer; divides C
+# (E, C, bt, device) -> (tile_gid, each tile's first row within its expert):
+# the same for every layer and step of a shape, so built once instead of in
+# 7 launches a layer.
+_TILES: dict = {}
 
 
 def init_moe(cfg, f: ParamFactory, layers: int | None = None) -> dict:
@@ -50,6 +63,28 @@ def moe_capacity(cfg, n_tokens: int) -> int:
     tile-aligns the grouped-matmul kernel)."""
     c = int(n_tokens * cfg.top_k * cfg.capacity_factor / cfg.n_experts) + 1
     return -(-c // 256) * 256
+
+
+def expert_tiles(top_idx: torch.Tensor, E: int, C: int, bt: int = EXPERT_BT):
+    """K5's tiling of the (E*C)-row expert buffer: (tile_gid, tile_rows),
+    int32 (E*C // bt,) on top_idx's device.  tile_gid is ``tile_groups`` of
+    E groups of C rows (cached in ``_TILES``); tile_rows[t] is how many of
+    the tile's rows hold a token, from each expert's min(tokens routed to
+    it, C).  Five launches and no host sync."""
+    dev = top_idx.device
+    key = (E, C, bt, dev)
+    if key not in _TILES:
+        sizes = torch.full((E,), C, dtype=torch.int32, device=dev)
+        _TILES[key] = (tile_groups(sizes, E * C, bt, E),
+                       torch.arange(0, C, bt, dtype=torch.int32, device=dev))
+    tile_gid, starts = _TILES[key]
+    flat = top_idx.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.int32, device=dev)
+    counts.scatter_add_(0, flat, torch.ones(flat.shape, dtype=torch.int32,
+                                            device=dev))
+    # A count past C fills all of the expert's tiles: the clamp to bt.
+    rows = (counts[:, None] - starts).clamp_(0, bt)
+    return tile_gid, rows.reshape(-1)
 
 
 def moe_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -123,14 +158,19 @@ def moe_apply_with_aux(cfg, p: dict, x: torch.Tensor):
     buf.index_add_(0, dest, xf.repeat_interleave(k, dim=0))
     xe = buf[: E * C]  # (E*C, d): E groups of C rows
 
-    # Grouped expert FFN -- a dense batched pass per expert bucket (K5).
-    sizes = torch.full((E,), C, dtype=torch.int64, device=x.device)
-    up = gmm.grouped_matmul(xe, sizes, p["wu"])
+    # Grouped expert FFN -- a batched pass per expert bucket (K5) over the
+    # rows that hold a token; the other rows come out +0.
+    tile_gid, tile_rows = expert_tiles(top_idx, E, C)
+
+    def experts(h, w):
+        return grouped_matmul_kernel(h, tile_gid, w, EXPERT_BT, tile_rows)
+
+    up = experts(xe, p["wu"])
     if is_gated(cfg.activation):
-        h = act(gmm.grouped_matmul(xe, sizes, p["wg"])) * up
+        h = act(experts(xe, p["wg"])) * up
     else:
         h = act(up)
-    ye = gmm.grouped_matmul(h, sizes, p["wd"])  # (E*C, d)
+    ye = experts(h, p["wd"])  # (E*C, d)
 
     # Gather back; a dropped choice reads row E*C - 1 (the reference's
     # clamped rank) with weight 0.

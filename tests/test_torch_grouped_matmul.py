@@ -220,3 +220,51 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert tkernel.LAUNCHES["grouped_matmul"] == before
     with pytest.raises(ValueError):
         tkernel.grouped_matmul_kernel(x.to("meta"), gid, w, 128)
+
+
+TILE_ROWS = {  # real leading rows of each of the 8 tiles of 128 rows
+    "zero": [0] * 8,
+    "partial": [5, 1, 127, 64, 100, 3, 77, 2],
+    "full": [128] * 8,
+    "mixed": [0, 128, 37, 0, 128, 1, 0, 90],
+}
+
+
+@pytest.mark.parametrize("rows", list(TILE_ROWS))
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16],
+                         ids=["f32", "bf16"])
+def test_tile_rows_match_reference_on_zeroed_rows(rows, dtype):
+    """With ``tile_rows`` the plain version of K5 gives the reference's
+    kernel path (interpret mode) on x with the rows past each tile's count
+    zeroed, whatever those rows of x hold; they come out +0."""
+    rng = np.random.default_rng(8)
+    sizes, d, f, bt = [128, 256, 128, 512], 256, 192, 128
+    T, G = sum(sizes), len(sizes)
+    counts = np.array(TILE_ROWS[rows], np.int32)
+    real = (np.arange(bt)[None, :] < counts[:, None]).reshape(T)
+    x = rng.normal(size=(T, d))
+    jx, _ = _both(np.where(real[:, None], x, 0.0), dtype)
+    _, tx = _both(x, dtype)  # rows past the counts keep their values
+    jw, tw = _both(rng.normal(size=(G, d, f)) * 0.1, dtype)
+    want = jops.grouped_matmul(jx, jnp.array(sizes), jw, bt=bt, bf=64,
+                               bk=128, use_pallas=True)
+    gid = tops.tile_groups(torch.tensor(sizes), T, bt, G)
+    got = grouped_matmul_tiles_ref(tx, gid, tw, bt, torch.from_numpy(counts))
+    assert got.dtype == tx.dtype and got.shape == (T, f)
+    tol = F32_TOL if dtype == jnp.float32 else BF16_TOL
+    _close(got, want, tol, tol)
+    past = got[torch.from_numpy(~real)]
+    assert bool((past == 0).all()) and not bool(torch.signbit(past).any())
+    # the wrapper on CPU tensors is the plain version, counts and all
+    torch.testing.assert_close(
+        tkernel.grouped_matmul_kernel(tx, gid, tw, bt,
+                                      torch.from_numpy(counts)), got)
+
+
+def test_tile_rows_refusals_of_the_plain_version():
+    x = torch.zeros(256, 16)
+    w = torch.zeros(2, 16, 8)
+    gid = torch.tensor([0, 1], dtype=torch.int32)
+    with pytest.raises(ValueError):
+        grouped_matmul_tiles_ref(x, gid, w, 128, torch.tensor([1, 2, 3]))
+    assert grouped_matmul_tiles_ref(x, gid, w, 128, None).shape == (256, 8)

@@ -19,7 +19,8 @@ shape and at ``benchmarks/kernel_bench.py``'s.
 The grouped matmul (K5) is held to its plain version at the reference's
 tolerances for it, rtol = atol = 5e-2 in bfloat16 and 1e-5 in float32
 (``tests/test_kernels.py:173``), at aligned row tiles with ragged column
-and depth edges, with weights at the model's init scale 1/sqrt(d) (what K5
+and depth edges, with and without counts of real rows a tile (the TMA
+kernel for bf16 rows of a 16-byte pitch, the element-load one else), with weights at the model's init scale 1/sqrt(d) (what K5
 sees on the MoE path).  The reference's 1e-5 is set for its depths (d <=
 512); two f32 sums over d terms in different orders drift apart by about
 sqrt(d) ulps of the partial sums (at d = 2048 with weights x0.1 the card
@@ -286,6 +287,14 @@ def test_k4_wrapper_refuses_what_the_kernel_does_not_take(card):
 GMM_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-5}
 
 
+def _gmm_path(d, f, dtype):
+    """The kernel K5 should take: TMA + wgmma for bf16 whose d and f are
+    multiples of 8 (a 16-byte row pitch), element loads for other bf16."""
+    if dtype == torch.float32:
+        return "f32"
+    return "tma" if d % 8 == 0 and f % 8 == 0 else "elem"
+
+
 def _gmm_case(rng, sizes, d, f, dtype, scale=None):
     scale = d ** -0.5 if scale is None else scale
     T, G = sum(sizes), len(sizes)
@@ -306,8 +315,10 @@ def _gmm_case(rng, sizes, d, f, dtype, scale=None):
 def test_k5_kernel_matches_plain(card, sizes, d, f, dtype):
     x, gs, w = _gmm_case(np.random.default_rng(d + f), sizes, d, f, dtype)
     want = gops.grouped_matmul(x, gs, w)
+    x_, w_ = x.to(card), w.to(card)
+    assert gkernel.kernel_path(x_, w_) == _gmm_path(d, f, dtype)
     before = gkernel.LAUNCHES["grouped_matmul"]
-    got = gops.grouped_matmul(x.to(card), gs.to(card), w.to(card))
+    got = gops.grouped_matmul(x_, gs.to(card), w_)
     torch.cuda.synchronize()
     assert gkernel.LAUNCHES["grouped_matmul"] == before + 1
     assert got.is_cuda and got.dtype == dtype and got.shape == want.shape
@@ -338,6 +349,41 @@ def test_k5_row_tiles_and_bad_groups(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sizes,d,f,dtype", [
+    ([256] * 4, 2048, 1408, torch.bfloat16),
+    ([256] * 4, 1408, 2048, torch.bfloat16),
+    ([256, 256], 100, 37, torch.bfloat16),
+    ([128, 256, 128, 512], 256, 192, torch.float32),
+], ids=["moe_up", "moe_down", "odd", "f32"])
+def test_k5_tile_rows_match_plain(card, sizes, d, f, dtype):
+    """Rows past each tile's count are taken as zero (x holds noise there)
+    and come out +0; a tile with no real row and a group id out of range
+    still comes out NaN; the other tiles equal the plain version."""
+    x, gs, w = _gmm_case(np.random.default_rng(d * f), sizes, d, f, dtype)
+    T, G, bt = x.shape[0], w.shape[0], 128
+    gid = gops.tile_groups(gs, T, bt, G)
+    pattern = [8, 0, 128, 65, 1, 64, 0, 127]
+    rows = torch.tensor((pattern * 2)[: T // bt], dtype=torch.int32)
+    want = gkernel.grouped_matmul_kernel(x, gid, w, bt, rows)
+    bad = gid.clone()
+    bad[1] = G  # tile 1 has no real row and no group
+    x_, w_ = x.to(card), w.to(card)
+    assert gkernel.kernel_path(x_, w_) == _gmm_path(d, f, dtype)
+    got = gkernel.grouped_matmul_kernel(x_, bad.to(card), w_, bt,
+                                        rows.to(card))
+    torch.cuda.synchronize()
+    got = got.cpu()
+    assert torch.isnan(got[bt:2 * bt]).all()
+    keep = torch.ones(T, dtype=torch.bool)
+    keep[bt:2 * bt] = False
+    tol = GMM_TOL[dtype]
+    np.testing.assert_allclose(got[keep].float().numpy(),
+                               want[keep].float().numpy(), rtol=tol, atol=tol)
+    past = (torch.arange(bt)[None, :] >= rows[:, None]).reshape(T) & keep
+    assert bool((got[past] == 0).all()) and not torch.signbit(got[past]).any()
+
+
+@pytest.mark.cuda
 def test_k5_wrapper_refuses_what_the_kernel_does_not_take(card):
     x, _, w = [t.to(card) for t in _gmm_case(
         np.random.default_rng(2), [256, 256], 64, 32, torch.bfloat16)]
@@ -361,6 +407,16 @@ def test_k5_wrapper_refuses_what_the_kernel_does_not_take(card):
         k(x, gid.cpu(), w, 128)  # device
     with pytest.raises(ValueError):
         k(x.t().contiguous().t(), gid, w, 128)  # layout
+    rows = torch.full((4,), 128, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        k(x, gid, w, 128, rows.long())  # tile_rows type
+    with pytest.raises(ValueError):
+        k(x, gid, w, 128, rows[:3])  # tile_rows length
+    with pytest.raises(ValueError):
+        k(x, gid, w, 128, rows.cpu())  # tile_rows device
+    with pytest.raises(ValueError):
+        k(x, gid, w, 128, [128] * 4)  # not a tensor
+    assert k(x, gid, w, 128, rows).shape == (512, 32)
     xf, wf = x.float(), w.float()
     with pytest.raises(ValueError):
         k(xf, torch.zeros(16, dtype=torch.int32, device=card), wf, 32)

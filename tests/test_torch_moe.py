@@ -240,3 +240,49 @@ def test_launcher_serves_moe_with_the_references_summary(capsys, monkeypatch):
     assert _summary_lines(out) == want and len(want) > 10
     assert "decode: 6 calls, 96 steps" in out
     assert gkernel.LAUNCHES["grouped_matmul"] == before
+
+
+# ------------------------------------------------------------------ K5's tiles
+@pytest.mark.parametrize("case", ["decode", "overflow"])
+@pytest.mark.parametrize("dispatch", DISPATCH)
+def test_expert_tiles_count_the_buffers_real_rows(case, dispatch,
+                                                  monkeypatch):
+    """The ``tile_rows`` the MoE layer hands K5 are the rows of each tile of
+    its expert buffer that hold a token: exactly the leading nonzero rows
+    (random x), at decode with experts that get no token and with experts
+    past their capacity; ``tile_gid`` is each tile's expert.  The three
+    expert products share both, and the layer still equals the reference."""
+    if case == "decode":  # 16 choices over 16 experts: some get none
+        kw, shape = dict(n_experts=16), (8, 1)
+    else:  # ~512 choices an expert for C = 256 slots
+        kw, shape = dict(capacity_factor=0.1), (4, 256)
+    jcfg, tcfg = _cfgs("moonshot-v1-16b-a3b", moe_dispatch=dispatch, **kw)
+    p = _layer(jcfg, seed=3)
+    x = np.random.default_rng(5).normal(
+        size=shape + (jcfg.d_model,)).astype(np.float32)
+    calls = []
+
+    def spy(h, tile_gid, w, bt, tile_rows):
+        calls.append((h, tile_gid, bt, tile_rows))
+        return gkernel.grouped_matmul_kernel(h, tile_gid, w, bt, tile_rows)
+
+    monkeypatch.setattr(tmoe, "grouped_matmul_kernel", spy)
+    (jy, _), (ty, _) = _apply_both(jcfg, tcfg, p, x)
+    np.testing.assert_allclose(ty, jy, rtol=MOE_TOL, atol=MOE_TOL)
+    assert len(calls) == 3
+    xe, tile_gid, bt, tile_rows = calls[0]
+    assert all(c[1] is tile_gid and c[3] is tile_rows for c in calls)
+    E, T = tcfg.n_experts, shape[0] * shape[1]
+    C = tmoe.moe_capacity(tcfg, T)
+    assert bt == tmoe.EXPERT_BT and xe.shape[0] == E * C
+    assert tile_gid.dtype == tile_rows.dtype == torch.int32
+    np.testing.assert_array_equal(tile_gid.numpy(),
+                                  np.arange(E * C // bt) // (C // bt))
+    nonzero = (xe != 0).any(dim=1).view(-1, bt)
+    leading = torch.arange(bt)[None, :] < tile_rows[:, None]
+    assert torch.equal(nonzero, leading)
+    per_expert = tile_rows.view(E, -1).sum(dim=1)
+    if case == "decode":
+        assert (per_expert == 0).any() and (per_expert > 0).any()
+    else:
+        assert (per_expert == C).any()
