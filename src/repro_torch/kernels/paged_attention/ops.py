@@ -15,10 +15,11 @@ __all__ = ["paged_attention", "dense_to_pages"]
 
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens):
     """Decode attention over paged KV. q: (B,H,D) -> (B,H,D)."""
-    return paged_attention_kernel(
-        q, k_pages, v_pages, page_table.to(torch.int32),
-        seq_lens.to(torch.int32),
-    )
+    if page_table.dtype != torch.int32:
+        page_table = page_table.to(torch.int32)
+    if seq_lens.dtype != torch.int32:
+        seq_lens = seq_lens.to(torch.int32)
+    return paged_attention_kernel(q, k_pages, v_pages, page_table, seq_lens)
 
 
 def dense_to_pages(k: torch.Tensor, v: torch.Tensor, page: int):

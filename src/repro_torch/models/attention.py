@@ -6,11 +6,14 @@ cache is pre-allocated (B, S_alloc, KV, D) and updated IN PLACE at slot
 attention): where the reference returns new cache arrays, the port writes
 into the ones it was given and returns them.  The attention core is the
 paged decode-attention kernel (K4) over a page view of that cache, which
-copies nothing.  ``attn_full`` and cross-attention are not on the decode
+copies nothing; its page table and lengths come from tables made once per
+(batch, cache layout, device), so a step launches nothing for them.
+``attn_full`` and cross-attention are not on the decode
 path and are not ported yet.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -74,6 +77,28 @@ def cache_layout(cfg, max_seq: int) -> DecodeCacheLayout:
     return DecodeCacheLayout(max_seq, False)
 
 
+@functools.lru_cache(maxsize=16)
+def _cached_tables(B: int, seq: int, page: int, device: torch.device):
+    """The identity page table (B, seq / page) of ``dense_to_pages``, and a
+    (seq, B) table whose row n - 1 holds every sequence's length n.  Shared
+    by every later call: private, so no caller can write into them."""
+    table = torch.arange(B * (seq // page), dtype=torch.int32,
+                         device=device).view(B, seq // page)
+    lens = torch.arange(1, seq + 1, dtype=torch.int32, device=device)
+    return table, lens[:, None].expand(seq, B).contiguous()
+
+
+def _decode_tables(B: int, layout: DecodeCacheLayout, pos: int,
+                   device) -> tuple:
+    """K4's (page_table, seq_lens) at decode position ``pos``: a cached
+    tensor and a row of one, made once per (B, layout, device), so a step
+    launches nothing for them.  They are handed only to K4, which reads
+    them; nothing may write into them."""
+    page = math.gcd(layout.seq, DECODE_PAGE)
+    table, lens = _cached_tables(B, layout.seq, page, torch.device(device))
+    return table, lens[min(pos + 1, layout.seq) - 1]
+
+
 def attn_decode(
     cfg,
     p: dict,
@@ -92,7 +117,6 @@ def attn_decode(
     pos = int(pos)
     if not layout.ring and pos >= layout.seq:
         raise ValueError(f"position {pos} is past the {layout.seq}-slot cache")
-    B = x.shape[0]
     q, k, v = _qkv(cfg, p, x)  # (B,1,H,D)/(B,1,KV,D)
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     cos, sin = make_rope(posv, cfg.head_dim, cfg.rope_theta)
@@ -104,9 +128,10 @@ def attn_decode(
     v_cache[:, slot] = v[:, 0]
 
     page = math.gcd(layout.seq, DECODE_PAGE)
-    k_pages, v_pages, page_table = ops.dense_to_pages(k_cache, v_cache, page)
-    seq_lens = torch.full((B,), min(pos + 1, layout.seq), dtype=torch.int32,
-                          device=x.device)
+    B, S, KV, D = k_cache.shape
+    k_pages = k_cache.view(B * S // page, page, KV, D)
+    v_pages = v_cache.view(B * S // page, page, KV, D)
+    page_table, seq_lens = _decode_tables(B, layout, pos, x.device)
     out = ops.paged_attention(q[:, 0], k_pages, v_pages, page_table, seq_lens)
     out = torch.einsum("bshd,hdm->bsm", out[:, None], p["wo"])
     return out, k_cache, v_cache

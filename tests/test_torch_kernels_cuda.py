@@ -14,7 +14,9 @@ rows up, and another one below, where the two differ by up to 2**-23.
 The paged decode-attention kernel (K4) is held to its plain version at the
 reference's tolerances for it: rtol = atol = 5e-2 in bfloat16 and 2e-5 in
 float32 (``tests/test_kernels.py:220``, ``:235``), at the serving path's
-shape and at ``benchmarks/kernel_bench.py``'s.
+shape and at ``benchmarks/kernel_bench.py``'s; where it splits a sequence
+across blocks it is held to ``paged_attention_splits_ref`` with the same
+chunk too, at the same tolerances, and two calls give the same bits.
 
 The grouped matmul (K5) is held to its plain version at the reference's
 tolerances for it, rtol = atol = 5e-2 in bfloat16 and 1e-5 in float32
@@ -50,6 +52,7 @@ from repro_torch.kernels.crossmatch import kernel as tkernel  # noqa: E402
 from repro_torch.kernels.crossmatch import ops as tops  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as pkernel  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pops  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import paged_attention_splits_ref  # noqa: E402
 from repro_torch.kernels.grouped_matmul import kernel as gkernel  # noqa: E402
 from repro_torch.kernels.grouped_matmul import ops as gops  # noqa: E402
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref  # noqa: E402
@@ -281,6 +284,91 @@ def test_k4_wrapper_refuses_what_the_kernel_does_not_take(card):
           torch.zeros(4, 8, 2, 512, device=card), pt, lens)  # head_dim
     with pytest.raises(ValueError):
         k(q.transpose(0, 1).contiguous().transpose(0, 1), kp, vp, pt, lens)
+
+
+SPLIT_SHAPES = {
+    # (B, H, KV, D, page, pages, max_len)
+    "kernel_bench": (16, 16, 8, 128, 64, 32, 64 * 32),
+    "one_long": (1, 32, 32, 128, 64, 64, 4096),
+}
+
+
+def _splits(args):
+    q, kp = args[0], args[1]
+    B, _, _ = q.shape
+    _, page, KV, _ = kp.shape
+    return pkernel.split_plan(args[3].shape[1] * page)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", list(SPLIT_SHAPES), ids=list(SPLIT_SHAPES))
+def test_k4_split_matches_plain_and_split_ref(card, shape, dtype):
+    """A sequence cut across blocks and merged in the launch: against the
+    plain version and against the split arithmetic with the same chunk;
+    one launch a call, and the same bits from two calls."""
+    B, H, KV, D, page, pages, max_len = SPLIT_SHAPES[shape]
+    args = _paged_case(np.random.default_rng(B + H), B, H, KV, D, page,
+                       pages, max_len, dtype)
+    splits, chunk = _splits(args)
+    assert splits > 1
+    dev = [x.to(card) for x in args]
+    assert pkernel.kernel_path(*dev[:3]) == "async"
+    before = pkernel.LAUNCHES["paged_attention"]
+    got = pops.paged_attention(*dev)
+    again = pops.paged_attention(*dev)
+    torch.cuda.synchronize()
+    assert pkernel.LAUNCHES["paged_attention"] == before + 2
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+    tol = PAGED_TOL[dtype]
+    got = got.float().cpu().numpy()
+    for want in (pops.paged_attention(*args),
+                 paged_attention_splits_ref(*args, chunk)):
+        want = want.float().numpy()
+        # Averages over thousands of slots are small: atol scales with them.
+        np.testing.assert_allclose(
+            got, want, rtol=tol, atol=tol * min(1.0, float(np.abs(want).max())))
+
+
+@pytest.mark.cuda
+def test_k4_split_zero_length_and_a_late_bad_page(card):
+    """With splits > 1: seq_len 0 gives 0; a bad page met only by a late
+    split makes that sequence's rows NaN and no other's."""
+    B, H, KV, D, page, pages = 3, 8, 4, 64, 16, 128
+    args = _paged_case(np.random.default_rng(9), B, H, KV, D, page, pages,
+                       page * pages, torch.float32)
+    q, kp, vp, pt, lens = [x.to(card) for x in args]
+    splits, chunk = _splits(args)
+    assert splits > 2
+    lens[:] = torch.tensor([0, page * pages, page * pages])
+    pt[2, (splits - 1) * chunk // page] = -1  # read by the last split only
+    out = pops.paged_attention(q, kp, vp, pt, lens)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(out[0]).item() == 0
+    assert not torch.isnan(out[:2]).any()
+    assert torch.isnan(out[2]).all()
+    want = pops.paged_attention(*args[:3], pt.cpu(), lens.cpu())
+    np.testing.assert_allclose(out[1].cpu().numpy(), want[1].numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_k4_scalar_instance(card, dtype):
+    """D = 40: not 8, 16, 32 or 64 16-byte vectors a row, so the scalar-load
+    instance, split and not."""
+    for pages, max_len in ((4, 30), (40, 640)):
+        args = _paged_case(np.random.default_rng(pages), 3, 6, 2, 40, 16,
+                           pages, max_len, dtype)
+        dev = [x.to(card) for x in args]
+        assert pkernel.kernel_path(*dev[:3]) == "scalar"
+        got = pops.paged_attention(*dev)
+        tol = PAGED_TOL[dtype]
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   pops.paged_attention(*args).float().numpy(),
+                                   rtol=tol, atol=tol)
 
 
 # ------------------------------------------------------------------ K5

@@ -9,7 +9,10 @@ kernel: rtol = atol = 2e-5 in float32 (the reference's kernel-vs-oracle
 bound: a different summation order over at most 128 slots) and 5e-2 in
 bfloat16 (where the Pallas kernel rounds unnormalised probabilities and the
 oracle normalised ones).  On the CPU the port's wrapper runs the plain
-version and launches nothing.
+version and launches nothing.  ``paged_attention_splits_ref``, the CUDA
+kernel's split arithmetic written plainly (each chunk's own softmax, the
+chunks merged in order), is held to the same references at the same
+tolerances: the split only moves where a probability is rounded.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from repro.serving.kvcache import PagePool as JPagePool  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as tkernel  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as tops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref as t_ref  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import paged_attention_splits_ref  # noqa: E402
 from repro_torch.serving.kvcache import PagePool as TPagePool  # noqa: E402
 
 F32_TOL = 2e-5
@@ -143,6 +147,99 @@ def test_zero_length_gives_the_oracles_mean():
         got[0], vp[pt[0]].reshape(-1, 2, 16).mean(0).repeat(2, axis=0),
         rtol=F32_TOL, atol=F32_TOL)
     assert np.abs(_jax_out(True, q, kp, vp, pt, lens)[0]).max() == 0.0
+
+
+def _splits_out(q, kp, vp, pt, lens, chunk, dtype=torch.float32):
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
+         for x in (q, kp, vp)]
+    out = paged_attention_splits_ref(*t, torch.from_numpy(pt),
+                                     torch.from_numpy(lens), chunk)
+    assert out.dtype == dtype
+    return out.float().numpy()
+
+
+# (page, pages, chunk, lens cap): chunks that end inside a page, that end
+# on a page edge, and lengths that leave the last splits empty.
+SPLIT_CASES = {
+    "inside_page": (16, 4, 24, None),
+    "page_edge": (16, 4, 32, None),
+    "one_slot_chunks": (8, 2, 1, None),
+    "last_splits_empty": (16, 8, 16, 40),
+}
+
+
+@pytest.mark.parametrize("use_pallas", [True, False], ids=["pallas", "ref"])
+@pytest.mark.parametrize("h,kv", [(8, 8), (8, 2)])
+@pytest.mark.parametrize("case", list(SPLIT_CASES), ids=list(SPLIT_CASES))
+def test_split_arithmetic_matches_reference(use_pallas, h, kv, case):
+    page, pages, chunk, cap = SPLIT_CASES[case]
+    rng = np.random.default_rng(10)
+    q, kp, vp, pt, lens = _paged_inputs(rng, 3, h, kv, 32, page, pages)
+    if cap is not None:
+        lens = np.minimum(lens, cap).astype(np.int32)
+        assert lens.max() <= page * pages - 2 * chunk  # two empty splits
+    np.testing.assert_allclose(_splits_out(q, kp, vp, pt, lens, chunk),
+                               _jax_out(use_pallas, q, kp, vp, pt, lens),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False], ids=["pallas", "ref"])
+@pytest.mark.parametrize("chunk", [24, 64])
+def test_split_arithmetic_bf16(use_pallas, chunk):
+    rng = np.random.default_rng(11)
+    B, H, KV, D, page, P = 2, 8, 4, 64, 16, 8
+    q, kp, vp, pt, _ = _paged_inputs(rng, B, H, KV, D, page, P)
+    lens = np.array([page * P, page * P // 3], np.int32)
+    bf = [np.asarray(jnp.asarray(x, jnp.bfloat16)) for x in (q, kp, vp)]
+    want = _jax_out(use_pallas, *bf, pt, lens)
+    got = _splits_out(q, kp, vp, pt, lens, chunk, dtype=torch.bfloat16)
+    np.testing.assert_allclose(got, want, rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def test_split_arithmetic_zero_length_gives_zero():
+    """``seq_len == 0`` gives 0, as the Pallas kernel and the CUDA kernel
+    do (every split is empty; the merge divides 0 by max(0, 1e-30))."""
+    rng = np.random.default_rng(12)
+    q, kp, vp, pt, _ = _paged_inputs(rng, 2, 4, 2, 16, 8, 4)
+    lens = np.array([0, 20], np.int32)
+    got = _splits_out(q, kp, vp, pt, lens, 8)
+    assert np.abs(got[0]).max() == 0.0
+    want = _jax_out(True, q, kp, vp, pt, lens)
+    assert np.abs(want[0]).max() == 0.0
+    np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("B,KV,slots,want", [
+    (8, 32, 64, (1, 512)),  # the decode path: one split, no workspace
+    (8, 16, 64, (1, 512)),
+    (16, 8, 2048, (4, 512)),  # kernel_bench's shape
+    (8, 32, 4096, (8, 512)),
+    (1, 32, 4096, (8, 512)),
+    (64, 64, 512, (1, 512)),  # a chunk exactly
+    (64, 64, 9000, (18, 512)),  # the last chunk partly past the table
+])
+def test_split_plan_from_shapes(B, KV, slots, want):
+    splits, chunk = tkernel.split_plan(slots)
+    assert (splits, chunk) == want
+    assert splits * chunk >= slots and (splits - 1) * chunk < slots
+    assert (tkernel.workspace_bytes(B, 2 * KV, KV, 128, splits) == 0) == (
+        splits == 1)
+    with pytest.raises(ValueError):  # more splits than gridDim.z takes
+        tkernel.split_plan(65535 * tkernel.CHUNK + 1)
+
+
+@pytest.mark.parametrize("D,dtype,path", [
+    (128, torch.bfloat16, "async"), (64, torch.bfloat16, "async"),
+    (256, torch.float32, "async"), (32, torch.float32, "async"),
+    (40, torch.bfloat16, "scalar"), (192, torch.bfloat16, "scalar"),
+    (16, torch.bfloat16, "scalar"), (40, torch.float32, "scalar"),
+])
+def test_kernel_path_by_shape(D, dtype, path):
+    """The 16-byte instances take rows of 8, 16, 32 or 64 16-byte vectors;
+    every other head_dim takes the scalar instance."""
+    q = torch.zeros(2, 4, D, dtype=dtype)
+    pool = torch.zeros(4, 8, 2, D, dtype=dtype)
+    assert tkernel.kernel_path(q, pool, pool) == path
 
 
 def test_dense_to_pages_is_a_view_with_the_references_table():

@@ -22,6 +22,7 @@ softmax; K4's Pallas kernel is held separately in
 from __future__ import annotations
 
 import dataclasses
+import math
 import sys
 
 import numpy as np
@@ -112,6 +113,44 @@ def test_attn_decode_matches_reference(variant):
             np.testing.assert_allclose(
                 got.numpy(), want, rtol=ATTN_TOL,
                 atol=ATTN_TOL * max(1.0, float(np.abs(want).max())))
+
+
+def test_decode_tables_follow_batch_and_layout():
+    """K4's page table and lengths come from tables cached per (B, cache
+    layout, device): in one process, a plain cache at B=3, then B=5, a
+    ring at B=3 and the plain B=3 again each decode as the reference
+    does, and the tables are the identity pages and min(pos + 1, S)."""
+    rng = np.random.default_rng(12)
+    runs = [("codeqwen", 3), ("codeqwen", 5), ("ring", 3), ("codeqwen", 3)]
+    for variant, B in runs:
+        jcfg, max_seq = _configs()[variant]
+        tcfg = dataclasses.replace(t_smoke(ARCH),
+                                   sliding_window=jcfg.sliding_window)
+        p = _numpy_tree(jattn.init_attention(
+            jcfg, JFactory(jax.random.PRNGKey(4), jnp.float32)))
+        tp = {k: torch.from_numpy(v.copy()) for k, v in p.items()}
+        layout = tattn.cache_layout(tcfg, max_seq)
+        jlayout = jattn.cache_layout(jcfg, max_seq)
+        assert tuple(jlayout) == tuple(layout)
+        shape = (B, layout.seq, jcfg.n_kv_heads, jcfg.head_dim)
+        jk = jv = jnp.zeros(shape, jnp.float32)
+        tk, tv = torch.zeros(shape), torch.zeros(shape)
+        for pos in range(layout.seq + 2 if layout.ring else 18):
+            x = rng.normal(size=(B, 1, jcfg.d_model)).astype(np.float32)
+            jo, jk, jv = jattn.attn_decode(jcfg, p, jnp.asarray(x), jk, jv,
+                                           jnp.int32(pos), jlayout)
+            to, _, _ = tattn.attn_decode(tcfg, tp, torch.from_numpy(x), tk,
+                                         tv, pos, layout)
+            want = np.asarray(jo)
+            np.testing.assert_allclose(
+                to.numpy(), want, rtol=ATTN_TOL,
+                atol=ATTN_TOL * max(1.0, float(np.abs(want).max())))
+            table, lens = tattn._decode_tables(B, layout, pos, "cpu")
+            page = math.gcd(layout.seq, tattn.DECODE_PAGE)
+            assert table.dtype == lens.dtype == torch.int32
+            assert torch.equal(table, torch.arange(
+                B * layout.seq // page, dtype=torch.int32).view(B, -1))
+            assert lens.tolist() == [min(pos + 1, layout.seq)] * B
 
 
 # ------------------------------------------------------------------ the slice
