@@ -8,19 +8,31 @@ of the MoE moonshot-v1-16b-a3b (K4 and the grouped matmul K5).
 Phases; any failure exits non-zero before the last line is printed:
 
 1. build   -- compile ``src/repro_torch/csrc/crossmatch.cu``,
-              ``csrc/paged_attention.cu`` and ``csrc/grouped_matmul.cu`` with
-              nvcc (one process each, started together, into
-              ``build/kernels/``) and load them.
+              ``csrc/paged_attention.cu``, ``csrc/grouped_matmul.cu`` and
+              three copies of the first with one planted fault each
+              (``PLANTED_FAULTS``, under ``build/planted/``) with nvcc (one
+              process each, started together, into ``build/kernels/``) and
+              load them.
 2. kernels -- each CUDA kernel (K1 single bucket, K2 fused, K3 shared plan)
               against its plain PyTorch version on the card, at the main
               path's shapes: a bucket of 10,000 rows padded to 16,384 and
-              M in {256, 4096, 32768} probes.  Tolerance (the plain version
-              takes its dots from cuBLAS, in another order than the kernel):
-              best_dot within 2 ulp; best_idx equal or the float64 dots of
-              both indices within 2 ulp; n_cand equal except on probes with a
-              pair whose float64 dot lies within 2 ulp of the threshold.
-              Kernel, plain and torch.mm dots-only times are CUDA-event
-              medians of 20.
+              M in {256, 4096, 32768} probes (K2/K3: the real rows, as the
+              card path hands them; one bucket row in 20 copied onto the
+              next, and 8 probes at each segment's last row).  Tolerance
+              (the plain version takes its dots from cuBLAS, in another
+              order than the kernel): best_dot within 2 ulp; best_idx equal
+              or the float64 dots of both indices within 2 ulp, and the
+              lowest of identical bucket rows; n_cand equal except on probes
+              with a pair whose float64 dot lies within 2 ulp of the
+              threshold.  Kernel, plain and torch.mm dots-only times are
+              CUDA-event medians of 20 of one call (the kernel's also as
+              device time, ``device_ms``: 20 launches between one pair of
+              events, over 20).  K2/K3 print their probes a thread,
+              splits, and the pairs their threads walk against the real
+              pairs.  Then each planted fault (ties to the higher index,
+              each segment range short of its last row, the last split's
+              count dropped) runs through the K2/K3 wrappers and must fail
+              this check; the script exits if one passes.
 3. main    -- the SkyQuery cross-match at the paper's SDSS bucket width
               (10,000 objects a bucket), cut in depth to 100 buckets, 200
               queries; three engines on ``cuda``: A fuse_k=1 (K1), B fuse_k=4
@@ -36,7 +48,9 @@ Phases; any failure exits non-zero before the last line is printed:
               main path gave it: K1 on one 10,000-row bucket (N = 16,384)
               with run A's largest probe batch; K2 and K3 on four
               10,000-row buckets (N = 65,536) with the largest probe batch
-              of run B and run C.  These cases make the kernels' record.
+              of run B and run C, as the card path hands it (the real rows),
+              and again padded as the reference pads it (``shapes.padded``
+              in the record).  These cases make the kernels' record.
 5. paged   -- K4 against its plain version on the card, bf16, with a
               permuted page table and ragged lengths >= 1, at (a) the serving
               path's own shape (B=8, H=KV=32, D=128, 64 slots in pages of 16,
@@ -104,6 +118,7 @@ import dataclasses
 import json
 import math
 import os
+import pathlib
 import subprocess
 import sys
 import time
@@ -124,6 +139,7 @@ from repro_torch.crossmatch import (  # noqa: E402
 )
 from repro_torch.kernels.crossmatch import kernel as K  # noqa: E402
 from repro_torch.kernels.crossmatch import ops, ref  # noqa: E402
+from repro_torch.kernels.nvcc import CudaLibrary  # noqa: E402
 from repro_torch.kernels.grouped_matmul import kernel as GK  # noqa: E402
 from repro_torch.kernels.grouped_matmul import ops as gmm_ops  # noqa: E402
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_tiles_ref  # noqa: E402
@@ -151,6 +167,17 @@ REPLACES = {
     "crossmatch": "src/repro/kernels/crossmatch/kernel.py:89",
     "crossmatch_fused": "src/repro/kernels/crossmatch/kernel.py:248",
     "crossmatch_shared": "src/repro/kernels/crossmatch/kernel.py:206",
+}
+# Faults planted in copies of SOURCE (line in the source -> its mutation);
+# each must fail phase 2's check of K2/K3.
+PLANTED_FAULTS = {
+    "ties resolved to the higher index": (
+        "      if (d > best[r]) {", "      if (d >= best[r]) {"),
+    "each segment range drops its last row": (
+        "    const int seg_end = sm_hi;", "    const int seg_end = sm_hi - 1;"),
+    "the last split's count dropped": (
+        "      cnt[r] += __ldcg(a.ws_cnt + k);",
+        "      cnt[r] += s == a.splits - 1 ? 0 : __ldcg(a.ws_cnt + k);"),
 }
 PAGED_SOURCE = "src/repro_torch/csrc/paged_attention.cu"
 PAGED_REPLACES = "src/repro/kernels/paged_attention/kernel.py:102"
@@ -203,20 +230,19 @@ def main() -> int:
         return 2
     torch.set_float32_matmul_precision("highest")
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    smi = card_name()
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        for fut in [pool.submit(m.build) for m in (K, PK, GK)]:
+    faults = planted_libraries()
+    builds = [m.build for m in (K, PK, GK)] + [lib.load for lib in faults.values()]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        for fut in [pool.submit(b) for b in builds]:
             fut.result()
-    print(f"[build] three libraries in {time.perf_counter() - t0:.2f}s",
-          flush=True)
+    print(f"[build] three libraries and {len(faults)} planted-fault copies of "
+          f"K2/K3's in {time.perf_counter() - t0:.2f}s", flush=True)
     for mod in (K, PK, GK):
         info = mod.build_info()
         print(f"[build] {info['path']} compiled={info['compiled']} "
@@ -244,9 +270,13 @@ def main() -> int:
     dev = torch.device(DEVICE)
     buckets = largest_buckets(cat, 4)
     rng = np.random.default_rng(11)
+    seg_checks = []
     for m in PROBE_COUNTS:
         for c in kernel_cases(buckets[0], m, rng, dev):
             measure(c)
+            if "plan" in c:
+                seg_checks.append(c)
+    check_planted_faults(faults, seg_checks)
 
     # -- 3. main path ---------------------------------------------------------
     by_run, batches = run_main_path(cat, trace)
@@ -312,6 +342,14 @@ def main() -> int:
                    "count": torch.cuda.device_count()},
     }))
     return 0
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
 
 
 # ---------------------------------------------------------------- timing
@@ -382,12 +420,20 @@ def within_ulps(a, b, ulps=ULPS):
     return np.abs(a64 - b64) <= ulps * np.spacing(mag).astype(np.float64)
 
 
+class JoinMismatch(SystemExit):
+    """A kernel's join disagrees with its plain version (exits non-zero
+    where not caught)."""
+
+
 def check_join(label, case, got, want):
     """Hold a kernel's (idx, dot, cnt) against the plain version's.
 
     ``case`` has the padded f32 inputs ``b8``/``p8`` (CUDA tensors), the
     per-row threshold ``thr`` (numpy f32) and ``keep(rows)`` -> bool mask
-    (len(rows), N) of the pairs that take part.  Returns max |dot diff|."""
+    (len(rows), N) of the pairs that take part.  A best_idx may differ on
+    a 2-ulp tie of two different rows; between identical bucket rows
+    (equal dots on both sides) the lowest index must win.  Raises
+    ``JoinMismatch``; returns max |dot diff|."""
     gi, gd, gc = (x.cpu().numpy() for x in got)
     wi, wd, wc = (x.cpu().numpy() for x in want)
     b64 = case["b8"].double()
@@ -401,8 +447,8 @@ def check_join(label, case, got, want):
     bad_dot = ~within_ulps(gd, wd)
     if bad_dot.any():
         r = int(np.nonzero(bad_dot)[0][0])
-        raise SystemExit(f"{label}: best_dot differs beyond {ULPS} ulp at "
-                         f"row {r}: {gd[r]!r} vs {wd[r]!r}")
+        raise JoinMismatch(f"{label}: best_dot differs beyond {ULPS} ulp at "
+                           f"row {r}: {gd[r]!r} vs {wd[r]!r}")
     rows = np.nonzero(gi != wi)[0]
     if rows.size:
         d = dots64(rows)
@@ -411,8 +457,17 @@ def check_join(label, case, got, want):
         tie = within_ulps(a, b)
         if not tie.all():
             r = int(rows[~tie][0])
-            raise SystemExit(f"{label}: best_idx differs at row {r} "
-                             f"({gi[r]} vs {wi[r]}) without a {ULPS}-ulp tie")
+            raise JoinMismatch(f"{label}: best_idx differs at row {r} "
+                               f"({gi[r]} vs {wi[r]}) without a {ULPS}-ulp "
+                               f"tie")
+        b8 = case["b8"]
+        same = (b8[torch.as_tensor(gi[rows], device=b8.device)]
+                == b8[torch.as_tensor(wi[rows], device=b8.device)]).all(1)
+        if same.any():
+            r = int(rows[same.cpu().numpy()][0])
+            raise JoinMismatch(f"{label}: best_idx {gi[r]} at row {r} where "
+                               f"the identical bucket row {wi[r]} comes "
+                               f"first (ties take the lowest index)")
     rows_c = np.nonzero(gc != wc)[0]
     if rows_c.size:
         d = dots64(rows_c)
@@ -420,9 +475,9 @@ def check_join(label, case, got, want):
         near = within_ulps(d, np.broadcast_to(thr, d.shape)).any(axis=1)
         if not near.all():
             r = int(rows_c[~near][0])
-            raise SystemExit(f"{label}: n_cand differs at row {r} "
-                             f"({gc[r]} vs {wc[r]}) with no pair near the "
-                             f"threshold")
+            raise JoinMismatch(f"{label}: n_cand differs at row {r} "
+                               f"({gc[r]} vs {wc[r]}) with no pair near the "
+                               f"threshold")
     print(f"[kernels]   {label}: ok (idx ties {rows.size}, near-threshold "
           f"counts {rows_c.size})", flush=True)
     return float(np.max(np.abs(gd.astype(np.float64) - wd)))
@@ -475,12 +530,15 @@ def k1_case(bucket_pos, probes, thr, band, label, dev):
     )
 
 
-def seg_cases(bucket_pos, probes, bseg, pseg, thr_real, label, dev):
+def seg_cases(bucket_pos, probes, bseg, pseg, thr_real, label, dev,
+              pad_probes=False):
     """The K2 case (threshold cos 5e-3) and the K3 case (per-probe
-    thresholds ``thr_real``) on one segmented input, padded as
-    ``ops.crossmatch_fused``/``crossmatch_shared`` pad."""
+    thresholds ``thr_real``) on one segmented input, built as the card
+    path builds it (``ops.crossmatch_fused``/``crossmatch_shared`` on
+    ``cuda``: the real probe rows only), or with ``pad_probes`` as the
+    reference pads it."""
     b8s, p8s, bs, ps, _, m = ops._segmented_inputs(
-        bucket_pos, probes, bseg, pseg, 128, 512
+        bucket_pos, probes, bseg, pseg, 128, 512, pad_probes
     )
     b8t, p8t = torch.from_numpy(b8s).to(dev), torch.from_numpy(p8s).to(dev)
     bst, pst = torch.from_numpy(bs).to(dev), torch.from_numpy(ps).to(dev)
@@ -489,25 +547,30 @@ def seg_cases(bucket_pos, probes, bseg, pseg, thr_real, label, dev):
     thr_t = torch.from_numpy(thr_row).to(dev)
     pairs = seg_pair_count(bs, ps)
     in_bytes = (b8s.size + p8s.size + bs.size + ps.size) * 4
+    r = K.segment_layout()[0]
+    _, splits = K.segment_plan(p8s.shape[0], b8s.shape[0], dev)
+    plan = dict(probes_a_thread=r, splits=splits,
+                walked_pairs=walked_pairs(bs, ps, r), real_pairs=pairs)
 
     def keep(rows):
         r = torch.as_tensor(rows, device=dev)
         return pst[r][:, None] == bst[None, :]
 
     thr = float(np.cos(5e-3))
+    shape = "padded" if pad_probes else "card path"
     return [
-        dict(name="crossmatch_fused", label=f"K2 {label}", b8=b8t, p8=p8t,
-             thr=np.full(p8s.shape[0], thr, np.float32), keep=keep,
+        dict(name="crossmatch_fused", label=f"K2 {label} ({shape})", b8=b8t,
+             p8=p8t, thr=np.full(p8s.shape[0], thr, np.float32), keep=keep,
              kernel=lambda: K.crossmatch_fused_kernel(b8t, p8t, bst, pst, thr),
              plain=lambda: ref.crossmatch_fused_ref(b8t, p8t, bst, pst, thr),
-             pairs=pairs, in_bytes=in_bytes),
-        dict(name="crossmatch_shared", label=f"K3 {label}", b8=b8t, p8=p8t,
-             thr=thr_row, keep=keep,
+             pairs=pairs, in_bytes=in_bytes, plan=plan),
+        dict(name="crossmatch_shared", label=f"K3 {label} ({shape})", b8=b8t,
+             p8=p8t, thr=thr_row, keep=keep,
              kernel=lambda: K.crossmatch_shared_kernel(b8t, p8t, bst, pst,
                                                        thr_t),
              plain=lambda: ref.crossmatch_shared_ref(b8t, p8t, bst, pst,
                                                      thr_t),
-             pairs=pairs, in_bytes=in_bytes + thr_row.size * 4),
+             pairs=pairs, in_bytes=in_bytes + thr_row.size * 4, plan=plan),
     ]
 
 
@@ -523,14 +586,32 @@ def kernel_cases(bucket_pos, m, rng, dev):
                           (float(np.cos(5e-3)), 2), (float(np.cos(2.0)), None))
     ]
     # K2 / K3: 4 segments, segment 2 has probes but no bucket rows.
+    bucket, probes = seg_fault_data(bucket_pos, probes, m, rng)
     bseg = np.repeat([0, 1, 3], [3000, 3000, n_real - 6000])
     pseg = np.repeat([0, 1, 2, 3], m // 4)
     radii = np.array([1e-3, 2e-3, 2.5e-3, 5e-3, 1e-2, 2e-2, 0.1, 2.0])
     thr_real = np.cos(radii)[np.arange(m) % 8].astype(np.float32)
-    k2, k3 = seg_cases(bucket_pos, probes, bseg, pseg, thr_real,
+    k2, k3 = seg_cases(bucket, probes, bseg, pseg, thr_real,
                        f"M={m} k=4 (one empty)", dev)
     k3["label"] += ", 8 thresholds"
     return cases + [k2, k3]
+
+
+def seg_fault_data(bucket_pos, probes, m, rng):
+    """Phase 2's K2/K3 data, where each planted fault shows: one bucket
+    row in 20 copied onto the next row (exact ties, some across a split
+    boundary), and in each segment's quarter of the probes, 8 within 1e-4
+    rad of the segment's last row (its best, and a candidate, in the last
+    split)."""
+    bucket = bucket_pos.copy()
+    dup = np.nonzero(rng.random(len(bucket) - 1) < 0.05)[0]
+    bucket[dup + 1] = bucket[dup]
+    probes = probes.copy()
+    for seg_quarter, last_row in ((0, 2999), (1, 5999), (3, len(bucket) - 1)):
+        at = seg_quarter * (m // 4) + np.arange(min(8, m // 4))
+        p = bucket[last_row] + rng.normal(scale=1e-4, size=(len(at), 3))
+        probes[at] = p / np.linalg.norm(p, axis=1, keepdims=True)
+    return bucket, probes
 
 
 def main_shape_cases(buckets, batches, rng, dev):
@@ -539,7 +620,9 @@ def main_shape_cases(buckets, batches, rng, dev):
     whole buckets (N = 65,536) with the largest probe batch of run B and
     run C (for C, the whole shared group before ``share_width`` chunks
     it: at most what one K3 call sees), the probes split evenly over the
-    four segments.  K3's thresholds are run C's radii."""
+    four segments, as the card path hands them (the real rows); the same
+    probes padded as the reference pads them make a second case under
+    ``padded``.  K3's thresholds are run C's radii."""
     m1 = batches["A"]
     k1 = k1_case(buckets[0], near_probes(buckets[0], m1, rng),
                  float(np.cos(5e-3)), None, f"K1 main shape M={m1}", dev)
@@ -555,9 +638,14 @@ def main_shape_cases(buckets, batches, rng, dev):
         pseg = np.repeat(np.arange(len(buckets)), [len(p) for p in parts])
         radii = np.array([2.5e-3, 5e-3, 1e-2])
         thr_real = np.cos(radii)[np.arange(m) % 3].astype(np.float32)
-        cases = seg_cases(bucket_cat, probes, bseg, pseg, thr_real,
-                          f"main shape M={m} k={len(buckets)}", dev)
-        out += [c for c in cases if c["name"] == name]
+        real, padded = (
+            next(c for c in seg_cases(bucket_cat, probes, bseg, pseg,
+                                      thr_real, f"main shape M={m} k=4", dev,
+                                      pad_probes=pad) if c["name"] == name)
+            for pad in (False, True)
+        )
+        real["padded"] = padded
+        out.append(real)
     return out
 
 
@@ -579,11 +667,31 @@ def seg_pair_count(bseg, pseg):
     return int((nb[ib].astype(np.int64) * npr[ip]).sum())
 
 
+def walked_pairs(bseg, pseg, probes_a_thread) -> int:
+    """Pairs the segment kernel's threads compute: each thread takes
+    ``probes_a_thread`` consecutive probes and walks, with all of its
+    chains, the rows of every distinct segment among them (a thread
+    straddling a segment edge walks both)."""
+    r = probes_a_thread
+    ps = np.full(-(-len(pseg) // r) * r, np.nan, np.float64)
+    ps[:len(pseg)] = pseg
+    ps = np.sort(ps.reshape(-1, r), axis=1)  # NaN (no probe) last
+    first = np.ones(ps.shape, bool)
+    first[:, 1:] = ps[:, 1:] != ps[:, :-1]
+    first &= ~np.isnan(ps)
+    b = np.asarray(bseg, np.float64)
+    v = np.where(first, ps, 0.0)
+    rows = np.searchsorted(b, v, "right") - np.searchsorted(b, v, "left")
+    return int(r * (rows * first).sum())
+
+
 def measure(c) -> dict:
     """Hold one case's kernel against its plain version, time both and a
-    dots-only ``torch.mm`` of the same operands; return its record."""
+    dots-only ``torch.mm`` of the same operands; return its record (with
+    the padded shape's record under ``shapes`` where the case has one)."""
     err = check_join(c["label"], c, c["kernel"](), c["plain"]())
     k_ms = cuda_ms(c["kernel"], REPS)
+    dev_ms = many_ms(c["kernel"])
     p_ms = cuda_ms(c["plain"], REPS)
     b8, p8 = c["b8"], c["p8"]
     mm_ms = cuda_ms(lambda: torch.mm(p8, b8.t()), REPS)
@@ -593,15 +701,76 @@ def measure(c) -> dict:
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     bound = max(t_ops, t_bytes) * 1e3
+    plan = c.get("plan")
+    plan_txt = ""
+    if plan is not None:
+        plan_txt = (f" [{plan['probes_a_thread']} probes a thread, "
+                    f"{plan['splits']} splits, pairs walked "
+                    f"{plan['walked_pairs']} vs real {plan['real_pairs']} "
+                    f"({plan['walked_pairs'] / max(plan['real_pairs'], 1):.4f}"
+                    f"x)]")
     print(f"[kernels]   {c['label']}: M={m} N={n} pairs={c['pairs']} kernel "
-          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.mm dots-only "
-          f"{mm_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})", flush=True)
-    return dict(
+          f"{k_ms:.4f} ms ({k_ms / bound:.2f}x bound; device {dev_ms:.4f} ms "
+          f"over {MANY} launches), plain {p_ms:.4f} ms, "
+          f"torch.mm dots-only {mm_ms:.4f} ms, bound {bound:.4f} ms "
+          f"({bound_by}){plan_txt}", flush=True)
+    rec = dict(
         name=c["name"], route="cuda", source=SOURCE,
         replaces=REPLACES[c["name"]], launches=0, max_abs_err=err,
         ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
-        library_ms=None, dots_mm_ms=mm_ms, shape=f"M={m}, N={n}",
+        library_ms=None, dots_mm_ms=mm_ms, device_ms=dev_ms,
+        shape=f"M={m}, N={n}",
     )
+    if plan is not None:
+        rec.update(plan)
+    if "padded" in c:
+        rec["shapes"] = {"padded": measure(c["padded"])}
+    return rec
+
+
+# ---------------------------------------------------------------- faults
+def planted_libraries() -> dict:
+    """{fault: CudaLibrary} of copies of ``SOURCE`` with one planted fault
+    each (``PLANTED_FAULTS``), written under ``build/planted/``; built in
+    phase 1 beside the real libraries."""
+    text = open(os.path.join(ROOT, SOURCE)).read()
+    out = {}
+    for i, (fault, (old, new)) in enumerate(PLANTED_FAULTS.items()):
+        if text.count(old) != 1:
+            raise SystemExit(f"planted fault {fault!r}: its line is not in "
+                             f"{SOURCE} exactly once")
+        path = os.path.join(ROOT, "build", "planted", str(i), "crossmatch.cu")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
+        lib = CudaLibrary("crossmatch", K._bind)
+        lib.source = pathlib.Path(path)
+        out[fault] = lib
+    return out
+
+
+def check_planted_faults(faults: dict, cases) -> None:
+    """Each planted fault, launched through the K2/K3 wrappers on phase 2's
+    cases, must fail phase 2's check; exits if one passes."""
+    want = [c["plain"]() for c in cases]
+    saved = K.LIBRARY
+    try:
+        for fault, lib in faults.items():
+            K.LIBRARY = lib
+            caught = None
+            for c, w in zip(cases, want):
+                try:
+                    check_join(c["label"], c, c["kernel"](), w)
+                except JoinMismatch as e:
+                    caught = str(e)
+                    break
+            if caught is None:
+                raise SystemExit(f"planted fault {fault!r} passed phase 2's "
+                                 f"check")
+            print(f"[faults] {fault}: fails phase 2's check, as it must: "
+                  f"{caught}", flush=True)
+    finally:
+        K.LIBRARY = saved
 
 
 # ---------------------------------------------------------------- main path
@@ -703,7 +872,7 @@ def profile_drain(cat, records, kind):
               f"saw no device events); drain {wall:.3f}s", flush=True)
         return
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-    kern = [e for e in dev if "crossmatch_kernel" in e.name]
+    kern = [e for e in dev if "crossmatch" in e.name]
     kern_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
     copy_ms = sum(e.time_range.elapsed_us() for e in dev
                   if "memcpy" in e.name.lower()) / 1e3

@@ -1,15 +1,21 @@
 """CUDA cross-match kernels: build, ctypes binding and launch wrappers.
 
-``csrc/crossmatch.cu`` holds one kernel template with three
-instantiations, each the Hopper counterpart of a Pallas TPU kernel of
-the JAX reference (``repro/kernels/crossmatch/kernel.py``):
+``csrc/crossmatch.cu`` holds two kernels, the Hopper counterparts of the
+three Pallas TPU kernels of the JAX reference
+(``repro/kernels/crossmatch/kernel.py``):
 
-  crossmatch_kernel         <- crossmatch_pallas        (:89)
-  crossmatch_fused_kernel   <- crossmatch_fused_pallas  (:248)
-  crossmatch_shared_kernel  <- crossmatch_shared_pallas (:206)
+  crossmatch_kernel         <- crossmatch_pallas        (:89)   K1
+  crossmatch_fused_kernel   <- crossmatch_fused_pallas  (:248)  K2
+  crossmatch_shared_kernel  <- crossmatch_shared_pallas (:206)  K3
+
+K2 and K3 launch one segment kernel (a threshold for all probes, or one a
+probe): several probes a thread, one bucket range a segment, and, where
+the probe blocks are too few to fill the card, each segment's rows split
+across blocks and merged in the same launch (``split_plan``; see the
+source's note).
 
 Inputs are what the Pallas kernels take: (N, COORD_PAD) bucket and
-(M, COORD_PAD) probe rows, already padded and marked by ``ops``.  A
+(M, COORD_PAD) probe rows, marked by ``ops`` (K2/K3 take any M).  A
 wrapper given CPU tensors runs the plain PyTorch version from ``ref``;
 given CUDA tensors it launches the kernel on the current stream, or
 raises.  ``LAUNCHES`` counts kernel launches, one per launch, per kernel.
@@ -36,6 +42,9 @@ __all__ = [
     "reset_launches",
     "build",
     "build_info",
+    "split_plan",
+    "segment_layout",
+    "segment_plan",
     "crossmatch_kernel",
     "crossmatch_fused_kernel",
     "crossmatch_shared_kernel",
@@ -46,6 +55,14 @@ PAD_SEG = float(2**20)  # segment id of padded rows (sorts last, matches none)
 
 LAUNCHES = {"crossmatch": 0, "crossmatch_fused": 0, "crossmatch_shared": 0}
 _count_lock = threading.Lock()
+
+# The segment kernel's split plan: split rows across blocks until the
+# grid holds SPLIT_BLOCKS_PER_SM blocks an SM, but leave every split at
+# least MIN_SPLIT_ROWS of the bucket's rows (``cm_tune.py`` sweeps both on
+# the card; see PERF.md).
+SPLIT_BLOCKS_PER_SM = 32
+MIN_SPLIT_ROWS = 1024
+_MAX_SPLITS = 65535  # gridDim.y
 
 
 def reset_launches() -> None:
@@ -62,14 +79,22 @@ def _count(name: str) -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.crossmatch_launch.argtypes = [p, p, i, i, f, i, i, i, p, p, p, p]
-    lib.crossmatch_fused_launch.argtypes = [p, p, p, p, i, i, f, p, p, p, p]
-    lib.crossmatch_shared_launch.argtypes = [p, p, p, p, p, i, i, p, p, p, p]
-    for fn in ("crossmatch_launch", "crossmatch_fused_launch",
-               "crossmatch_shared_launch"):
+    lib.crossmatch_segment_launch.argtypes = [
+        p, p, p, p, p, f, i, i, i, p, p, p, p, p, p]
+    for fn in ("crossmatch_segment_thread_probes",
+               "crossmatch_segment_block_probes"):
+        getattr(lib, fn).argtypes = []
+    for fn in ("crossmatch_launch", "crossmatch_segment_launch",
+               "crossmatch_segment_thread_probes",
+               "crossmatch_segment_block_probes"):
         getattr(lib, fn).restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("crossmatch", _bind)
+# (device, stream) -> (workspace, int32 counters kept at 0), grown as
+# needed: launches on one stream run in order, so they share them.
+_scratch: dict = {}
+_sm_count: dict = {}
 
 
 def build() -> ctypes.CDLL:
@@ -81,6 +106,52 @@ def build_info() -> dict:
     """Library path, whether this process compiled it, the build's wall
     seconds and nvcc's output (ptxas register/shared-memory report)."""
     return LIBRARY.info()
+
+
+def split_plan(m: int, n: int, sms: int, block_probes: int):
+    """(probe blocks, splits) of a segment-kernel launch, from shapes
+    alone: ``block_probes`` probe rows a block; splits across the y axis
+    until the grid holds ``SPLIT_BLOCKS_PER_SM * sms`` blocks, each split
+    keeping at least ``MIN_SPLIT_ROWS`` of the ``n`` bucket rows."""
+    blocks = max(1, -(-m // block_probes))
+    want = -(-SPLIT_BLOCKS_PER_SM * sms // blocks)
+    return blocks, max(1, min(want, n // MIN_SPLIT_ROWS, _MAX_SPLITS))
+
+
+def segment_layout() -> tuple:
+    """(probes a thread, probes a block) of the built segment kernel."""
+    lib = build()
+    return (lib.crossmatch_segment_thread_probes(),
+            lib.crossmatch_segment_block_probes())
+
+
+def _sms(dev: torch.device) -> int:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _sm_count:
+        _sm_count[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_count[index]
+
+
+def segment_plan(m: int, n: int, dev: torch.device) -> tuple:
+    """``split_plan`` of an (m probes, n bucket rows) launch on card
+    ``dev`` with the built kernel's block."""
+    return split_plan(m, n, _sms(dev), segment_layout()[1])
+
+
+def _split_scratch(dev: torch.device, stream: int, words: int, counters: int):
+    """The workspace (at least ``words`` 4-byte words) and ``counters``
+    int32 counters at 0 for the launches on ``stream``.  The merging block
+    of each probe block sets its counter back to 0, so counters are zeroed
+    once, when made or grown; nothing is allocated on a call that fits."""
+    key = (dev, stream)
+    ws, cnt = _scratch.get(key, (None, None))
+    if ws is None or ws.numel() < words:
+        ws = torch.empty(words, dtype=torch.float32, device=dev)
+    if cnt is None or cnt.numel() < counters:
+        cnt = torch.zeros(max(counters, 1024), dtype=torch.int32, device=dev)
+    _scratch[key] = (ws, cnt)
+    return ws, cnt
 
 
 def _check_rows(x: torch.Tensor, what: str, dev: torch.device) -> None:
@@ -157,6 +228,41 @@ def crossmatch_kernel(
     return idx, dot, cnt
 
 
+def _segment_launch(name, bucket, probes, bucket_seg, probe_seg, thr):
+    """Launch the segment kernel (K2 with a float ``thr``, K3 with an (M,)
+    tensor) after the shared checks; returns (idx, dot, cnt)."""
+    dev = bucket.device
+    m, n = probes.shape[0], bucket.shape[0]
+    _check_rows(bucket, "bucket", dev)
+    _check_rows(probes, "probes", dev)
+    _check_vec(bucket_seg, "bucket_seg", n, dev)
+    _check_vec(probe_seg, "probe_seg", m, dev)
+    if torch.is_tensor(thr):
+        _check_vec(thr, "probe_thr", m, dev)
+    if m == 0:
+        raise ValueError("the segment kernel needs at least one probe row")
+    lib = build()
+    blocks, splits = split_plan(m, n, _sms(dev),
+                                lib.crossmatch_segment_block_probes())
+    idx, dot, cnt = _outputs(m, dev)
+    with torch.cuda.device(dev):
+        stream = _stream()
+        ws_ptr, counters = None, None
+        if splits > 1:
+            ws, cnt_buf = _split_scratch(dev, stream, 3 * splits * m, blocks)
+            ws_ptr, counters = ws.data_ptr(), cnt_buf.data_ptr()
+        code = lib.crossmatch_segment_launch(
+            bucket.data_ptr(), probes.data_ptr(), bucket_seg.data_ptr(),
+            probe_seg.data_ptr(), thr.data_ptr() if torch.is_tensor(thr) else None,
+            0.0 if torch.is_tensor(thr) else float(thr), n, m, splits,
+            idx.data_ptr(), dot.data_ptr(), cnt.data_ptr(), ws_ptr, counters,
+            stream,
+        )
+    LIBRARY.check(code, name)
+    _count(name)
+    return idx, dot, cnt
+
+
 def crossmatch_fused_kernel(
     bucket: torch.Tensor,  # (N, COORD_PAD) f32, segment-sorted
     probes: torch.Tensor,  # (M, COORD_PAD) f32
@@ -169,22 +275,8 @@ def crossmatch_fused_kernel(
     dev = _device_of(bucket)
     if dev.type == "cpu":
         return crossmatch_fused_ref(bucket, probes, bucket_seg, probe_seg, cos_thr)
-    m, n = probes.shape[0], bucket.shape[0]
-    _check_rows(bucket, "bucket", dev)
-    _check_rows(probes, "probes", dev)
-    _check_vec(bucket_seg, "bucket_seg", n, dev)
-    _check_vec(probe_seg, "probe_seg", m, dev)
-    lib = build()
-    idx, dot, cnt = _outputs(m, dev)
-    with torch.cuda.device(dev):
-        code = lib.crossmatch_fused_launch(
-            bucket.data_ptr(), probes.data_ptr(), bucket_seg.data_ptr(),
-            probe_seg.data_ptr(), n, m, float(cos_thr),
-            idx.data_ptr(), dot.data_ptr(), cnt.data_ptr(), _stream(),
-        )
-    LIBRARY.check(code, "crossmatch_fused")
-    _count("crossmatch_fused")
-    return idx, dot, cnt
+    return _segment_launch("crossmatch_fused", bucket, probes, bucket_seg,
+                           probe_seg, float(cos_thr))
 
 
 def crossmatch_shared_kernel(
@@ -200,20 +292,5 @@ def crossmatch_shared_kernel(
         return crossmatch_shared_ref(
             bucket, probes, bucket_seg, probe_seg, probe_thr
         )
-    m, n = probes.shape[0], bucket.shape[0]
-    _check_rows(bucket, "bucket", dev)
-    _check_rows(probes, "probes", dev)
-    _check_vec(bucket_seg, "bucket_seg", n, dev)
-    _check_vec(probe_seg, "probe_seg", m, dev)
-    _check_vec(probe_thr, "probe_thr", m, dev)
-    lib = build()
-    idx, dot, cnt = _outputs(m, dev)
-    with torch.cuda.device(dev):
-        code = lib.crossmatch_shared_launch(
-            bucket.data_ptr(), probes.data_ptr(), bucket_seg.data_ptr(),
-            probe_seg.data_ptr(), probe_thr.data_ptr(), n, m,
-            idx.data_ptr(), dot.data_ptr(), cnt.data_ptr(), _stream(),
-        )
-    LIBRARY.check(code, "crossmatch_shared")
-    _count("crossmatch_shared")
-    return idx, dot, cnt
+    return _segment_launch("crossmatch_shared", bucket, probes, bucket_seg,
+                           probe_seg, probe_thr)

@@ -18,7 +18,10 @@ Outputs are torch tensors on the device the call ran on.
 Padding is carried over from the reference exactly, because every detail
 shows in the outputs.  Probe and bucket counts are padded to the next
 power of two (floor 8), then to multiples of ``bm``/``bn`` (which shape
-the band's tile grid); coordinates are zero-padded to ``COORD_PAD``.  A
+the band's tile grid); coordinates are zero-padded to ``COORD_PAD``.  On
+``cuda`` the fused and shared joins hand their kernel only the real probe
+rows (at least one): a padded probe only joins padded bucket rows, and no
+real row's result depends on how many there are.  A
 *marker column* keeps padded rows out of the single-bucket join: probes
 carry 1.0 there, padded bucket rows -2.0, real bucket rows 0.0, so a
 padded bucket row dots to exactly -2 with every probe -- below any real
@@ -59,10 +62,11 @@ def _ceil_to(n: int, mult: int) -> int:
     return -(-n // mult) * mult
 
 
-def _host_prepare(bucket, probes, bm: int, bn: int):
+def _host_prepare(bucket, probes, bm: int, bn: int, pad_probes: bool = True):
     """Pad (pow2, then to ``bn``/``bm`` multiples), COORD_PAD-widen and
     marker/sentinel-mark both operands in host numpy: one array build and
-    one transfer per operand."""
+    one transfer per operand.  ``pad_probes=False`` keeps the real probe
+    rows only (one padded row where there are none)."""
     bucket = np.asarray(bucket, np.float32)
     probes = np.asarray(probes, np.float32)
     if bucket.shape[1] > _MARKER_COL or probes.shape[1] > _MARKER_COL:
@@ -74,7 +78,8 @@ def _host_prepare(bucket, probes, bm: int, bn: int):
     b8 = np.zeros((_ceil_to(_pow2_ceil(n_true), bn), COORD_PAD), np.float32)
     b8[:n_true, : bucket.shape[1]] = bucket
     b8[n_true:, _MARKER_COL] = -2.0
-    p8 = np.zeros((_ceil_to(_pow2_ceil(m_true), bm), COORD_PAD), np.float32)
+    m_rows = _ceil_to(_pow2_ceil(m_true), bm) if pad_probes else max(m_true, 1)
+    p8 = np.zeros((m_rows, COORD_PAD), np.float32)
     p8[:m_true, : probes.shape[1]] = probes
     p8[:, _MARKER_COL] = 1.0
     return b8, p8, n_true, m_true
@@ -116,8 +121,11 @@ def crossmatch(
     return _finish(idx, dot, cnt, n_true, m_true)
 
 
-def _segmented_inputs(bucket, probes, bucket_seg, probe_seg, bm, bn):
-    b8, p8, n_true, m_true = _host_prepare(bucket, probes, bm, bn)
+def _segmented_inputs(bucket, probes, bucket_seg, probe_seg, bm, bn,
+                      pad_probes: bool = True):
+    """The fused and shared joins' padded inputs; ``pad_probes=False``
+    gives the card path's, the real probe rows only."""
+    b8, p8, n_true, m_true = _host_prepare(bucket, probes, bm, bn, pad_probes)
     # The segment mask replaces the marker column: padded/real row fencing
     # comes from PAD_SEG, so neutralize the marker values set above.
     b8[:, _MARKER_COL] = 0.0
@@ -149,7 +157,7 @@ def crossmatch_fused(
     gets n_cand == 0."""
     dev = resolve_device(device)
     b8, p8, bseg, pseg, n_true, m_true = _segmented_inputs(
-        bucket, probes, bucket_seg, probe_seg, bm, bn
+        bucket, probes, bucket_seg, probe_seg, bm, bn, dev.type == "cpu"
     )
     idx, dot, cnt = crossmatch_fused_kernel(
         torch.from_numpy(b8).to(dev), torch.from_numpy(p8).to(dev),
@@ -178,7 +186,7 @@ def crossmatch_shared(
     concatenated bucket array."""
     dev = resolve_device(device)
     b8, p8, bseg, pseg, n_true, m_true = _segmented_inputs(
-        bucket, probes, bucket_seg, probe_seg, bm, bn
+        bucket, probes, bucket_seg, probe_seg, bm, bn, dev.type == "cpu"
     )
     thr = np.full(p8.shape[0], _PAD_THR, np.float32)
     thr[:m_true] = np.asarray(probe_thr, np.float32)

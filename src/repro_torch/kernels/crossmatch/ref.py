@@ -22,6 +22,11 @@ tight as cos(2e-3), so it is refused.
 
 Probes are processed in row chunks so the (chunk, N) dot matrix stays
 bounded; each probe row's result depends on that row alone.
+
+``crossmatch_splits_ref`` mirrors the segment kernel's decomposition (a
+segment's rows cut into splits, each split's best, index and count, then
+the merge in split order); it gives the segmented joins' results, and the
+tests hold it and the kernel to them bit for bit.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ __all__ = [
     "crossmatch_ref",
     "crossmatch_fused_ref",
     "crossmatch_shared_ref",
+    "crossmatch_splits_ref",
     "band_keep",
 ]
 
@@ -147,3 +153,59 @@ def crossmatch_shared_ref(
     """Shared-plan join: the segment mask plus a per-probe threshold
     (each in (-2, 1]; masked pairs sit at -2 and pass none)."""
     return _join(bucket, probes, probe_thr, _seg_keep(bucket_seg, probe_seg))
+
+
+def crossmatch_splits_ref(
+    bucket: torch.Tensor,
+    probes: torch.Tensor,
+    bucket_seg: torch.Tensor,
+    probe_seg: torch.Tensor,
+    thr: torch.Tensor | float,
+    splits: int,
+):
+    """The segmented join as the segment kernel decomposes it.
+
+    Probe m's segment is the range [lo, hi) of the ascending
+    ``bucket_seg``; split s of ``splits`` takes its rows [lo + len*s //
+    splits, lo + len*(s+1) // splits).  Each split keeps (best, index,
+    count) from (-2, 0, 0): a strictly greater dot in ascending rows, and
+    the dots >= ``thr`` (scalar or (M,)).  The merge takes the splits in
+    order with a strict > and sums the counts."""
+    _check_precision(probes)
+    m, n = probes.shape[0], bucket.shape[0]
+    dev = probes.device
+    idx = torch.zeros(m, dtype=torch.int32, device=dev)
+    dot = torch.full((m,), _NEG, dtype=torch.float32, device=dev)
+    cnt = torch.zeros(m, dtype=torch.int32, device=dev)
+    if m == 0 or n == 0:
+        return idx, dot, cnt
+    lo_all = torch.searchsorted(bucket_seg, probe_seg)
+    length_all = torch.searchsorted(bucket_seg, probe_seg, right=True) - lo_all
+    cols = torch.arange(n, device=dev)
+    bt = bucket.t()
+    step = max(1, _CHUNK_ELEMS // n)
+    for a in range(0, m, step):
+        b = min(a + step, m)
+        d = torch.mm(probes[a:b], bt)
+        t = thr if not torch.is_tensor(thr) else thr[a:b, None]
+        passed = d >= t
+        lo, length = lo_all[a:b], length_all[a:b]
+        best = torch.full((b - a,), _NEG, dtype=torch.float32, device=dev)
+        arg = torch.zeros(b - a, dtype=torch.int64, device=dev)
+        count = torch.zeros(b - a, dtype=torch.int64, device=dev)
+        for s in range(splits):
+            r0 = lo + length * s // splits
+            r1 = lo + length * (s + 1) // splits
+            keep = (cols[None, :] >= r0[:, None]) & (cols[None, :] < r1[:, None])
+            ds = torch.where(keep, d, torch.full_like(d, -float("inf")))
+            s_arg = torch.argmax(ds, dim=1)
+            s_best = ds.gather(1, s_arg[:, None])[:, 0]
+            found = s_best > _NEG  # the split's best replaced its -2
+            upd = found & (s_best > best)
+            best = torch.where(upd, s_best, best)
+            arg = torch.where(upd, s_arg, arg)
+            count += (passed & keep).sum(dim=1)
+        idx[a:b] = arg.to(torch.int32)
+        dot[a:b] = best
+        cnt[a:b] = count.to(torch.int32)
+    return idx, dot, cnt

@@ -77,7 +77,10 @@ class CudaLibrary:
             compiled = False
             log = ""
             if not lib_path.exists():
-                tmp = out_dir / f".{lib_path.name}.{os.getpid()}.tmp"
+                # Unique per process and thread: two libraries of one
+                # source may build at once.
+                tmp = out_dir / (f".{lib_path.name}.{os.getpid()}."
+                                 f"{threading.get_ident()}.tmp")
                 cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
                 proc = subprocess.run(cmd, capture_output=True, text=True)
                 log = proc.stdout + proc.stderr

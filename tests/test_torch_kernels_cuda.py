@@ -50,6 +50,7 @@ from repro_torch import crossmatch as tcm  # noqa: E402
 from repro_torch.core.sfc import htm_id  # noqa: E402
 from repro_torch.kernels.crossmatch import kernel as tkernel  # noqa: E402
 from repro_torch.kernels.crossmatch import ops as tops  # noqa: E402
+from repro_torch.kernels.crossmatch import ref as tref  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as pkernel  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_splits_ref  # noqa: E402
@@ -166,6 +167,131 @@ def test_k2_k3_kernels_match_plain(card, sizes):
                           bseg, pseg)
 
 
+def segment_case(name):
+    """(bucket, bseg, probes, pseg, per-probe thresholds) of one segmented
+    layout; buckets of at least 33 rows."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "ties across splits":
+        # One segment of 60 rows; duplicates at the middle (the boundary of
+        # 2 splits), at 20/40 (3 splits) and across rows 8/9 (7 splits).
+        bucket = _unit(rng, 60)
+        for a, b in ((29, 30), (19, 20), (39, 40), (8, 9), (17, 50)):
+            bucket[b] = bucket[a]
+        bseg = np.zeros(60)
+        probes = _near(rng, bucket[[29, 19, 39, 8, 17, 30, 50]], 40, 1e-4)
+        pseg = np.zeros(40)
+    elif name == "empty segments":
+        # Segment 1 has probes and no rows; segment 2 rows and no probes.
+        sizes = [30, 0, 25, 20]
+        bucket = _unit(rng, sum(sizes))
+        bseg = np.repeat([0, 1, 2, 3], sizes)
+        probes = np.concatenate([_near(rng, bucket[:30], 12), _unit(rng, 5),
+                                 _near(rng, bucket[55:], 9)])
+        pseg = np.repeat([0, 1, 3], [12, 5, 9])
+    elif name == "one-row segments":
+        bucket = _unit(rng, 40)
+        bseg = np.arange(40)
+        probes = _near(rng, bucket, 60, 0.05)
+        pseg = np.sort(rng.integers(0, 40, 60))
+    elif name == "probes in any order":
+        sizes = [20, 35, 14]
+        bucket = _unit(rng, sum(sizes))
+        bseg = np.repeat([0, 1, 2], sizes)
+        probes = _near(rng, bucket, 50)
+        pseg = rng.integers(0, 3, 50)  # unsorted, and not the rows' own
+    elif name == "M = 1":
+        bucket = _unit(rng, 48)
+        bseg = np.repeat([0, 1], [20, 28])
+        probes = _near(rng, bucket[30:], 1)
+        pseg = np.array([1])
+    else:
+        raise KeyError(name)
+    thr = np.cos(rng.choice([1e-4, 2e-3, 5e-2, 2.0], len(probes)))
+    return bucket, bseg, probes, pseg, thr.astype(np.float32)
+
+
+SEGMENT_CASES = ["ties across splits", "empty segments", "one-row segments",
+                 "probes in any order", "M = 1"]
+
+
+def _segment_inputs(case, dev):
+    """A layout's inputs as the card path builds them (the real probe rows
+    only), on ``dev``, and its per-probe thresholds."""
+    bucket, bseg, probes, pseg, thr = case
+    b8, p8, bs, ps, _, _ = tops._segmented_inputs(
+        bucket, probes, bseg, pseg, 128, 512, pad_probes=False)
+    return ([torch.from_numpy(x).to(dev) for x in (b8, p8, bs, ps)],
+            torch.from_numpy(thr).to(dev))
+
+
+def _assert_bits(got, want):
+    for g, w in zip(got, want):
+        g, w = g.cpu(), w.cpu()
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["split", "no split"])
+@pytest.mark.parametrize("name", SEGMENT_CASES)
+def test_k2_k3_segment_kernel_matches_split_ref(card, monkeypatch, name, plan):
+    """The segment kernel gives the split mirror's bits at its own plan
+    (split: 8-row parts; no split: one block walks each range), and the
+    plain versions' on the CPU and, under the join contract, on the card."""
+    monkeypatch.setattr(tkernel, "MIN_SPLIT_ROWS", 8)
+    if plan == "no split":
+        monkeypatch.setattr(tkernel, "SPLIT_BLOCKS_PER_SM", 0)
+    case = segment_case(name)
+    (b8, p8, bs, ps), thr = _segment_inputs(case, card)
+    _, splits = tkernel.segment_plan(p8.shape[0], b8.shape[0], card)
+    assert (splits > 1) == (plan == "split")
+    cpu = [x.cpu() for x in (b8, p8, bs, ps)]
+    cos_thr = float(np.cos(2e-3))
+    for name_k, kern, plain, t in (
+        ("crossmatch_fused", tkernel.crossmatch_fused_kernel,
+         tref.crossmatch_fused_ref, cos_thr),
+        ("crossmatch_shared", tkernel.crossmatch_shared_kernel,
+         tref.crossmatch_shared_ref, thr),
+    ):
+        before = tkernel.LAUNCHES[name_k]
+        got = kern(b8, p8, bs, ps, t)
+        torch.cuda.synchronize()
+        assert tkernel.LAUNCHES[name_k] == before + 1
+        t_cpu = t.cpu() if torch.is_tensor(t) else t
+        _assert_bits(got, tref.crossmatch_splits_ref(*cpu, t_cpu, splits))
+        _assert_bits(got, plain(*cpu, t_cpu))
+        assert_join_close([x.cpu() for x in got],
+                          [x.cpu() for x in plain(b8, p8, bs, ps, t)],
+                          b8.cpu()[:, :3], p8.cpu()[:, :3],
+                          t_cpu.numpy() if torch.is_tensor(t) else t,
+                          bs.cpu(), ps.cpu())
+
+
+@pytest.mark.cuda
+def test_k2_k3_segment_kernel_same_bits_every_run(card):
+    """Four 3,000-row segments, 3,000 sorted probes (six blocks, split
+    across the card): two calls, and a call after a call of another
+    shape on the same stream, give the same bits."""
+    rng = np.random.default_rng(7)
+    bucket = _unit(rng, 12_000)
+    bseg = np.repeat(np.arange(4), 3000)
+    probes = _near(rng, bucket, 3000)
+    pseg = np.sort(rng.integers(0, 4, 3000))
+    thr = np.cos(rng.choice([2e-3, 5e-3], 3000)).astype(np.float32)
+    (b8, p8, bs, ps), thr_t = _segment_inputs(
+        (bucket, bseg, probes, pseg, thr), card)
+    assert tkernel.segment_plan(3000, b8.shape[0], card)[1] > 1
+    first = tkernel.crossmatch_shared_kernel(b8, p8, bs, ps, thr_t)
+    again = tkernel.crossmatch_shared_kernel(b8, p8, bs, ps, thr_t)
+    tkernel.crossmatch_shared_kernel(b8, p8[:7], bs, ps[:7], thr_t[:7])
+    third = tkernel.crossmatch_shared_kernel(b8, p8, bs, ps, thr_t)
+    _assert_bits(first, again)
+    _assert_bits(first, third)
+    cpu = [x.cpu() for x in (b8, p8, bs, ps)]
+    _assert_bits(first, tref.crossmatch_shared_ref(*cpu, thr_t.cpu()))
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernel_does_not_take(card):
     b = torch.zeros(512, 8, device=card)
@@ -180,6 +306,9 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError):
         tkernel.crossmatch_fused_kernel(b, p, torch.zeros(512, device=card),
                                         torch.zeros(128), 0.9)  # seg on cpu
+    with pytest.raises(ValueError):  # no probe row
+        tkernel.crossmatch_fused_kernel(b, p[:0], torch.zeros(512, device=card),
+                                        torch.zeros(0, device=card), 0.9)
 
 
 @pytest.mark.cuda

@@ -1,10 +1,10 @@
 """The port's boundaries: what it imports, where it runs, and the data it
 shares with the JAX reference.
 
-* No file of ``src/repro_torch/``, nor ``chip_smoke.py`` or ``k4_tune.py``,
-  imports ``jax`` or the JAX package ``repro``; importing and running the
-  port (a cross-match and the serving launcher) leaves both out of
-  ``sys.modules``.
+* No file of ``src/repro_torch/``, nor ``chip_smoke.py``, ``k4_tune.py``
+  or ``cm_tune.py``, imports ``jax`` or the JAX package ``repro``;
+  importing and running the port (a cross-match and the serving launcher)
+  leaves both out of ``sys.modules``.
 * The device picks the path: without ``device`` an entry point runs on
   ``cuda`` and raises where there is none; nothing falls back to the CPU
   (the kernel package has no ``try``).
@@ -42,7 +42,8 @@ from repro_torch.serving import PagePool  # noqa: E402
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "k4_tune.py"]
+                                          ROOT / "k4_tune.py",
+                                          ROOT / "cm_tune.py"]
 
 
 def _imported_modules(path: pathlib.Path) -> list[str]:
