@@ -9,16 +9,20 @@ Phases; any failure exits non-zero before the last line is printed:
 
 1. build   -- compile ``src/repro_torch/csrc/crossmatch.cu``,
               ``csrc/paged_attention.cu``, ``csrc/grouped_matmul.cu`` and
-              three copies of the first with one planted fault each
+              five copies of the first with one planted fault each
               (``PLANTED_FAULTS``, under ``build/planted/``) with nvcc (one
               process each, started together, into ``build/kernels/``) and
               load them.
-2. kernels -- each CUDA kernel (K1 single bucket, K2 fused, K3 shared plan)
-              against its plain PyTorch version on the card, at the main
-              path's shapes: a bucket of 10,000 rows padded to 16,384 and
-              M in {256, 4096, 32768} probes (K2/K3: the real rows, as the
-              card path hands them; one bucket row in 20 copied onto the
-              next, and 8 probes at each segment's last row).  Tolerance
+2. kernels -- each cross-match join (K1 single bucket, K2 fused, K3 shared
+              plan: instances of one CUDA kernel) against its plain PyTorch
+              version on the card, at the main path's shapes: a bucket of
+              10,000 rows padded to 16,384 and M in {256, 4096, 32768}
+              probes, the real rows, as the card path hands them (K1 also
+              the real bucket row count and the padded probe count, its
+              band's grid); one bucket row in 20 copied onto the next, 8
+              probes at each segment's last row (the last of them the last
+              real row), and K1's 8 last probes of each tile row at its
+              band's last row.  Tolerance
               (the plain version takes its dots from cuBLAS, in another
               order than the kernel): best_dot within 2 ulp; best_idx equal
               or the float64 dots of both indices within 2 ulp, and the
@@ -27,12 +31,21 @@ Phases; any failure exits non-zero before the last line is printed:
               threshold.  Kernel, plain and torch.mm dots-only times are
               CUDA-event medians of 20 of one call (the kernel's also as
               device time, ``device_ms``: 20 launches between one pair of
-              events, over 20).  K2/K3 print their probes a thread,
-              splits, and the pairs their threads walk against the real
-              pairs.  Then each planted fault (ties to the higher index,
-              each segment range short of its last row, the last split's
-              count dropped) runs through the K2/K3 wrappers and must fail
-              this check; the script exits if one passes.
+              events, over 20, and as ``profiled_ms``, its mean duration
+              in a profiler trace: the kernel's own time where the host's
+              launch is slower; all cases in one trace after phase 3's,
+              since each profiler session makes later traces of the
+              process lose device events).  Each join prints its probes a
+              thread, and the splits it launched and the pairs its threads
+              dot, both counted on the card by a build of the source with
+              ``CROSSMATCH_COUNT_PAIRS`` (outputs equal to the kernel's bit
+              for bit), against the real pairs; the counts must equal the
+              plan's.  Then each planted fault runs through the wrappers and
+              must fail this check: the three in code all joins share (ties
+              to the higher index, each range short of its last row, the
+              last split's count dropped) both K1's cases and K2/K3's, K1's
+              own two (the band's last tile dropped, the whole bucket short
+              of its last real row) K1's; the script exits if one passes.
 3. main    -- the SkyQuery cross-match at the paper's SDSS bucket width
               (10,000 objects a bucket), cut in depth to 100 buckets, 200
               queries; three engines on ``cuda``: A fuse_k=1 (K1), B fuse_k=4
@@ -43,10 +56,12 @@ Phases; any failure exits non-zero before the last line is printed:
               the same engine on the first 50 queries (the plain fused join
               takes minutes on the host for the whole trace), under the
               tolerance above.  Each run's drain is run once more under
-              ``torch.profiler`` for the device's busy share.
+              ``torch.profiler`` for the device's busy share; the trace
+              must hold every cross-match launch of the drain.
 4. shapes  -- each kernel against its plain version again, at the shape the
               main path gave it: K1 on one 10,000-row bucket (N = 16,384)
-              with run A's largest probe batch; K2 and K3 on four
+              with run A's largest probe batch, the real rows; K2 and K3 on
+              four
               10,000-row buckets (N = 65,536) with the largest probe batch
               of run B and run C, as the card path hands it (the real rows),
               and again padded as the reference pads it (``shapes.padded``
@@ -114,6 +129,7 @@ Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -168,17 +184,26 @@ REPLACES = {
     "crossmatch_fused": "src/repro/kernels/crossmatch/kernel.py:248",
     "crossmatch_shared": "src/repro/kernels/crossmatch/kernel.py:206",
 }
-# Faults planted in copies of SOURCE (line in the source -> its mutation);
-# each must fail phase 2's check of K2/K3.
+# Faults planted in copies of SOURCE: (line in the source, its mutation,
+# the joins whose phase-2 check it must fail).
 PLANTED_FAULTS = {
     "ties resolved to the higher index": (
-        "      if (d > best[r]) {", "      if (d >= best[r]) {"),
-    "each segment range drops its last row": (
-        "    const int seg_end = sm_hi;", "    const int seg_end = sm_hi - 1;"),
+        "      if (d > best[r]) {", "      if (d >= best[r]) {",
+        ("K1", "K2/K3")),
+    "each range drops its last row": (
+        "    const int seg_end = sm_hi;", "    const int seg_end = sm_hi - 1;",
+        ("K1", "K2/K3")),
     "the last split's count dropped": (
         "      cnt[r] += __ldcg(a.ws_cnt + k);",
-        "      cnt[r] += s == a.splits - 1 ? 0 : __ldcg(a.ws_cnt + k);"),
+        "      cnt[r] += s == a.splits - 1 ? 0 : __ldcg(a.ws_cnt + k);",
+        ("K1", "K2/K3")),
+    "the band's last tile dropped": (
+        "  const int tile_hi = min(center + a.band + 1, a.n_j);",
+        "  const int tile_hi = min(center + a.band, a.n_j);", ("K1",)),
+    "the whole bucket short of its last real row": (
+        "    hi = a.rows;", "    hi = a.rows - 1;", ("K1",)),
 }
+K1_BAND = 2  # phase 2's band (tiles of 128 x 512)
 PAGED_SOURCE = "src/repro_torch/csrc/paged_attention.cu"
 PAGED_REPLACES = "src/repro/kernels/paged_attention/kernel.py:102"
 PAGED_TOL = 5e-2  # bf16, the reference's (tests/test_kernels.py:235)
@@ -237,12 +262,15 @@ def main() -> int:
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     faults = planted_libraries()
-    builds = [m.build for m in (K, PK, GK)] + [lib.load for lib in faults.values()]
+    counting = counting_library()
+    builds = [m.build for m in (K, PK, GK)] + [
+        lib.load for lib in (*faults.values(), counting)]
     with ThreadPoolExecutor(len(builds)) as pool:
         for fut in [pool.submit(b) for b in builds]:
             fut.result()
-    print(f"[build] three libraries and {len(faults)} planted-fault copies of "
-          f"K2/K3's in {time.perf_counter() - t0:.2f}s", flush=True)
+    print(f"[build] three libraries, {len(faults)} planted-fault copies of "
+          f"the cross-match kernel and its counting build in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
     for mod in (K, PK, GK):
         info = mod.build_info()
         print(f"[build] {info['path']} compiled={info['compiled']} "
@@ -270,19 +298,21 @@ def main() -> int:
     dev = torch.device(DEVICE)
     buckets = largest_buckets(cat, 4)
     rng = np.random.default_rng(11)
-    seg_checks = []
+    checks = []
     for m in PROBE_COUNTS:
         for c in kernel_cases(buckets[0], m, rng, dev):
-            measure(c)
-            if "plan" in c:
-                seg_checks.append(c)
-    check_planted_faults(faults, seg_checks)
+            measure(c, counting)
+            checks.append(c)
+    check_planted_faults(faults, checks)
 
     # -- 3. main path ---------------------------------------------------------
     by_run, batches = run_main_path(cat, trace)
 
     # -- 4. kernels at the main path's shapes --------------------------------
-    records = [measure(c) for c in main_shape_cases(buckets, batches, rng, dev)]
+    shaped = main_shape_cases(buckets, batches, rng, dev)
+    records = [measure(c, counting) for c in shaped]
+    profile_cases(checks + shaped + [c["padded"] for c in shaped
+                                     if "padded" in c])
 
     # -- 5. K4 against its plain version -------------------------------------
     paged = {key: measure_paged(key, shape, dev)
@@ -391,24 +421,52 @@ def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
-def profiled_ms(fn, name: str, n: int = MANY):
-    """Mean duration of the device kernels whose name holds ``name`` in a
-    ``torch.profiler`` trace of ``n`` runs of ``fn``: the kernel's own time
-    even where its launch is slower than it."""
+def profiled_runs(fns, name: str, n: int = MANY) -> list:
+    """(ms, traced) for each of ``fns``: the mean duration of the device
+    kernels whose name holds ``name`` in one ``torch.profiler`` trace of
+    ``n`` runs of each (each fn's in a ``record_function`` range that ends
+    in a synchronise), the kernel's own time even where its launch is
+    slower than it, or None where the trace holds none of them; and how
+    many of the ``n`` it holds.  The trace opens with ``n`` unattributed runs
+    of the first fn, since a trace that starts with launches can miss the
+    first of them; and every profiler session makes the later ones of the
+    process lose device events, so callers open few."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    fn()
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            fn()
+            fns[0]()
         torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == DeviceType.CUDA and name in e.name]
-    if not ev:
-        return None  # not measured: the profiler saw no such kernel
-    return sum(e.time_range.elapsed_us() for e in ev) / len(ev) / 1e3
+        for i, fn in enumerate(fns):
+            with record_function(f"chip_smoke run {i}"):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    spans = {e.name: e.time_range for e in events
+             if e.device_type == DeviceType.CPU
+             and e.name.startswith("chip_smoke run ")}
+    kern = [e.time_range for e in events
+            if e.device_type == DeviceType.CUDA and name in e.name]
+    out = []
+    for i in range(len(fns)):
+        span = spans.get(f"chip_smoke run {i}")
+        mine = [t for t in kern if span is not None
+                and span.start <= t.start <= span.end]
+        ms = (sum(t.elapsed_us() for t in mine) / len(mine) / 1e3
+              if mine else None)
+        out.append((ms, len(mine)))
+    return out
+
+
+def profiled_ms(fn, name: str, n: int = MANY):
+    """``profiled_runs`` of one fn: its kernel's mean duration over the
+    launches traced, or None."""
+    return profiled_runs([fn], name, n)[0][0]
 
 
 # ---------------------------------------------------------------- tolerance
@@ -504,30 +562,51 @@ def near_probes(bucket_pos, m, rng):
 
 
 def k1_case(bucket_pos, probes, thr, band, label, dev):
-    """A K1 case, padded as ``ops.crossmatch`` pads."""
-    b8, p8, _, _ = ops._host_prepare(bucket_pos, probes, 128, 512)
+    """A K1 case, built as ``ops.crossmatch`` builds it on ``cuda``: the
+    padded bucket, the real probe rows only, the real bucket row count and
+    the padded probe count (the band's grid)."""
+    b8, p8, n_real, m = ops._host_prepare(bucket_pos, probes, 128, 512,
+                                          pad_probes=False)
+    m_grid = ops._probe_grid(m, 128)
     b8t, p8t = torch.from_numpy(b8).to(dev), torch.from_numpy(p8).to(dev)
-    keep_fn = (
-        ref.band_keep(p8.shape[0], b8.shape[0], 128, 512, band, dev)
-        if band is not None else None
-    )
+    n = b8.shape[0]
+    keep_fn = (ref.band_keep(m_grid, n, 128, 512, band, dev)
+               if band is not None else None)
 
-    def keep(rows, n=b8.shape[0]):
+    def keep(rows):
         if keep_fn is None:
             return torch.ones(len(rows), n, dtype=torch.bool, device=dev)
         return torch.cat([keep_fn(int(r), int(r) + 1) for r in rows])
 
+    r = K.segment_layout()[0]
+    rows = K.bucket_rows_taken(n, n_real, thr)
+    _, splits = K.segment_plan(m, rows, dev)
+    real_lo, real_hi = k1_ranges(m, n_real, band, m_grid, n, m)
+    walk_lo, walk_hi = k1_ranges(m, rows, band, m_grid, n, -(-m // r) * r, r)
+    pairs = int((real_hi - real_lo).sum())
+    plan = dict(probes_a_thread=r, splits=splits, real_pairs=pairs,
+                walked_pairs=int((walk_hi - walk_lo).sum()))
+    kw = dict(bm=128, bn=512, band=band)
     return dict(
         name="crossmatch", label=label, b8=b8t, p8=p8t,
-        thr=np.full(p8.shape[0], thr, np.float32), keep=keep,
-        kernel=lambda: K.crossmatch_kernel(b8t, p8t, thr, bm=128, bn=512,
-                                           band=band),
-        plain=lambda: ref.crossmatch_ref(b8t, p8t, thr, band=band, bm=128,
-                                         bn=512),
-        pairs=(len(probes) * len(bucket_pos) if band is None
-               else band_pairs(p8.shape[0], b8.shape[0], band)),
-        in_bytes=(b8.size + p8.size) * 4,
+        thr=np.full(m, thr, np.float32), keep=keep,
+        kernel=lambda: K.crossmatch_kernel(b8t, p8t, thr, n_real=n_real,
+                                           m_grid=m_grid, **kw),
+        plain=lambda: ref.crossmatch_ref(b8t, p8t, thr, m_grid=m_grid, **kw),
+        pairs=pairs, in_bytes=(b8.size + p8.size) * 4, plan=plan, rows=rows,
     )
+
+
+def k1_ranges(m, rows, band, m_grid, n_grid, count, r=1):
+    """(lo, hi) of each of ``count`` probe rows' bucket ranges in a K1 join
+    of ``m`` probes (``ref.bucket_rows`` on tiles of 128 x 512, rows [0,
+    ``rows``)); with ``r`` probes a thread, a row past the last takes its
+    thread's first row's range, as the kernel does, so a thread's pairs
+    are the sum of its rows' range lengths."""
+    lo, hi = ref.bucket_rows(m_grid, rows, band, 128, 512, m_grid, n_grid)
+    at = np.arange(count)
+    at = np.where(at < m, at, at // r * r)
+    return np.stack([lo.numpy()[at], hi.numpy()[at]])
 
 
 def seg_cases(bucket_pos, probes, bseg, pseg, thr_real, label, dev,
@@ -576,17 +655,20 @@ def seg_cases(bucket_pos, probes, bseg, pseg, thr_real, label, dev,
 
 def kernel_cases(bucket_pos, m, rng, dev):
     """Phase 2's K1/K2/K3 cases at one probe count on one bucket of
-    10,000 rows (N = 16,384)."""
+    10,000 rows (N = 16,384), with ties and probes at the ranges' last
+    rows (``seg_fault_data``, ``band_edge_probes``)."""
     n_real = len(bucket_pos)
-    probes = near_probes(bucket_pos, m, rng)
+    bucket, probes = seg_fault_data(bucket_pos, near_probes(bucket_pos, m, rng),
+                                    m, rng)
+    k1_probes = band_edge_probes(bucket, probes, rng)
     cases = [
-        k1_case(bucket_pos, probes, thr, band,
+        k1_case(bucket, k1_probes, thr, band,
                 f"K1 M={m} thr={thr:.6g} band={band}", dev)
         for thr, band in ((float(np.cos(5e-3)), None),
-                          (float(np.cos(5e-3)), 2), (float(np.cos(2.0)), None))
+                          (float(np.cos(5e-3)), K1_BAND),
+                          (float(np.cos(2.0)), None))
     ]
     # K2 / K3: 4 segments, segment 2 has probes but no bucket rows.
-    bucket, probes = seg_fault_data(bucket_pos, probes, m, rng)
     bseg = np.repeat([0, 1, 3], [3000, 3000, n_real - 6000])
     pseg = np.repeat([0, 1, 2, 3], m // 4)
     radii = np.array([1e-3, 2e-3, 2.5e-3, 5e-3, 1e-2, 2e-2, 0.1, 2.0])
@@ -612,6 +694,23 @@ def seg_fault_data(bucket_pos, probes, m, rng):
         p = bucket[last_row] + rng.normal(scale=1e-4, size=(len(at), 3))
         probes[at] = p / np.linalg.norm(p, axis=1, keepdims=True)
     return bucket, probes
+
+
+def band_edge_probes(bucket, probes, rng):
+    """K1's phase-2 probes: ``probes`` with each tile row's last 8 (of
+    128) within 1e-4 rad of the last row its band (``K1_BAND`` tiles of
+    512 each side) keeps of the real rows, where dropping the band's last
+    tile moves their best."""
+    m, n_real = len(probes), len(bucket)
+    n_grid = ops._ceil_to(ops._pow2_ceil(n_real), 512)
+    _, hi = ref.bucket_rows(m, n_real, K1_BAND, 128, 512,
+                            ops._probe_grid(m, 128), n_grid)
+    out = probes.copy()
+    for i in range(m // 128):
+        at = np.arange(i * 128 + 120, (i + 1) * 128)
+        p = bucket[int(hi[at[0]]) - 1] + rng.normal(scale=1e-4, size=(8, 3))
+        out[at] = p / np.linalg.norm(p, axis=1, keepdims=True)
+    return out
 
 
 def main_shape_cases(buckets, batches, rng, dev):
@@ -649,15 +748,6 @@ def main_shape_cases(buckets, batches, rng, dev):
     return out
 
 
-def band_pairs(m, n, band, bm=128, bn=512):
-    """Pairs inside the kept band tiles of an (m, n) join."""
-    n_i, n_j = m // bm, n // bn
-    centers = (np.arange(n_i) * n_j) // max(n_i, 1)
-    lo = np.maximum(centers - band, 0)
-    hi = np.minimum(centers + band + 1, n_j)
-    return int(((hi - lo) * bm * bn).sum())
-
-
 def seg_pair_count(bseg, pseg):
     """Real pairs of equal segment: the work a segment-masked join must do
     (padded rows, of segment ``PAD_SEG``, need none)."""
@@ -685,11 +775,21 @@ def walked_pairs(bseg, pseg, probes_a_thread) -> int:
     return int(r * (rows * first).sum())
 
 
-def measure(c) -> dict:
+def measure(c, counting: CudaLibrary) -> dict:
     """Hold one case's kernel against its plain version, time both and a
-    dots-only ``torch.mm`` of the same operands; return its record (with
-    the padded shape's record under ``shapes`` where the case has one)."""
-    err = check_join(c["label"], c, c["kernel"](), c["plain"]())
+    dots-only ``torch.mm`` of the same operands, and count the pairs it
+    walks and its splits on the card with the ``counting`` build, which
+    must match the plan (``c["plan"]``: the pairs the kernel's design
+    walks); return its record (with the padded shape's record under
+    ``shapes`` where the case has one)."""
+    got = c["kernel"]()
+    err = check_join(c["label"], c, got, c["plain"]())
+    walked, splits = count_on_card(c, counting, got)
+    plan = c["plan"]
+    if (walked, splits) != (plan["walked_pairs"], plan["splits"]):
+        raise SystemExit(f"{c['label']}: the card walked {walked} pairs in "
+                         f"{splits} splits; the plan is "
+                         f"{plan['walked_pairs']} in {plan['splits']}")
     k_ms = cuda_ms(c["kernel"], REPS)
     dev_ms = many_ms(c["kernel"])
     p_ms = cuda_ms(c["plain"], REPS)
@@ -701,14 +801,10 @@ def measure(c) -> dict:
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     bound = max(t_ops, t_bytes) * 1e3
-    plan = c.get("plan")
-    plan_txt = ""
-    if plan is not None:
-        plan_txt = (f" [{plan['probes_a_thread']} probes a thread, "
-                    f"{plan['splits']} splits, pairs walked "
-                    f"{plan['walked_pairs']} vs real {plan['real_pairs']} "
-                    f"({plan['walked_pairs'] / max(plan['real_pairs'], 1):.4f}"
-                    f"x)]")
+    plan_txt = (f" [{plan['probes_a_thread']} probes a thread, {splits} "
+                f"splits, pairs walked {walked} (counted on the card) vs real "
+                f"{plan['real_pairs']} "
+                f"({walked / max(plan['real_pairs'], 1):.4f}x)]")
     print(f"[kernels]   {c['label']}: M={m} N={n} pairs={c['pairs']} kernel "
           f"{k_ms:.4f} ms ({k_ms / bound:.2f}x bound; device {dev_ms:.4f} ms "
           f"over {MANY} launches), plain {p_ms:.4f} ms, "
@@ -719,56 +815,111 @@ def measure(c) -> dict:
         replaces=REPLACES[c["name"]], launches=0, max_abs_err=err,
         ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
         library_ms=None, dots_mm_ms=mm_ms, device_ms=dev_ms,
-        shape=f"M={m}, N={n}",
+        profiled_ms=None, shape=f"M={m}, N={n}",
+        probes_a_thread=plan["probes_a_thread"], splits=splits,
+        walked_pairs=walked,
     )
-    if plan is not None:
-        rec.update(plan)
     if "padded" in c:
-        rec["shapes"] = {"padded": measure(c["padded"])}
+        rec["shapes"] = {"padded": measure(c["padded"], counting)}
+    c["record"] = rec
     return rec
 
 
+def profile_cases(cases) -> None:
+    """Each case's kernel's ``profiled_runs`` time, set as its record's
+    ``profiled_ms``: all cases in one trace, after phase 3's."""
+    runs = profiled_runs([c["kernel"] for c in cases], "crossmatch")
+    for c, (ms, traced) in zip(cases, runs):
+        c["record"]["profiled_ms"] = ms
+        print(f"[kernels]   {c['label']}: profiled {fmt_ms(ms)} ms ({traced} "
+              f"of {MANY} launches traced)", flush=True)
+
+
 # ---------------------------------------------------------------- faults
+def source_copy(text: str, where: str) -> CudaLibrary:
+    """A ``CudaLibrary`` of ``text``, a variant of ``SOURCE`` written to
+    ``build/<where>/crossmatch.cu``."""
+    path = os.path.join(ROOT, "build", where, "crossmatch.cu")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(text)
+    lib = CudaLibrary("crossmatch", K._bind)
+    lib.source = pathlib.Path(path)
+    return lib
+
+
 def planted_libraries() -> dict:
     """{fault: CudaLibrary} of copies of ``SOURCE`` with one planted fault
     each (``PLANTED_FAULTS``), written under ``build/planted/``; built in
     phase 1 beside the real libraries."""
     text = open(os.path.join(ROOT, SOURCE)).read()
     out = {}
-    for i, (fault, (old, new)) in enumerate(PLANTED_FAULTS.items()):
+    for i, (fault, (old, new, _)) in enumerate(PLANTED_FAULTS.items()):
         if text.count(old) != 1:
             raise SystemExit(f"planted fault {fault!r}: its line is not in "
                              f"{SOURCE} exactly once")
-        path = os.path.join(ROOT, "build", "planted", str(i), "crossmatch.cu")
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(path, "w") as f:
-            f.write(text.replace(old, new))
-        lib = CudaLibrary("crossmatch", K._bind)
-        lib.source = pathlib.Path(path)
-        out[fault] = lib
+        out[fault] = source_copy(text.replace(old, new), f"planted/{i}")
     return out
 
 
+def counting_library() -> CudaLibrary:
+    """``SOURCE`` built with ``CROSSMATCH_COUNT_PAIRS``: the same kernel,
+    which also counts on the card the pairs it dots and the splits it
+    launched (``crossmatch_count_read``); under ``build/counting/``."""
+    text = open(os.path.join(ROOT, SOURCE)).read()
+    return source_copy("#define CROSSMATCH_COUNT_PAIRS\n" + text, "counting")
+
+
+def count_on_card(c, lib: CudaLibrary, want) -> tuple:
+    """(pairs walked, splits) of one call of case ``c``'s kernel, counted
+    on the card by the counting build ``lib``, whose outputs must equal
+    ``want``, the kernel's, bit for bit."""
+    saved = K.LIBRARY
+    K.LIBRARY = lib
+    try:
+        read = lib.load().crossmatch_count_read
+        read.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        read.restype = ctypes.c_int
+        pairs, splits = ctypes.c_ulonglong(0), ctypes.c_uint(0)
+        lib.check(read(ctypes.byref(pairs), ctypes.byref(splits)),
+                  "crossmatch_count_read")
+        got = c["kernel"]()
+        lib.check(read(ctypes.byref(pairs), ctypes.byref(splits)),
+                  "crossmatch_count_read")
+    finally:
+        K.LIBRARY = saved
+    for g, w in zip(got, want):
+        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+            raise SystemExit(f"{c['label']}: the counting build's outputs "
+                             f"differ from the kernel's")
+    return int(pairs.value), int(splits.value)
+
+
 def check_planted_faults(faults: dict, cases) -> None:
-    """Each planted fault, launched through the K2/K3 wrappers on phase 2's
-    cases, must fail phase 2's check; exits if one passes."""
+    """Each planted fault, launched through the wrappers on phase 2's
+    cases, must fail phase 2's check on the cases of every join it names
+    (K1: ``crossmatch``; K2/K3: the segmented joins); exits if one
+    passes."""
     want = [c["plain"]() for c in cases]
     saved = K.LIBRARY
     try:
         for fault, lib in faults.items():
             K.LIBRARY = lib
-            caught = None
-            for c, w in zip(cases, want):
-                try:
-                    check_join(c["label"], c, c["kernel"](), w)
-                except JoinMismatch as e:
-                    caught = str(e)
-                    break
-            if caught is None:
-                raise SystemExit(f"planted fault {fault!r} passed phase 2's "
-                                 f"check")
-            print(f"[faults] {fault}: fails phase 2's check, as it must: "
-                  f"{caught}", flush=True)
+            for joins in PLANTED_FAULTS[fault][2]:
+                caught = None
+                for c, w in zip(cases, want):
+                    if (c["name"] == "crossmatch") != (joins == "K1"):
+                        continue
+                    try:
+                        check_join(c["label"], c, c["kernel"](), w)
+                    except JoinMismatch as e:
+                        caught = str(e)
+                        break
+                if caught is None:
+                    raise SystemExit(f"planted fault {fault!r} passed phase "
+                                     f"2's check of {joins}")
+                print(f"[faults] {fault}: fails phase 2's check of {joins}, "
+                      f"as it must: {caught}", flush=True)
     finally:
         K.LIBRARY = saved
 
@@ -864,15 +1015,16 @@ def profile_drain(cat, records, kind):
 
     eng = make_engine(cat, kind, DEVICE)
     submit_all(eng, queries_for(records, kind, len(records)))
+    reset_all_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = drain(eng, DEVICE)
+    launched = sum(K.LAUNCHES.values())
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev:
-        print(f"[profile] run {kind}: device time not measured (the profiler "
-              f"saw no device events); drain {wall:.3f}s", flush=True)
-        return
-    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     kern = [e for e in dev if "crossmatch" in e.name]
+    if len(kern) != launched:
+        raise SystemExit(f"[profile] run {kind}: the trace holds {len(kern)} "
+                         f"cross-match kernels of the {launched} launched")
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     kern_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
     copy_ms = sum(e.time_range.elapsed_us() for e in dev
                   if "memcpy" in e.name.lower()) / 1e3

@@ -1,7 +1,7 @@
-"""Tuning measurements of the segment kernel (K2/K3) on one card.
+"""Tuning measurements of the cross-match kernel (K1-K3) on one card.
 
-Not part of the smoke run; run it when the segment kernel or its split
-plan changes:
+Not part of the smoke run; run it when the kernel or its split plan
+changes:
 
     python3 cm_tune.py
 
@@ -21,13 +21,20 @@ plan changes:
              0 (no split), 1, 2, 4, 8, 16, 32, 64 and ``MIN_SPLIT_ROWS`` in
              256, 1024, 4096.
 
+3. k1     -- K1 (no band) at run A's batch sizes, M = 1,000, 4,000, 8,000
+             and 54,471 real probe rows (run A's largest) on one bucket of
+             10,000 rows: probes a thread 2 and 4, each at
+             ``SPLIT_BLOCKS_PER_SM`` in 0 (no split) .. 64 and
+             ``MIN_SPLIT_ROWS`` in 128 .. 4096.
+
 Each variant's line also gives its walk loop's instructions by opcode
 (``cuobjdump -sass`` of the built library: the innermost loop with
-FFMAs) and the pairs one pass of it takes.  Each variant is first held
-to the plain version with chip_smoke.py's
-check, then timed at chip_smoke.py's phase-4 K3 case (four 10,000-row
-buckets, M = 101,545 real probe rows: runs B's and C's largest batch) and
-at phase 2's K3 cases (M = 256, 4096, 32768 on one bucket).  Times:
+FFMAs of the segment instance, and of K1's in part 3) and the pairs one
+pass of it takes.  Each variant is first held to the plain version with
+chip_smoke.py's check, then timed: parts 1-2 at chip_smoke.py's phase-4
+K3 case (four 10,000-row buckets, M = 101,545 real probe rows: runs B's
+and C's largest batch) and at phase 2's K3 cases (M = 256, 4096, 32768 on
+one bucket).  Times:
 ``device`` = 20 launches between one pair of CUDA events, over 20
 (``chip_smoke.many_ms``); ``prof.`` = the kernel's mean duration in a
 profiler trace (the kernel's own time where the launch is slower).
@@ -52,6 +59,11 @@ import chip_smoke as smoke
 from chip_smoke import K
 
 PHASE4_M = 101_545  # runs B's and C's max_probe_batch (chip_smoke phase 3)
+K1_M = (1000, 4000, 8000, 54_471)  # run A's batches; its largest last
+K1_PROBES = (2, 4)
+K1_MIN_ROWS = (128, 256, 512, 1024, 2048, 4096)
+# The kernel's instances in ptxas's and cuobjdump's mangled names.
+INSTANCE = {"segment": "RowsE0E", "bucket": "RowsE1E"}
 PROBES = (2, 4, 8)
 DEFAULT_PROBES = 2  # the committed kProbes
 RINGS = (False, True)
@@ -98,7 +110,7 @@ __device__ __forceinline__ void cp_async_commit() {
       __syncthreads();  // the last tile is consumed
       stage(tile, rows4, base, n_rows);
       __syncthreads();
-      if (any) walk(tile, n_rows, base, p, thr, best, arg, cnt);
+      if (any) visit(tile, n_rows, base);
     }
 """, """\
     int buf = 0;
@@ -112,7 +124,7 @@ __device__ __forceinline__ void cp_async_commit() {
       cp_async_commit();
       asm volatile("cp.async.wait_group 1;\\n" ::: "memory");
       __syncthreads();  // everyone's copies of tile[buf] landed
-      if (any) walk(tile[buf], n_rows, base, p, thr, best, arg, cnt);
+      if (any) visit(tile[buf], n_rows, base);
       __syncthreads();  // tile[buf] is consumed before it is refilled
       buf ^= 1;
     }
@@ -157,6 +169,18 @@ def _library(path: pathlib.Path):
     return lib
 
 
+def k1_cases(dev):
+    """K1 at run A's batch sizes on one 10,000-row bucket, the real rows
+    as the card path hands them."""
+    cat = smoke.make_catalog(n_objects=1_000_000, objects_per_bucket=10_000,
+                             htm_level=10, seed=3)
+    bucket = smoke.largest_buckets(cat, 1)[0]
+    rng = np.random.default_rng(12)
+    thr = float(np.cos(5e-3))
+    return [smoke.k1_case(bucket, smoke.near_probes(bucket, m, rng), thr,
+                          None, f"K1 M={m}", dev) for m in K1_M]
+
+
 def cases(dev):
     """The K3 cases timed: phase 4's real shape, then phase 2's."""
     cat = smoke.make_catalog(n_objects=1_000_000, objects_per_bucket=10_000,
@@ -172,31 +196,34 @@ def cases(dev):
     return [c for c in phase4 if c["name"] == "crossmatch_shared"] + out
 
 
-def segment_registers(lib) -> str:
-    """ptxas's register line for the segment kernel of ``lib``'s build."""
+def segment_registers(lib, instance: str = "segment") -> str:
+    """ptxas's register line for one instance of the kernel in ``lib``'s
+    build."""
     lines = lib.info()["log"].splitlines()
     for i, ln in enumerate(lines):
-        if "Compiling entry" in ln and "crossmatch_segment_kernel" in ln:
+        if "Compiling entry" in ln and INSTANCE[instance] in ln:
             regs = [x.strip() for x in lines[i + 1:i + 4] if "registers" in x]
             if regs:
                 return regs[0]
     return "no ptxas report"
 
 
-def walk_loop(lib, probes_a_thread: int) -> str:
-    """The segment kernel's walk loop in ``lib``'s SASS (``cuobjdump``)."""
+def walk_loop(lib, probes_a_thread: int, instance: str = "segment") -> str:
+    """One instance's walk loop in ``lib``'s SASS (``cuobjdump``)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib.info()["path"]],
                           capture_output=True, text=True).stdout
-    return loop_summary(sass, probes_a_thread)
+    return loop_summary(sass, probes_a_thread, instance)
 
 
-def loop_summary(sass: str, probes_a_thread: int) -> str:
-    """The innermost loop (a backward BRA) of the segment kernel with the
-    most FFMAs: its instructions by opcode, and per pair (4 FFMAs)."""
+def loop_summary(sass: str, probes_a_thread: int,
+                 instance: str = "segment") -> str:
+    """The innermost loop (a backward BRA) of one instance of the kernel
+    with the most FFMAs: its instructions by opcode, and per pair (4
+    FFMAs)."""
     body = next((f for f in re.split(r"\n\s*Function : ", sass)
-                 if "crossmatch_segment_kernel" in f.split("\n", 1)[0]), "")
+                 if INSTANCE[instance] in f.split("\n", 1)[0]), "")
     code = []
     for a, op, rest in re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                                   r"([A-Z0-9_]+)([^;\n]*);", body):
@@ -225,28 +252,17 @@ def timings(cs) -> str:
         smoke.check_join(c["label"], c, c["kernel"](), want)
         dev_ms = smoke.many_ms(c["kernel"])
         prof = smoke.profiled_ms(c["kernel"], "crossmatch_segment")
-        _, splits = K.segment_plan(c["p8"].shape[0], c["b8"].shape[0],
+        _, splits = K.segment_plan(c["p8"].shape[0],
+                                   c.get("rows", c["b8"].shape[0]),
                                    c["p8"].device)
         parts.append(f"M={c['p8'].shape[0]} splits {splits}: device "
                      f"{dev_ms:.4f} prof. {smoke.fmt_ms(prof)}")
     return "; ".join(parts)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("cm_tune: no CUDA device; nothing was run", file=sys.stderr)
-        return 2
-    torch.set_float32_matmul_precision("highest")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"card: {smoke.card_name()}", flush=True)
-    variants = source_variants()
-    with ThreadPoolExecutor(len(variants) + 1) as pool:
-        for fut in [pool.submit(K.build)] + [
-                pool.submit(lib.load) for lib in variants.values()]:
-            fut.result()
-    dev = torch.device(smoke.DEVICE)
+def sweep_segment(variants, dev) -> None:
+    """Parts 1 and 2: K3's source variants, then its split constants."""
     cs = cases(dev)
-
     saved = K.LIBRARY, K.SPLIT_BLOCKS_PER_SM
     try:
         for key, lib in variants.items():
@@ -276,6 +292,48 @@ def main() -> int:
                   flush=True)
     finally:
         K.SPLIT_BLOCKS_PER_SM, K.MIN_SPLIT_ROWS = defaults
+
+
+def sweep_k1(variants, dev) -> None:
+    """Part 3: K1 at run A's batch sizes, probes a thread and the split
+    constants."""
+    cs = k1_cases(dev)
+    saved = K.LIBRARY, K.SPLIT_BLOCKS_PER_SM, K.MIN_SPLIT_ROWS
+    try:
+        for r in K1_PROBES:
+            lib = variants[(r, False)]
+            K.LIBRARY = lib
+            print(f"[k1 sass] kProbes {r}: {walk_loop(lib, r, 'bucket')} "
+                  f"({segment_registers(lib, 'bucket')})", flush=True)
+            K.MIN_SPLIT_ROWS = saved[2]
+            for blocks in BLOCKS_PER_SM:
+                K.SPLIT_BLOCKS_PER_SM = blocks
+                print(f"[k1] kProbes {r}, SPLIT_BLOCKS_PER_SM {blocks}: "
+                      f"{timings(cs)}", flush=True)
+            K.SPLIT_BLOCKS_PER_SM = saved[1]
+            for rows in K1_MIN_ROWS:
+                K.MIN_SPLIT_ROWS = rows
+                print(f"[k1] kProbes {r}, MIN_SPLIT_ROWS {rows}: "
+                      f"{timings(cs)}", flush=True)
+    finally:
+        K.LIBRARY, K.SPLIT_BLOCKS_PER_SM, K.MIN_SPLIT_ROWS = saved
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("cm_tune: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"card: {smoke.card_name()}", flush=True)
+    variants = source_variants()
+    with ThreadPoolExecutor(len(variants) + 1) as pool:
+        for fut in [pool.submit(K.build)] + [
+                pool.submit(lib.load) for lib in variants.values()]:
+            fut.result()
+    dev = torch.device(smoke.DEVICE)
+    sweep_segment(variants, dev)
+    sweep_k1(variants, dev)
     print(f"nvidia-smi: {smoke.card_name()}")
     return 0
 

@@ -1,24 +1,24 @@
 """CUDA cross-match kernels: build, ctypes binding and launch wrappers.
 
-``csrc/crossmatch.cu`` holds two kernels, the Hopper counterparts of the
+``csrc/crossmatch.cu`` holds one kernel, the Hopper counterpart of the
 three Pallas TPU kernels of the JAX reference
-(``repro/kernels/crossmatch/kernel.py``):
+(``repro/kernels/crossmatch/kernel.py``), one instance a row-range policy:
 
   crossmatch_kernel         <- crossmatch_pallas        (:89)   K1
   crossmatch_fused_kernel   <- crossmatch_fused_pallas  (:248)  K2
   crossmatch_shared_kernel  <- crossmatch_shared_pallas (:206)  K3
 
-K2 and K3 launch one segment kernel (a threshold for all probes, or one a
-probe): several probes a thread, one bucket range a segment, and, where
-the probe blocks are too few to fill the card, each segment's rows split
-across blocks and merged in the same launch (``split_plan``; see the
-source's note).
+Several probes a thread, one bucket row range a probe (K1: the bucket's
+real rows, or its band's; K2/K3: its segment's), and, where the probe
+blocks are too few to fill the card, each range split across blocks and
+merged in the same launch (``split_plan``; see the source's note).
 
 Inputs are what the Pallas kernels take: (N, COORD_PAD) bucket and
-(M, COORD_PAD) probe rows, marked by ``ops`` (K2/K3 take any M).  A
-wrapper given CPU tensors runs the plain PyTorch version from ``ref``;
-given CUDA tensors it launches the kernel on the current stream, or
-raises.  ``LAUNCHES`` counts kernel launches, one per launch, per kernel.
+(M, COORD_PAD) probe rows, marked by ``ops``; on the card any M >= 1 (K1:
+the first M rows of its padded probe grid).  A wrapper given CPU tensors
+runs the plain PyTorch version from ``ref``; given CUDA tensors it
+launches the kernel on the current stream, or raises.  ``LAUNCHES`` counts
+kernel launches, one per launch, per wrapper.
 
 The source is compiled at first use (``nvcc.CudaLibrary``: nvcc into a
 shared library with a plain C interface, in ``build/kernels/``, rebuilt
@@ -43,6 +43,7 @@ __all__ = [
     "build",
     "build_info",
     "split_plan",
+    "bucket_rows_taken",
     "segment_layout",
     "segment_plan",
     "crossmatch_kernel",
@@ -56,7 +57,7 @@ PAD_SEG = float(2**20)  # segment id of padded rows (sorts last, matches none)
 LAUNCHES = {"crossmatch": 0, "crossmatch_fused": 0, "crossmatch_shared": 0}
 _count_lock = threading.Lock()
 
-# The segment kernel's split plan: split rows across blocks until the
+# The kernel's split plan: split rows across blocks until the
 # grid holds SPLIT_BLOCKS_PER_SM blocks an SM, but leave every split at
 # least MIN_SPLIT_ROWS of the bucket's rows (``cm_tune.py`` sweeps both on
 # the card; see PERF.md).
@@ -78,7 +79,8 @@ def _count(name: str) -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.crossmatch_launch.argtypes = [p, p, i, i, f, i, i, i, p, p, p, p]
+    lib.crossmatch_launch.argtypes = [
+        p, p, f, i, i, i, i, i, i, i, i, p, p, p, p, p, p]
     lib.crossmatch_segment_launch.argtypes = [
         p, p, p, p, p, f, i, i, i, p, p, p, p, p, p]
     for fn in ("crossmatch_segment_thread_probes",
@@ -109,17 +111,26 @@ def build_info() -> dict:
 
 
 def split_plan(m: int, n: int, sms: int, block_probes: int):
-    """(probe blocks, splits) of a segment-kernel launch, from shapes
-    alone: ``block_probes`` probe rows a block; splits across the y axis
-    until the grid holds ``SPLIT_BLOCKS_PER_SM * sms`` blocks, each split
-    keeping at least ``MIN_SPLIT_ROWS`` of the ``n`` bucket rows."""
+    """(probe blocks, splits) of a launch, from shapes alone:
+    ``block_probes`` probe rows a block; splits across the y axis until the
+    grid holds ``SPLIT_BLOCKS_PER_SM * sms`` blocks, each split keeping at
+    least ``MIN_SPLIT_ROWS`` of the ``n`` bucket rows a probe walks."""
     blocks = max(1, -(-m // block_probes))
     want = -(-SPLIT_BLOCKS_PER_SM * sms // blocks)
     return blocks, max(1, min(want, n // MIN_SPLIT_ROWS, _MAX_SPLITS))
 
 
+def bucket_rows_taken(n: int, n_real: int, cos_thr: float) -> int:
+    """The rows [0, rows) a K1 launch takes of an (N = ``n``, COORD_PAD)
+    bucket whose rows from ``n_real`` on are marker rows: the real ones, or
+    all ``n`` where ``cos_thr <= -2`` (the reference counts the marker rows
+    there).  A probe walks at most these rows, with or without a band: the
+    split plan's row count."""
+    return n if cos_thr <= -2.0 else n_real
+
+
 def segment_layout() -> tuple:
-    """(probes a thread, probes a block) of the built segment kernel."""
+    """(probes a thread, probes a block) of the built kernel."""
     lib = build()
     return (lib.crossmatch_segment_thread_probes(),
             lib.crossmatch_segment_block_probes())
@@ -134,8 +145,8 @@ def _sms(dev: torch.device) -> int:
 
 
 def segment_plan(m: int, n: int, dev: torch.device) -> tuple:
-    """``split_plan`` of an (m probes, n bucket rows) launch on card
-    ``dev`` with the built kernel's block."""
+    """``split_plan`` of a launch of m probes, each walking n bucket rows
+    at most, on card ``dev`` with the built kernel's block."""
     return split_plan(m, n, _sms(dev), segment_layout()[1])
 
 
@@ -195,54 +206,15 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def crossmatch_kernel(
-    bucket: torch.Tensor,  # (N, COORD_PAD) f32, N % bn == 0
-    probes: torch.Tensor,  # (M, COORD_PAD) f32, M % bm == 0
-    cos_thr: float,
-    bm: int = 128,
-    bn: int = 512,
-    band: Optional[int] = None,
-):
-    """Single-bucket join (K1).  Returns (best_idx i32, best_dot f32,
-    n_cand i32), each (M,).  ``bm``/``bn`` shape the band's tile grid."""
-    dev = _device_of(bucket)
-    m, n = probes.shape[0], bucket.shape[0]
-    if m % bm or n % bn:
-        raise ValueError(f"shapes ({m}, {n}) must be multiples of ({bm}, {bn})")
-    if band is not None and band < 0:
-        raise ValueError(f"band must be >= 0, got {band}")
-    if dev.type == "cpu":
-        return crossmatch_ref(bucket, probes, cos_thr, band=band, bm=bm, bn=bn)
-    _check_rows(bucket, "bucket", dev)
-    _check_rows(probes, "probes", dev)
-    lib = build()
-    idx, dot, cnt = _outputs(m, dev)
-    with torch.cuda.device(dev):
-        code = lib.crossmatch_launch(
-            bucket.data_ptr(), probes.data_ptr(), n, m, float(cos_thr),
-            -1 if band is None else int(band), bm, bn,
-            idx.data_ptr(), dot.data_ptr(), cnt.data_ptr(), _stream(),
-        )
-    LIBRARY.check(code, "crossmatch")
-    _count("crossmatch")
-    return idx, dot, cnt
-
-
-def _segment_launch(name, bucket, probes, bucket_seg, probe_seg, thr):
-    """Launch the segment kernel (K2 with a float ``thr``, K3 with an (M,)
-    tensor) after the shared checks; returns (idx, dot, cnt)."""
-    dev = bucket.device
-    m, n = probes.shape[0], bucket.shape[0]
-    _check_rows(bucket, "bucket", dev)
-    _check_rows(probes, "probes", dev)
-    _check_vec(bucket_seg, "bucket_seg", n, dev)
-    _check_vec(probe_seg, "probe_seg", m, dev)
-    if torch.is_tensor(thr):
-        _check_vec(thr, "probe_thr", m, dev)
+def _launch(name: str, dev: torch.device, m: int, walked: int, entry):
+    """Plan a launch of ``m`` probe rows, each walking ``walked`` bucket
+    rows at most, allocate its outputs and split scratch, and call
+    ``entry(lib, splits, idx, dot, cnt, ws, counters, stream)``; returns
+    (idx, dot, cnt)."""
     if m == 0:
-        raise ValueError("the segment kernel needs at least one probe row")
+        raise ValueError("the kernel needs at least one probe row")
     lib = build()
-    blocks, splits = split_plan(m, n, _sms(dev),
+    blocks, splits = split_plan(m, walked, _sms(dev),
                                 lib.crossmatch_segment_block_probes())
     idx, dot, cnt = _outputs(m, dev)
     with torch.cuda.device(dev):
@@ -251,16 +223,78 @@ def _segment_launch(name, bucket, probes, bucket_seg, probe_seg, thr):
         if splits > 1:
             ws, cnt_buf = _split_scratch(dev, stream, 3 * splits * m, blocks)
             ws_ptr, counters = ws.data_ptr(), cnt_buf.data_ptr()
-        code = lib.crossmatch_segment_launch(
-            bucket.data_ptr(), probes.data_ptr(), bucket_seg.data_ptr(),
-            probe_seg.data_ptr(), thr.data_ptr() if torch.is_tensor(thr) else None,
-            0.0 if torch.is_tensor(thr) else float(thr), n, m, splits,
-            idx.data_ptr(), dot.data_ptr(), cnt.data_ptr(), ws_ptr, counters,
-            stream,
-        )
+        code = entry(lib, splits, idx.data_ptr(), dot.data_ptr(),
+                     cnt.data_ptr(), ws_ptr, counters, stream)
     LIBRARY.check(code, name)
     _count(name)
     return idx, dot, cnt
+
+
+def crossmatch_kernel(
+    bucket: torch.Tensor,  # (N, COORD_PAD) f32, N % bn == 0
+    probes: torch.Tensor,  # (M, COORD_PAD) f32, M <= m_grid
+    cos_thr: float,
+    bm: int = 128,
+    bn: int = 512,
+    band: Optional[int] = None,
+    n_real: Optional[int] = None,
+    m_grid: Optional[int] = None,
+):
+    """Single-bucket join (K1).  Returns (best_idx i32, best_dot f32,
+    n_cand i32), each (M,).
+
+    ``bucket``'s rows from ``n_real`` (default N) on are marker rows, which
+    dot to -2 with every probe; ``probes`` are the first M rows of the
+    reference's (``m_grid``, COORD_PAD) probe grid (default M: all of it),
+    ``m_grid % bm == 0``.  ``bm``/``bn`` shape the band's tile grid over
+    (m_grid, N).  On the card the kernel walks only the rows
+    ``bucket_rows_taken`` gives, each probe those its band keeps."""
+    dev = _device_of(bucket)
+    m, n = probes.shape[0], bucket.shape[0]
+    m_grid = m if m_grid is None else int(m_grid)
+    n_real = n if n_real is None else int(n_real)
+    if m_grid % bm or n % bn:
+        raise ValueError(f"the grid ({m_grid}, {n}) must be multiples of "
+                         f"({bm}, {bn})")
+    if m > m_grid or not 0 <= n_real <= n:
+        raise ValueError(f"{m} probe rows and {n_real} real bucket rows do "
+                         f"not fit the ({m_grid}, {n}) grid")
+    if band is not None and band < 0:
+        raise ValueError(f"band must be >= 0, got {band}")
+    if dev.type == "cpu":
+        return crossmatch_ref(bucket, probes, cos_thr, band=band, bm=bm,
+                              bn=bn, m_grid=m_grid)
+    _check_rows(bucket, "bucket", dev)
+    _check_rows(probes, "probes", dev)
+    rows = bucket_rows_taken(n, n_real, cos_thr)
+    return _launch(
+        "crossmatch", dev, m, rows,
+        lambda lib, *rest: lib.crossmatch_launch(
+            bucket.data_ptr(), probes.data_ptr(), float(cos_thr), rows, m,
+            -1 if band is None else int(band), bm, bn, m_grid // bm, n // bn,
+            *rest),
+    )
+
+
+def _segment_launch(name, bucket, probes, bucket_seg, probe_seg, thr):
+    """Launch the kernel's segment instance (K2 with a float ``thr``, K3
+    with an (M,) tensor) after the shared checks; returns (idx, dot, cnt)."""
+    dev = bucket.device
+    m, n = probes.shape[0], bucket.shape[0]
+    _check_rows(bucket, "bucket", dev)
+    _check_rows(probes, "probes", dev)
+    _check_vec(bucket_seg, "bucket_seg", n, dev)
+    _check_vec(probe_seg, "probe_seg", m, dev)
+    per_probe = torch.is_tensor(thr)
+    if per_probe:
+        _check_vec(thr, "probe_thr", m, dev)
+    return _launch(
+        name, dev, m, n,
+        lambda lib, *rest: lib.crossmatch_segment_launch(
+            bucket.data_ptr(), probes.data_ptr(), bucket_seg.data_ptr(),
+            probe_seg.data_ptr(), thr.data_ptr() if per_probe else None,
+            0.0 if per_probe else float(thr), n, m, *rest),
+    )
 
 
 def crossmatch_fused_kernel(

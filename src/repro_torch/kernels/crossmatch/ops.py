@@ -19,9 +19,12 @@ Padding is carried over from the reference exactly, because every detail
 shows in the outputs.  Probe and bucket counts are padded to the next
 power of two (floor 8), then to multiples of ``bm``/``bn`` (which shape
 the band's tile grid); coordinates are zero-padded to ``COORD_PAD``.  On
-``cuda`` the fused and shared joins hand their kernel only the real probe
-rows (at least one): a padded probe only joins padded bucket rows, and no
-real row's result depends on how many there are.  A
+``cuda`` every join hands its kernel only the real probe rows (at least
+one), and the single-bucket join the count of real bucket rows and the
+padded probe count apart, as the band's grid: a padded probe only joins
+padded bucket rows, no real row's result depends on how many there are,
+and the kernel visits the padded bucket rows only where the threshold is
+<= -2, where the reference counts them.  A
 *marker column* keeps padded rows out of the single-bucket join: probes
 carry 1.0 there, padded bucket rows -2.0, real bucket rows 0.0, so a
 padded bucket row dots to exactly -2 with every probe -- below any real
@@ -78,11 +81,16 @@ def _host_prepare(bucket, probes, bm: int, bn: int, pad_probes: bool = True):
     b8 = np.zeros((_ceil_to(_pow2_ceil(n_true), bn), COORD_PAD), np.float32)
     b8[:n_true, : bucket.shape[1]] = bucket
     b8[n_true:, _MARKER_COL] = -2.0
-    m_rows = _ceil_to(_pow2_ceil(m_true), bm) if pad_probes else max(m_true, 1)
+    m_rows = _probe_grid(m_true, bm) if pad_probes else max(m_true, 1)
     p8 = np.zeros((m_rows, COORD_PAD), np.float32)
     p8[:m_true, : probes.shape[1]] = probes
     p8[:, _MARKER_COL] = 1.0
     return b8, p8, n_true, m_true
+
+
+def _probe_grid(m_true: int, bm: int) -> int:
+    """Probe rows padded as the reference pads them."""
+    return _ceil_to(_pow2_ceil(m_true), bm)
 
 
 def _padded_segments(seg, n_rows: int, n_true: int) -> np.ndarray:
@@ -113,10 +121,12 @@ def crossmatch(
     ``band`` skips the bucket tiles far from the probe tile's scaled
     diagonal (for SFC-sorted inputs)."""
     dev = resolve_device(device)
-    b8, p8, n_true, m_true = _host_prepare(bucket, probes, bm, bn)
+    b8, p8, n_true, m_true = _host_prepare(bucket, probes, bm, bn,
+                                           dev.type == "cpu")
     idx, dot, cnt = crossmatch_kernel(
         torch.from_numpy(b8).to(dev), torch.from_numpy(p8).to(dev),
-        float(cos_thr), bm=bm, bn=bn, band=band,
+        float(cos_thr), bm=bm, bn=bn, band=band, n_real=n_true,
+        m_grid=_probe_grid(m_true, bm),
     )
     return _finish(idx, dot, cnt, n_true, m_true)
 

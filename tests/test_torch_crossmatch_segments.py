@@ -1,9 +1,9 @@
 """The segment kernel's decomposition (K2/K3) held to the JAX reference.
 
-``ref.crossmatch_splits_ref`` mirrors what the CUDA segment kernel does:
-each probe's segment range cut into splits, each split's (best, index,
-count), the merge in split order on (dot, lowest index) with the counts
-summed.  Fed the inputs the card path builds (the real probe rows only),
+``ref.crossmatch_splits_ref`` mirrors what the CUDA kernel does: each
+probe's segment range (``ref.segment_rows``) cut into splits, each
+split's (best, index, count), the merge in split order on (dot, lowest
+index) with the counts summed.  Fed the inputs the card path builds (the real probe rows only),
 it must give the JAX reference's results (``repro``'s jnp path and its
 Pallas kernels in interpret mode) bit for bit: the tolerance is zero,
 ties included.  The plain versions on those inputs must give every real
@@ -55,8 +55,9 @@ def test_split_ref_equals_reference_bit_for_bit(name, splits):
     bucket, bseg, probes, pseg, thr = _case(name)
     b8, p8, bs, ps, thr_t = _card_inputs(bucket, bseg, probes, pseg, thr)
     cos_thr = float(np.cos(2e-3))
-    fused = tref.crossmatch_splits_ref(b8, p8, bs, ps, cos_thr, splits)
-    shared = tref.crossmatch_splits_ref(b8, p8, bs, ps, thr_t, splits)
+    rows = tref.segment_rows(bs, ps)
+    fused = tref.crossmatch_splits_ref(b8, p8, *rows, cos_thr, splits)
+    shared = tref.crossmatch_splits_ref(b8, p8, *rows, thr_t, splits)
     for kw in (dict(use_pallas=False, interpret=False),
                dict(use_pallas=True, bm=8, bn=128, interpret=True)):
         _assert_bits(fused, jops.crossmatch_fused(
@@ -71,7 +72,8 @@ def test_ties_take_the_lowest_index_across_splits():
     bucket, bseg, probes, pseg, thr = _case("ties across splits")
     b8, p8, bs, ps = _card_inputs(bucket, bseg, probes, pseg)
     for splits in SPLITS:
-        idx, _, _ = tref.crossmatch_splits_ref(b8, p8, bs, ps, 0.9, splits)
+        idx, _, _ = tref.crossmatch_splits_ref(
+            b8, p8, *tref.segment_rows(bs, ps), 0.9, splits)
         assert not np.isin(np.asarray(idx), [30, 20, 40, 9, 50]).any()
         assert np.isin(np.asarray(idx), [29, 19, 39, 8, 17]).any()
 
@@ -110,7 +112,8 @@ def test_card_inputs_at_the_engine_shape():
     want = tops.crossmatch_fused(bucket, probes, bseg, pseg, thr, device="cpu")
     _assert_bits(tops._finish(*tref.crossmatch_fused_ref(b8, p8, bs, ps, thr),
                               2800, 2900), want)
-    _assert_bits(tref.crossmatch_splits_ref(b8, p8, bs, ps, thr, 5), want)
+    _assert_bits(tref.crossmatch_splits_ref(
+        b8, p8, *tref.segment_rows(bs, ps), thr, 5), want)
 
 
 def test_no_probe_rows_keep_one_padded_row():

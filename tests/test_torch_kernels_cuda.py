@@ -131,7 +131,7 @@ def test_k1_kernel_matches_plain(card, n, m, band):
     bkt = _unit(rng, n)
     bkt = bkt[np.argsort(htm_id(bkt, level=8), kind="stable")]
     prb = _near(rng, bkt, m)
-    for thr in (float(np.cos(5e-3)), float(np.cos(2.0))):
+    for thr in (float(np.cos(5e-3)), float(np.cos(2.0)), -2.0):
         kw = dict(bm=128, bn=128, band=band)
         cpu = tops.crossmatch(bkt, prb, thr, device=CPU, **kw)
         before = tkernel.LAUNCHES["crossmatch"]
@@ -214,6 +214,94 @@ SEGMENT_CASES = ["ties across splits", "empty segments", "one-row segments",
                  "probes in any order", "M = 1"]
 
 
+# Split edges of 3 and of 16 splits of 300 rows: the tie case's duplicates.
+TIE_EDGES = [18, 100, 150, 200, 281]
+
+
+def _sorted_near(rng, bucket, m, scale=2e-3):
+    """``m`` probes near ascending bucket rows, in that order: with an
+    HTM-sorted bucket, probes and rows both follow the band's diagonal."""
+    rows = np.sort(rng.integers(0, len(bucket), m))
+    p = bucket[rows] + rng.normal(scale=scale, size=(m, 3))
+    return (p / np.linalg.norm(p, axis=1, keepdims=True)).astype(np.float32)
+
+
+def _htm_sorted(rng, n):
+    b = _unit(rng, n)
+    return b[np.argsort(htm_id(b, level=8), kind="stable")]
+
+
+def bucket_case(name):
+    """(bucket, probes, cos_thr, band, bm, bn) of one single-bucket layout;
+    buckets of at least 33 rows."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    thr, band, bm, bn = float(np.cos(2e-3)), None, 128, 128
+    if name == "ties across splits":
+        bucket = _unit(rng, 300)
+        for e in TIE_EDGES:
+            bucket[e] = bucket[e - 1]
+        probes = np.concatenate([
+            _near(rng, bucket[[e - 1 for e in TIE_EDGES]], 40, 1e-4),
+            _near(rng, bucket, 260)])
+    elif name == "last real row":
+        bucket = _unit(rng, 300)
+        probes = np.concatenate([_near(rng, bucket[[299]], 9, 1e-4),
+                                 _near(rng, bucket, 91)])
+    elif name == "band at tile edges":
+        # 700 probes (grid 1024 = 8 tile rows) on 1,000 rows (grid 1024 = 8
+        # tiles): each tile row's last 8 probes sit at its band's last row.
+        bucket = _htm_sorted(rng, 1000)
+        probes = _sorted_near(rng, bucket, 700)
+        band = 1
+        for i in range(700 // bm):
+            center = i * 8 // 8
+            last = min((center + band + 1) * bn, 1000) - 1
+            probes[i * bm + bm - 8:(i + 1) * bm] = _near(rng, bucket[[last]], 8,
+                                                        1e-4)
+    elif name == "band, odd bm":
+        # bm = 7: two probes of a thread straddle two tile rows in turn.
+        bucket = _htm_sorted(rng, 400)
+        probes = _sorted_near(rng, bucket, 100)
+        band, bm = 0, 7
+    elif name == "threshold -2":
+        bucket = _unit(rng, 300)
+        probes = _near(rng, bucket, 50)
+        thr = -2.0
+    elif name == "threshold -2, band":
+        bucket = _htm_sorted(rng, 300)
+        probes = _sorted_near(rng, bucket, 50)
+        thr, band, bm = -2.0, 1, 16
+    elif name == "M = 1":
+        bucket = _unit(rng, 40)
+        probes = _near(rng, bucket[[39]], 1, 1e-4)
+    else:
+        raise KeyError(name)
+    return bucket, probes, thr, band, bm, bn
+
+
+BUCKET_CASES = ["ties across splits", "last real row", "band at tile edges",
+                "band, odd bm", "threshold -2", "threshold -2, band", "M = 1"]
+
+
+def bucket_inputs(case, dev):
+    """A single-bucket layout's inputs as the card path builds them: the
+    padded bucket, the real probe rows only, the real bucket row count and
+    the padded probe count (the band's grid), on ``dev``."""
+    bucket, probes, _, _, bm, bn = case
+    b8, p8, n_real, m_true = tops._host_prepare(bucket, probes, bm, bn,
+                                                pad_probes=False)
+    return (torch.from_numpy(b8).to(dev), torch.from_numpy(p8).to(dev),
+            n_real, tops._probe_grid(m_true, bm))
+
+
+def bucket_split_ref(b8, p8, n_real, m_grid, thr, band, bm, bn, splits):
+    """The split mirror over each probe's rows as the card takes them."""
+    rows = tkernel.bucket_rows_taken(b8.shape[0], n_real, thr)
+    lo, hi = tref.bucket_rows(p8.shape[0], rows, band, bm, bn, m_grid,
+                              b8.shape[0], device=p8.device)
+    return tref.crossmatch_splits_ref(b8, p8, lo, hi, thr, splits)
+
+
 def _segment_inputs(case, dev):
     """A layout's inputs as the card path builds them (the real probe rows
     only), on ``dev``, and its per-probe thresholds."""
@@ -259,7 +347,8 @@ def test_k2_k3_segment_kernel_matches_split_ref(card, monkeypatch, name, plan):
         torch.cuda.synchronize()
         assert tkernel.LAUNCHES[name_k] == before + 1
         t_cpu = t.cpu() if torch.is_tensor(t) else t
-        _assert_bits(got, tref.crossmatch_splits_ref(*cpu, t_cpu, splits))
+        _assert_bits(got, tref.crossmatch_splits_ref(
+            cpu[0], cpu[1], *tref.segment_rows(cpu[2], cpu[3]), t_cpu, splits))
         _assert_bits(got, plain(*cpu, t_cpu))
         assert_join_close([x.cpu() for x in got],
                           [x.cpu() for x in plain(b8, p8, bs, ps, t)],
@@ -293,6 +382,65 @@ def test_k2_k3_segment_kernel_same_bits_every_run(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["split", "no split"])
+@pytest.mark.parametrize("name", BUCKET_CASES)
+def test_k1_kernel_matches_split_ref(card, monkeypatch, name, plan):
+    """K1's instance of the kernel gives the split mirror's bits at its own
+    plan (split: 8-row parts; no split: one block walks each range), and
+    the plain version's on the CPU and, under the join contract, on the
+    card."""
+    monkeypatch.setattr(tkernel, "MIN_SPLIT_ROWS", 8)
+    if plan == "no split":
+        monkeypatch.setattr(tkernel, "SPLIT_BLOCKS_PER_SM", 0)
+    case = bucket_case(name)
+    bucket, probes, thr, band, bm, bn = case
+    b8, p8, n_real, m_grid = bucket_inputs(case, card)
+    rows = tkernel.bucket_rows_taken(b8.shape[0], n_real, thr)
+    _, splits = tkernel.segment_plan(p8.shape[0], rows, card)
+    assert (splits > 1) == (plan == "split")
+    kw = dict(band=band, bm=bm, bn=bn)
+    before = tkernel.LAUNCHES["crossmatch"]
+    got = tkernel.crossmatch_kernel(b8, p8, thr, n_real=n_real, m_grid=m_grid,
+                                    **kw)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES["crossmatch"] == before + 1
+    b8c, p8c = b8.cpu(), p8.cpu()
+    _assert_bits(got, bucket_split_ref(b8c, p8c, n_real, m_grid, thr, band,
+                                       bm, bn, splits))
+    _assert_bits(got, tref.crossmatch_ref(b8c, p8c, thr, m_grid=m_grid, **kw))
+    assert_join_close(
+        tops._finish(*[x.cpu() for x in got], len(bucket), len(probes)),
+        tops._finish(*[x.cpu() for x in tref.crossmatch_ref(
+            b8, p8, thr, m_grid=m_grid, **kw)], len(bucket), len(probes)),
+        bucket, probes, thr)
+
+
+@pytest.mark.cuda
+def test_k1_kernel_same_bits_every_run(card):
+    """10,000 rows and 3,900 probes (16 probe blocks, split across the
+    card, as run A's batches): two calls, and a call after a call of
+    another shape on the same stream, give the same bits; so does the
+    band."""
+    rng = np.random.default_rng(17)
+    bucket = _htm_sorted(rng, 10_000)
+    probes = _sorted_near(rng, bucket, 3900)
+    for band in (None, 2):
+        case = (bucket, probes, float(np.cos(5e-3)), band, 128, 512)
+        b8, p8, n_real, m_grid = bucket_inputs(case, card)
+        assert tkernel.segment_plan(3900, n_real, card)[1] > 1
+        kw = dict(band=band, bm=128, bn=512, n_real=n_real, m_grid=m_grid)
+        thr = case[2]
+        first = tkernel.crossmatch_kernel(b8, p8, thr, **kw)
+        again = tkernel.crossmatch_kernel(b8, p8, thr, **kw)
+        tkernel.crossmatch_kernel(b8, p8[:7], thr, **kw)
+        third = tkernel.crossmatch_kernel(b8, p8, thr, **kw)
+        _assert_bits(first, again)
+        _assert_bits(first, third)
+        _assert_bits(first, tref.crossmatch_ref(
+            b8.cpu(), p8.cpu(), thr, band=band, bm=128, bn=512, m_grid=m_grid))
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernel_does_not_take(card):
     b = torch.zeros(512, 8, device=card)
     p = torch.zeros(128, 8, device=card)
@@ -303,6 +451,14 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(card):
                                   bm=8)
     with pytest.raises(ValueError):
         tkernel.crossmatch_kernel(b, p[:100], 0.9)  # not a multiple of bm
+    with pytest.raises(ValueError):  # more probe rows than the grid
+        tkernel.crossmatch_kernel(b, p, 0.9, m_grid=64, bm=64)
+    with pytest.raises(ValueError):  # more real rows than the bucket
+        tkernel.crossmatch_kernel(b, p, 0.9, n_real=513)
+    with pytest.raises(ValueError):  # no probe row
+        tkernel.crossmatch_kernel(b, p[:0], 0.9, m_grid=128)
+    with pytest.raises(ValueError):
+        tkernel.crossmatch_kernel(b, p, 0.9, band=-1)
     with pytest.raises(ValueError):
         tkernel.crossmatch_fused_kernel(b, p, torch.zeros(512, device=card),
                                         torch.zeros(128), 0.9)  # seg on cpu
