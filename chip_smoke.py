@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card: the SkyQuery
 cross-match (K1-K3), the LifeRaft serving decode of CodeQwen1.5-7B (K4) and
-of the MoE moonshot-v1-16b-a3b (K4 and the grouped matmul K5).
+of the MoE moonshot-v1-16b-a3b (K4 and the grouped matmul K5), and the
+durable service daemon over both (a kill -9 drill on the cross-match).
 
     python3 chip_smoke.py
 
@@ -123,6 +124,30 @@ Phases; any failure exits non-zero before the last line is printed:
               summary must equal the ``--no-decode`` run's; a 2-layer cut at
               full width decodes 4 steps on the card as on the CPU under
               phase 6's rules.
+9. daemon  -- the durable service tier (``serving/daemon.py``) on the card.
+              (a) The kill -9 drill (``benchmarks/smoke_recovery.py``) over
+              phase 3's engine C and all 200 queries: an uninterrupted
+              daemon, then a child interpreter running the same client loop,
+              SIGKILLed once its journal holds a third of the uninterrupted
+              run's round records, then a fresh daemon recovering on the
+              card (replay re-runs every journaled round's join) and
+              finishing.  Its journal records must equal the uninterrupted
+              run's byte for byte, every acked query must complete with
+              results equal bit for bit, and each daemon's launches must add
+              up to its device dispatches.  Prints the rounds replayed, the
+              recovery's seconds, and the daemon's intake (fsync'd acks of
+              JSON payloads) beside phase 3's engine intake.  (b) The card
+              daemon on the first 50 queries writes segment files equal byte
+              for byte to a ``device="cpu"`` daemon's.  (c) The launcher's
+              trace and engine behind the daemon, decoding moonshot's 2-layer
+              cut at full width on the card (seeded weights): journal equal
+              to a ``--no-decode`` daemon's, K4 launches 2 x the steps and K5
+              3 x 2 x the steps; a copy cut after half its round records
+              recovers (re-decoding that half) to the same journal.  (d)
+              Phase 3's runs A and C again with ``obs`` on: decision logs and
+              results equal to the obs-off runs, the round counter equal to
+              the rounds, one Perfetto span a round; the drain ratio is
+              printed, not gated.
 
 The last two lines are the kernels' JSON record and the device record.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -135,8 +160,10 @@ import json
 import math
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -146,12 +173,9 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.core import (  # noqa: E402
-    CostModel, HybridCostModel, HybridPlanner, LifeRaftScheduler,
-)
-from repro_torch.crossmatch import (  # noqa: E402
-    CrossMatchEngine, TraceConfig, make_catalog, make_trace,
-    queries_from_records,
+from repro_torch.benchmarks import smoke_recovery as drill  # noqa: E402
+from repro_torch.benchmarks.skyquery import (  # noqa: E402
+    make_engine, make_skyquery_catalog, queries_for, trace_records,
 )
 from repro_torch.kernels.crossmatch import kernel as K  # noqa: E402
 from repro_torch.kernels.crossmatch import ops, ref  # noqa: E402
@@ -166,6 +190,8 @@ from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import registry as models  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.obs import Observability  # noqa: E402
+from repro_torch.serving import ServiceDaemon, ServingHost  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, bf16
 # dense tensor cores, HBM3.
@@ -282,17 +308,12 @@ def main() -> int:
 
     # -- data: the main path's catalog --------------------------------------
     t0 = time.perf_counter()
-    cat = make_catalog(
-        n_objects=1_000_000, objects_per_bucket=10_000, htm_level=10, seed=3
-    )
-    trace = make_trace(
-        cat,
-        TraceConfig(n_queries=200, arrival_rate=1.0,
-                    objects_median=1000, seed=4),
-    )
+    cat = make_skyquery_catalog()
+    trace = trace_records(cat)
+    n_probes = sum(len(r["payload"]["positions"]) for r in trace)
     print(f"[data] catalog {cat.n_objects} objects, {cat.n_buckets} buckets; "
-          f"{len(trace)} queries, {sum(q.n_objects for q in trace)} probe "
-          f"objects; {time.perf_counter() - t0:.2f}s", flush=True)
+          f"{len(trace)} queries, {n_probes} probe objects; "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
 
     # -- 2. kernels against their plain versions ----------------------------
     dev = torch.device(DEVICE)
@@ -306,7 +327,7 @@ def main() -> int:
     check_planted_faults(faults, checks)
 
     # -- 3. main path ---------------------------------------------------------
-    by_run, batches = run_main_path(cat, trace)
+    by_run, batches, obs_off = run_main_path(cat, trace)
 
     # -- 4. kernels at the main path's shapes --------------------------------
     shaped = main_shape_cases(buckets, batches, rng, dev)
@@ -342,6 +363,11 @@ def main() -> int:
     print(f"[moe] K5 a step at phase 7's spread routing "
           f"({grouped['e']['active_experts']} active experts): layers x "
           f"(2 x (e) + (e')) = {spread:.3f} ms", flush=True)
+
+    # -- 9. the durable service tier -------------------------------------------
+    t0 = time.perf_counter()
+    by_run["daemon"] = run_daemon_phase(cat, trace, obs_off, smi)
+    print(f"[daemon] phase 9 in {time.perf_counter() - t0:.1f}s", flush=True)
 
     for rec in records:
         rec["launches_by_run"] = {
@@ -939,35 +965,6 @@ def encode_round(outcome) -> tuple:
     )
 
 
-def make_engine(cat, kind: str, device: str):
-    cost = CostModel(T_b=1.2, T_m=0.13e-3)
-    hybrid = HybridPlanner(
-        HybridCostModel(T_b=1.2, T_m=0.13e-3, T_probe=4.13e-3),
-        objects_per_bucket=10_000,
-    )
-    extra = {
-        "A": dict(fuse_k=1),
-        "B": dict(fuse_k=4),
-        "C": dict(fuse_k=4, shared_plan=True, share_width=8),
-    }[kind]
-    return CrossMatchEngine(
-        cat, scheduler=LifeRaftScheduler(cost, alpha=0.25), cost_model=cost,
-        cache_capacity=20, match_radius_rad=5e-3, hybrid=hybrid,
-        device=device, **extra,
-    )
-
-
-def queries_for(records, kind: str, n: int):
-    """Fresh Query objects for one run; C gets per-query predicates."""
-    qs = queries_from_records(records[:n])
-    if kind == "C":
-        rng = np.random.default_rng(5)
-        for q in qs:
-            q.meta["radius"] = float(rng.choice([2.5e-3, 5e-3, 1e-2]))
-            q.meta["mag_cut"] = float(rng.choice([23.0, 24.0, 25.0]))
-    return qs
-
-
 def submit_all(eng, queries) -> float:
     """``CrossMatchEngine.run``'s intake half: admit the whole trace in
     arrival order; returns its wall seconds."""
@@ -990,10 +987,10 @@ def drain(eng, device) -> float:
     return time.perf_counter() - t0
 
 
-def drive(cat, records, kind, device, n):
+def drive(cat, records, kind, device, n, obs=None):
     """One run of the main path as ``engine.run`` does it, timed in its
     intake and drain halves."""
-    eng = make_engine(cat, kind, device)
+    eng = make_engine(cat, kind, device, obs=obs)
     log: list = []
     eng.loop.add_round_tap(lambda o: log.append(encode_round(o)))
     queries = queries_for(records, kind, n)
@@ -1095,20 +1092,21 @@ def reset_all_launches() -> None:
     GK.reset_launches()
 
 
-def run_main_path(cat, trace):
-    """Phase 3; returns each run's kernel launches and its largest probe
-    batch (the engine's ``max_probe_batch``)."""
-    records = [dataclasses.asdict(q) for q in trace]
+def run_main_path(cat, records):
+    """Phase 3; returns each run's kernel launches, its largest probe
+    batch (the engine's ``max_probe_batch``), and its decision log, results
+    and times (for phase 9's obs-on runs)."""
     n_cpu = min(CPU_QUERIES, len(records))
     expect = {"A": "crossmatch", "B": "crossmatch_fused",
               "C": "crossmatch_shared"}
-    by_run, batches = {}, {}
+    by_run, batches, runs = {}, {}, {}
     for kind in ("A", "B", "C"):
         reset_all_launches()
         eng, log, res, queries, (t_in, t_out) = drive(
             cat, records, kind, DEVICE, len(records)
         )
         launches = all_launches()
+        runs[kind] = dict(log=log, results=res, intake=t_in, drain=t_out)
         by_run[kind] = launches
         batches[kind] = int(eng.max_probe_batch)
         dd = eng.summary()["device_dispatches"]
@@ -1145,7 +1143,7 @@ def run_main_path(cat, trace):
               flush=True)
     for kind in ("A", "B", "C"):
         profile_drain(cat, records, kind)
-    return by_run, batches
+    return by_run, batches, runs
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1559,6 +1557,159 @@ def time_grouped(x, gid, w, rows, library, nbytes, flops, label) -> dict:
         plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
         library=lib_name, shape=label, path=path,
     )
+
+
+# ---------------------------------------------------------------- phase 9
+def run_daemon_phase(cat, records, obs_off, smi) -> dict:
+    """Phase 9; returns the kernel launches of its card runs, each counted
+    from 0 just before the run and read just after it."""
+    launches = {k: 0 for k in all_launches()}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # (a) the kill -9 drill
+    try:
+        out = drill.run_drill("crossmatch", DEVICE, cell=(cat, records),
+                              log=lambda m: print(f"[daemon] (a) {m}",
+                                                  flush=True))
+    except drill.DrillFailed as exc:
+        raise SystemExit(f"[daemon] (a) kill -9 drill: {exc}")
+    for run in ("uninterrupted", "recovered"):
+        add(out["launches"][run])
+    if out["launches"]["uninterrupted"]["crossmatch_shared"] <= 0:
+        raise SystemExit("[daemon] (a) the daemon never launched K3")
+    print(f"[daemon] (a) {out['items']} queries, {out['rounds']} rounds; "
+          f"child killed at {out['killed_at_rounds']} round records; "
+          f"recovery replayed {out['replayed_rounds']} rounds (each join "
+          f"re-run on the card) in {out['recovery_s']:.3f}s ({smi}); daemon "
+          f"intake {out['intake_s']:.3f}s (fsync'd acks, JSON payloads; "
+          f"the submit records' appends {out['submit_journal_s']['append']:.3f}"
+          f"s, their fsyncs {out['submit_journal_s']['fsync']:.3f}s) against "
+          f"phase 3's engine intake {obs_off['C']['intake']:.3f}s (run C); "
+          f"uninterrupted wall {out['wall_s']:.3f}s; launches "
+          f"{out['launches']}, device dispatches {out['dispatches']}",
+          flush=True)
+
+    # (b) the card daemon's journal against the cpu daemon's
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-daemon-"))
+    walls = {}
+    for dev in (DEVICE, "cpu"):
+        reset_all_launches()
+        t0 = time.perf_counter()
+        d = drill.crossmatch_daemon(cat, work / dev, dev)
+        drill.drive(d, queries_for(records, "C", CPU_QUERIES))
+        d.close()
+        walls[dev] = time.perf_counter() - t0
+        if dev == DEVICE:
+            got, dd = all_launches(), d.host.engine.summary()[
+                "device_dispatches"]
+            add(got)
+            if sum(got.values()) != dd:
+                raise SystemExit(f"[daemon] (b) {sum(got.values())} launches "
+                                 f"for {dd} device dispatches")
+    if not drill.segments_equal(work / DEVICE, work / "cpu"):
+        raise SystemExit(f"[daemon] (b) the card daemon's journal differs "
+                         f"from the cpu daemon's; left at {work}")
+    print(f"[daemon] (b) first {CPU_QUERIES} queries: the card daemon's "
+          f"{len(drill.journal_records(work / DEVICE))} journal records equal "
+          f"the cpu daemon's, segment files byte for byte; wall card "
+          f"{walls[DEVICE]:.3f}s, cpu {walls['cpu']:.3f}s", flush=True)
+    shutil.rmtree(work)
+
+    add(run_serving_daemon(smi))
+
+    # (d) obs on the main path: a round's results are copied to the host
+    # (``.cpu()`` synchronises), so its wall span holds its device time.
+    for kind in ("A", "C"):
+        obs = Observability()
+        reset_all_launches()
+        _, log, res, _, (t_in, t_out) = drive(cat, records, kind, DEVICE,
+                                              len(records), obs=obs)
+        add(all_launches())
+        off = obs_off[kind]
+        if log != off["log"]:
+            raise SystemExit(f"[daemon] (d) run {kind}: the obs-on decision "
+                             f"log differs from the obs-off run's")
+        if not drill.results_equal(res, off["results"]):
+            raise SystemExit(f"[daemon] (d) run {kind}: obs-on results "
+                             f"differ from the obs-off run's")
+        series = obs.snapshot()["metrics"]["liferaft_rounds_total"]["series"]
+        counted = sum(x["value"] for x in series)
+        spans = [e for e in obs.perfetto()["traceEvents"]
+                 if e["ph"] == "X" and e["name"] == "round"]
+        if not counted == len(spans) == len(log):
+            raise SystemExit(f"[daemon] (d) run {kind}: {counted} rounds "
+                             f"counted, {len(spans)} spans, {len(log)} rounds")
+        print(f"[daemon] (d) run {kind} with obs on: {len(log)} rounds and "
+              f"the results identical to the obs-off run's; rounds counter "
+              f"{counted:.0f}, {len(spans)} round spans; drain {t_out:.3f}s "
+              f"against {off['drain']:.3f}s obs off (ratio "
+              f"{t_out / off['drain']:.3f}, not gated: the host varies), "
+              f"intake {t_in:.3f}s against {off['intake']:.3f}s", flush=True)
+    return launches
+
+
+def run_serving_daemon(smi) -> dict:
+    """Phase 9 (c); returns the launches of its two decoding daemons."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=CPU_LAYERS)
+    dev = torch.device(DEVICE)
+    params = models.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(0))
+    args = serve_args(MOE_ARCH)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-serving-"))
+    launches = {k: 0 for k in all_launches()}
+
+    def run(name, decode):
+        stats = serve_launcher.DecodeStats()
+        fn = (serve_launcher.make_decode_fn(cfg, params, dev, stats)
+              if decode else None)
+        reset_all_launches()
+        t0 = time.perf_counter()
+        d = ServiceDaemon(ServingHost(serve_launcher.make_engine(args, fn)),
+                          work / name)
+        t_recover, replayed = time.perf_counter() - t0, stats.steps
+        drill.drive(d, serve_launcher.make_requests(args.requests,
+                                                    args.tenants, args.rate))
+        d.close()
+        torch.cuda.synchronize()
+        got = all_launches()
+        want = {"paged_attention": cfg.n_layers * stats.steps,
+                "grouped_matmul": 3 * cfg.n_layers * stats.steps}
+        if {k: got[k] for k in want} != want or (decode and not stats.steps):
+            raise SystemExit(f"[daemon] (c) {name}: launches {got} for "
+                             f"{stats.steps} steps; expected {want}")
+        for k, v in got.items():
+            launches[k] += v
+        return d, stats, time.perf_counter() - t0, (t_recover, replayed)
+
+    full, stats, wall, _ = run("decode", True)
+    run("dry", False)
+    if not drill.segments_equal(work / "decode", work / "dry"):
+        raise SystemExit(f"[daemon] (c) the decoding daemon's journal differs "
+                         f"from the --no-decode daemon's; left at {work}")
+    half = len(full.entries) // 2
+    n_cut = drill.cut_journal(work / "decode", work / "cut", half)
+    rec, rstats, rwall, (t_recover, replayed) = run("cut", True)
+    if (drill.journal_records(work / "cut")
+            != drill.journal_records(work / "decode")
+            or rstats.steps != stats.steps):
+        raise SystemExit(f"[daemon] (c) recovery from the cut journal "
+                         f"differs from the uninterrupted run; left at {work}")
+    print(f"[daemon] (c) {MOE_ARCH} at {cfg.n_layers} layers, full width, "
+          f"{args.requests} requests: {len(full.entries)} rounds, "
+          f"{stats.calls} decode calls, {stats.steps} steps, wall "
+          f"{wall:.3f}s; journal equal to the --no-decode daemon's; cut "
+          f"after {half} rounds ({n_cut} records), recovered in "
+          f"{t_recover:.3f}s ({smi}; the replay re-decoded {replayed} "
+          f"steps), finished in {rwall:.3f}s wall with the same journal; "
+          f"launches {launches}",
+          flush=True)
+    shutil.rmtree(work)
+    del params
+    torch.cuda.empty_cache()
+    return launches
 
 
 if __name__ == "__main__":

@@ -172,8 +172,7 @@ def _library(path: pathlib.Path):
 def k1_cases(dev):
     """K1 at run A's batch sizes on one 10,000-row bucket, the real rows
     as the card path hands them."""
-    cat = smoke.make_catalog(n_objects=1_000_000, objects_per_bucket=10_000,
-                             htm_level=10, seed=3)
+    cat = smoke.make_skyquery_catalog()
     bucket = smoke.largest_buckets(cat, 1)[0]
     rng = np.random.default_rng(12)
     thr = float(np.cos(5e-3))
@@ -183,8 +182,7 @@ def k1_cases(dev):
 
 def cases(dev):
     """The K3 cases timed: phase 4's real shape, then phase 2's."""
-    cat = smoke.make_catalog(n_objects=1_000_000, objects_per_bucket=10_000,
-                             htm_level=10, seed=3)
+    cat = smoke.make_skyquery_catalog()
     buckets = smoke.largest_buckets(cat, 4)
     rng = np.random.default_rng(11)
     out = []

@@ -1,9 +1,8 @@
 """repro_torch.core — the paper's contribution: data-driven batch scheduling.
 
-The port's own copies of the JAX-free decision layer; every module is
-held to the same decision-log goldens as its counterpart in ``repro``.
-The write-ahead journal and the event-driven simulator are not part of
-this package yet.
+The port's own copies of the JAX-free decision layer, the write-ahead
+journal and the event-driven simulator; every module is held to the
+same decision-log goldens as its counterpart in ``repro``.
 
 Public surface:
   * space-filling curves (``sfc``): HTM trixel ids, Morton codes
@@ -27,6 +26,7 @@ Public surface:
     SFC-range bucket partitioning, shard-local dispatch loops, work
     stealing, and the ``ShardControlPlane`` global byte arbiter
     (``shard``)
+  * ``simulate``: the event-driven harness behind Figs. 7/8
 """
 from .bucket import BucketSpec, BucketStore, Partitioner
 from .cache import BucketCache, CacheOverflowError, CacheStats
@@ -56,6 +56,17 @@ from .control import (
     unspill_price,
     waterfill,
 )
+from .journal import (
+    TRACE_SCHEMA_VERSION,
+    Journal,
+    JournalCorrupt,
+    diff_entries,
+    encode_outcome,
+    encode_steal,
+    format_entry,
+    load_trace,
+    save_trace,
+)
 from .dispatch import DispatchLoop, DispatchOutcome
 from .prefetch import PrefetchConfig, PrefetchPipeline, build_pipeline
 from .scanplan import ScanPlanConfig, ScanPlanner
@@ -73,6 +84,13 @@ from .shard import (
     StealConfig,
     StealEvent,
     split_slots,
+)
+from .simulate import (
+    SimResult,
+    run_policy,
+    simulate_batched,
+    simulate_noshare,
+    simulate_sharded,
 )
 from .spillq import SpillQueue
 from .workload import Query, WorkloadManager, WorkloadQueue, WorkUnit
@@ -131,6 +149,20 @@ __all__ = [
     "StealConfig",
     "StealEvent",
     "split_slots",
+    "TRACE_SCHEMA_VERSION",
+    "Journal",
+    "JournalCorrupt",
+    "diff_entries",
+    "encode_outcome",
+    "encode_steal",
+    "format_entry",
+    "load_trace",
+    "save_trace",
+    "SimResult",
+    "run_policy",
+    "simulate_batched",
+    "simulate_noshare",
+    "simulate_sharded",
     "Query",
     "WorkloadManager",
     "WorkloadQueue",

@@ -73,10 +73,6 @@ class CrossMatchEngine:
         share_width: int = 8,
         obs=None,
     ) -> None:
-        if obs:
-            raise NotImplementedError(
-                "obs= needs the observability layer, which is not ported yet"
-            )
         self.catalog = catalog
         self.cost_model = cost_model or CostModel()
         self.scheduler = scheduler or LifeRaftScheduler(self.cost_model, alpha=0.25)
@@ -122,6 +118,16 @@ class CrossMatchEngine:
             ),
         )
         self.obs = None
+        if obs:
+            # Lazy import (off-path never touches repro_torch.obs).  The join
+            # runs on the device, so spans ride on perf_counter marks; each
+            # round copies its results to the host (``.cpu()`` synchronises),
+            # so a round's wall span holds its device time.  Decisions still
+            # come off the tap only.
+            from ..obs import ensure as _obs_ensure
+
+            self.obs = _obs_ensure(obs)
+            self.obs.attach_loop(self.loop, track=0, clock="wall")
 
     # -- loop-owned counters (kept as attributes for back-compat) --------------
     @property

@@ -35,7 +35,7 @@ from ..serving import AdapterSpec, LifeRaftEngine, Request, ServeConfig
 from ..training.train_step import make_serve_step
 
 __all__ = ["DECODE_BATCH", "MAX_SEQ", "DecodeStats", "build_parser",
-           "make_requests", "make_decode_fn", "serve", "main"]
+           "make_requests", "make_decode_fn", "make_engine", "serve", "main"]
 
 DECODE_BATCH = 8  # sequences decoded per call (B)
 MAX_SEQ = 64  # cache slots per sequence
@@ -134,14 +134,21 @@ def serve(args: argparse.Namespace, params: Optional[dict] = None,
             params = R.init_params(cfg, gen)
         decode_fn = make_decode_fn(cfg, params, device, stats,
                                    time_steps and device.type == "cuda")
-    engine = LifeRaftEngine(
+    engine = make_engine(args, decode_fn)
+    summary = engine.run(make_requests(args.requests, args.tenants, args.rate))
+    return summary, stats
+
+
+def make_engine(args: argparse.Namespace, decode_fn=None) -> LifeRaftEngine:
+    """The launcher's engine: a 4 GiB adapter a tenant, a third of them
+    resident, ``args.policy`` at ``args.alpha``; ``decode_fn`` (None: no
+    device compute) runs each scheduled batch."""
+    return LifeRaftEngine(
         [AdapterSpec(a, 4 << 30) for a in range(args.tenants)],
         ServeConfig(policy=args.policy, alpha=args.alpha,
                     adapter_slots=max(args.tenants // 3, 1)),
         decode_batch_fn=decode_fn,
     )
-    summary = engine.run(make_requests(args.requests, args.tenants, args.rate))
-    return summary, stats
 
 
 def main(argv=None):

@@ -1,6 +1,7 @@
 """The serving substrate of the port: the LifeRaft multi-tenant engine
-(a JAX-free copy of the reference's) and the paged KV pool.  The service
-daemon is not ported yet."""
+(a JAX-free copy of the reference's), the paged KV pool, and the durable
+service daemon over the serving and cross-match engines."""
+from .daemon import CrossMatchHost, RecoveryError, ServiceDaemon, ServingHost
 from .engine import (
     AdapterSpec,
     AdapterWorkload,
@@ -13,4 +14,5 @@ from .kvcache import PagePool, SequenceAllocation
 
 __all__ = ["AdapterSpec", "AdapterWorkload", "LifeRaftEngine", "Request",
            "ServeConfig", "ShardedServingEngine", "PagePool",
-           "SequenceAllocation"]
+           "SequenceAllocation", "ServiceDaemon", "ServingHost",
+           "CrossMatchHost", "RecoveryError"]

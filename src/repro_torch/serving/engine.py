@@ -33,8 +33,7 @@ the roofline cost model (capacity planning, Fig. 7/8-style sweeps);
 current devices alongside.
 
 This is the port's copy of ``repro.serving.engine``: it holds no JAX and
-replays the reference's ``serving_*`` goldens bit-identically.  ``obs=``
-raises until the observability layer is ported.
+replays the reference's ``serving_*`` goldens bit-identically.
 """
 from __future__ import annotations
 
@@ -66,14 +65,6 @@ __all__ = [
     "LifeRaftEngine",
     "ShardedServingEngine",
 ]
-
-
-
-def _no_obs(obs) -> None:
-    if obs:
-        raise NotImplementedError(
-            "obs= needs the observability layer, which is not ported yet"
-        )
 
 
 @dataclasses.dataclass
@@ -390,7 +381,6 @@ class LifeRaftEngine:
         control: Optional[ControlLoop | TenantControlPlane] = None,
         obs=None,
     ) -> None:
-        _no_obs(obs)
         self.cfg = config
         self.adapters = {a.adapter_id: a for a in adapters}
         mean_bytes = float(np.mean([a.nbytes for a in adapters])) if adapters else 1.0
@@ -475,6 +465,14 @@ class LifeRaftEngine:
                 lambda a: self.adapters[a].nbytes / self.cfg.hbm_bw,
             ),
         )
+        self.obs = None
+        if obs:
+            # Lazy import: with obs off (the default) the hot path never
+            # touches repro_torch.obs.  The tap is a pure add_round_tap consumer.
+            from ..obs import ensure as _obs_ensure
+
+            self.obs = _obs_ensure(obs)
+            self.obs.attach_loop(self.loop, track=0, clock="virtual")
 
     # ------------------------------------------------------------- views
     @property
@@ -735,7 +733,6 @@ class ShardedServingEngine:
         decode_batch_fn: Optional[Callable] = None,
         obs=None,
     ) -> None:
-        _no_obs(obs)
         self.n_shards = max(1, int(n_shards))
         self.shard_map = shard_map or ShardMap.from_bucket_bytes(
             {a.adapter_id: float(a.nbytes) for a in adapters}, self.n_shards
@@ -763,6 +760,13 @@ class ShardedServingEngine:
         self.on_steal: Optional[Callable] = None
         for sid, eng in enumerate(self.engines):
             eng.loop.add_round_tap(self._make_round_tap(sid))
+        self._obs = None
+        if obs:
+            from ..obs import ensure as _obs_ensure  # lazy: off-path clean
+
+            self._obs = _obs_ensure(obs)
+            for sid, eng in enumerate(self.engines):
+                self._obs.attach_loop(eng.loop, track=sid, clock="virtual")
 
     def _make_round_tap(self, sid: int):
         def tap(outcome):
@@ -845,6 +849,8 @@ class ShardedServingEngine:
             self.steals.append(ev)
             if self.on_steal is not None:
                 self.on_steal(ev)
+            if self._obs is not None:
+                self._obs.note_steal(ev)
 
     # -- virtual lockstep drive ------------------------------------------------
     def step(self) -> Optional[int]:

@@ -210,11 +210,6 @@ class TestEngineAgainstReference:
                 n_queries=16, arrival_rate=2.0, objects_median=60, seed=13))
         ))
 
-    def test_obs_is_not_ported_yet(self, catalogs):
-        _, cat = catalogs
-        with pytest.raises(NotImplementedError):
-            tcm.CrossMatchEngine(cat, device="cpu", obs=True)
-
 
 def _port_crossmatch_scenario(name):
     """``replay.crossmatch_scenario`` with the port's engine: the same

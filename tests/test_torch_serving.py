@@ -368,13 +368,6 @@ def test_sharded_engine_matches_reference(steal):
     assert ts == js
 
 
-def test_obs_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        tsrv.LifeRaftEngine([tsrv.AdapterSpec(0, 1)], obs=True)
-    with pytest.raises(NotImplementedError):
-        tsrv.ShardedServingEngine([tsrv.AdapterSpec(0, 1)], obs=True)
-
-
 # ------------------------------------------------------------------ launcher
 def _summary_lines(text):
     return [ln for ln in text.splitlines() if ln.startswith("  ")]
