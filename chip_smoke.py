@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card: the SkyQuery
 cross-match (K1-K3), the LifeRaft serving decode of CodeQwen1.5-7B (K4) and
-of the MoE moonshot-v1-16b-a3b (K4 and the grouped matmul K5), and the
-durable service daemon over both (a kill -9 drill on the cross-match).
+of the MoE moonshot-v1-16b-a3b (K4 and the grouped matmul K5), the
+durable service daemon over both (a kill -9 drill on the cross-match),
+and the paper's drivers and gates.
 
     python3 chip_smoke.py
 
@@ -148,6 +149,27 @@ Phases; any failure exits non-zero before the last line is printed:
               results equal to the obs-off runs, the round counter equal to
               the rounds, one Perfetto span a round; the drain ratio is
               printed, not gated.
+10. drivers -- the reference's drivers through the port's engines and
+              kernels on ``cuda``, each at its defaults and held against a
+              ``device="cpu"`` run of itself in this process: the SkyQuery
+              example (``examples/crossmatch_skyquery``; K1), Fig. 2's
+              scan-vs-index break-even (each w's scan against its plain
+              version under phase 2's contract), ``bench_scheduler``'s
+              ``compile_count`` (padded shapes within log2(max batch) + 1,
+              <= 1 library load) and ``fused_dispatch``,
+              ``bench_sharedplan``'s dispatch reduction (>= 2x fewer, bit-
+              equal) and compile bounding, ``kernel_bench`` (K1, K5 bf16 and
+              f32, K4 bf16 against their plain versions on the CPU; it
+              decides nothing, so no cpu run) and ``serve_multitenant``
+              with its default flags and ``--adaptive``.  Each driver's
+              launches must be > 0 and, for the cross-match drivers, add up
+              to its device dispatches (Fig. 2: its joins); the serving
+              example's K4 launches must equal layers x steps and K5's 3 x
+              layers x steps; the decision-derived counts (batches,
+              dispatches, shapes, the engine summary, tokens a tenant) must
+              equal the cpu run's.  Prints each driver's wall and the
+              CUDA-event span around it; the reports go to
+              ``build/drivers/BENCH_torch_*.json``.
 
 The last two lines are the kernels' JSON record and the device record.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -174,6 +196,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.benchmarks import smoke_recovery as drill  # noqa: E402
+from repro_torch.benchmarks import (  # noqa: E402
+    bench_scheduler, bench_sharedplan, fig2_hybrid_join, kernel_bench,
+)
+from repro_torch.benchmarks import common as bench_common  # noqa: E402
+from repro_torch.benchmarks.common import (  # noqa: E402
+    PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, bound as bound_ms,
+)
+from repro_torch.examples import (  # noqa: E402
+    crossmatch_skyquery, serve_multitenant,
+)
 from repro_torch.benchmarks.skyquery import (  # noqa: E402
     make_engine, make_skyquery_catalog, queries_for, trace_records,
 )
@@ -193,11 +225,6 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.obs import Observability  # noqa: E402
 from repro_torch.serving import ServiceDaemon, ServingHost  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, bf16
-# dense tensor cores, HBM3.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
 ULPS = 2
 PROBE_COUNTS = (256, 4096, 32768)  # kernel-check probe counts (M)
 REPS = 20  # CUDA-event timing repetitions (median)
@@ -368,6 +395,11 @@ def main() -> int:
     t0 = time.perf_counter()
     by_run["daemon"] = run_daemon_phase(cat, trace, obs_off, smi)
     print(f"[daemon] phase 9 in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # -- 10. the drivers ---------------------------------------------------------
+    t0 = time.perf_counter()
+    by_run["drivers"] = run_drivers_phase(smi)
+    print(f"[drivers] phase 10 in {time.perf_counter() - t0:.1f}s", flush=True)
 
     for rec in records:
         rec["launches_by_run"] = {
@@ -824,9 +856,7 @@ def measure(c, counting: CudaLibrary) -> dict:
     m, n = p8.shape[0], b8.shape[0]
     flops = 8.0 * c["pairs"]  # 4 FMA per real pair
     nbytes = c["in_bytes"] + 12.0 * m
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    bound = max(t_ops, t_bytes) * 1e3
+    bound, bound_by = bound_ms(nbytes, flops, PEAK_FP32_FLOPS)
     plan_txt = (f" [{plan['probes_a_thread']} probes a thread, {splits} "
                 f"splits, pairs walked {walked} (counted on the card) vs real "
                 f"{plan['real_pairs']} "
@@ -1202,9 +1232,7 @@ def measure_paged(key, shape, dev) -> dict:
     nbytes = (2 * slots * KV * D * esize + 2 * q.numel() * esize
               + table.numel() * 4 + lens.numel() * 4)
     flops = 4.0 * slots * H * D  # QK and PV, one FMA each
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    bound = max(t_ops, t_bytes) * 1e3
+    bound, bound_by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
     splits, chunk = PK.split_plan(S)
     ws = PK.workspace_bytes(B, H, KV, D, splits)
     path = PK.kernel_path(q, kp, vp)
@@ -1539,9 +1567,7 @@ def time_grouped(x, gid, w, rows, library, nbytes, flops, label) -> dict:
     p_ms = cuda_ms(lambda: grouped_matmul_tiles_ref(x, gid, w, GMM_BT, rows),
                    REPS)
     peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    bound = max(t_ops, t_bytes) * 1e3
+    bound, bound_by = bound_ms(nbytes, flops, peak)
     path = GK.kernel_path(x, w)
     lib_txt = (f"{lib_name} {lib_ms:.4f} ms (max |diff| {lib_err:.3e})"
                if lib_ms is not None else "library none")
@@ -1710,6 +1736,179 @@ def run_serving_daemon(smi) -> dict:
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+
+# ---------------------------------------------------------------- phase 10
+DRIVER_DIR = pathlib.Path(ROOT) / "build" / "drivers"
+
+
+def on_card(label, fn):
+    """Run one driver on the card with every launch count at 0; returns
+    (its result, its launches), printing its wall and the CUDA-event span
+    around it."""
+    reset_all_launches()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    print(f"[drivers] {label}: wall {wall:.3f}s, CUDA-event span "
+          f"{start.elapsed_time(end) / 1e3:.3f}s, launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return out, launches
+
+
+def need(ok: bool, what: str) -> None:
+    if not ok:
+        raise SystemExit(f"[drivers] {what}")
+
+
+def same(label, card, cpu) -> None:
+    need(card == cpu, f"{label}: the card's {card} differ from the cpu "
+                      f"run's {cpu}")
+
+
+def without(d: dict, *keys) -> dict:
+    return {k: v for k, v in d.items() if k not in keys}
+
+
+def run_drivers_phase(smi) -> dict:
+    """Phase 10: the reference's drivers on the card through the port's
+    engines and kernels, each held against a ``device="cpu"`` run of
+    itself in this process (kernel_bench, which decides nothing, against
+    its plain versions); returns the launches of all its card runs."""
+    DRIVER_DIR.mkdir(parents=True, exist_ok=True)
+    dev = torch.device(DEVICE)
+    total: dict = {}
+
+    def count(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) the SkyQuery example: K1 a round
+    rep, n = on_card("crossmatch_skyquery", lambda: crossmatch_skyquery.run(
+        device=DEVICE,
+        out_path=DRIVER_DIR / "BENCH_torch_crossmatch_skyquery.json"))
+    count(n)
+    need(n["crossmatch"] > 0
+         and sum(n.values()) == rep["summary"]["device_dispatches"],
+         f"crossmatch_skyquery: launches {n}, device dispatches "
+         f"{rep['summary']['device_dispatches']}")
+    cpu = crossmatch_skyquery.run(device="cpu", out_path=None, verbose=False)
+    same("crossmatch_skyquery summary", rep["summary"], cpu["summary"])
+    print(f"[drivers] crossmatch_skyquery: {rep['matched_objects']} matched "
+          f"on the card, {cpu['matched_objects']} on the cpu; summary equal",
+          flush=True)
+
+    # (b) Fig. 2's measured view: each w's scan against its plain version
+    joins: list = []
+    rep, n = on_card("fig2_hybrid_join", lambda: fig2_hybrid_join.run(
+        device=DEVICE, out_path=DRIVER_DIR / "BENCH_torch_fig2_hybrid_join.json",
+        joins_out=joins))
+    count(n)
+    need(n["crossmatch"] == rep["joins"] == sum(n.values()),
+         f"fig2: launches {n}, joins {rep['joins']}")
+    for j in joins:
+        case = k1_case(j["bucket"], j["probes"], fig2_hybrid_join.THR, None,
+                       f"fig2 scan w={j['w']}", dev)
+        check_join(case["label"], case, j["scan"], case["plain"]())
+    cpu = fig2_hybrid_join.run(device="cpu", out_path=None, verbose=False)
+    same("fig2 cost-model view", rep["model"], cpu["model"])
+    be = rep["measured_break_even"]
+    print(f"[drivers] fig2 ({smi}): measured break-even {be['wall_probes']} "
+          f"probes on the wall ({be['wall_frac']} of the bucket), "
+          f"{be['device_part_probes']} on the device part alone; cost "
+          f"model {rep['model']['break_even_queue']:.0f} "
+          f"({rep['model']['break_even_frac']:.4f})", flush=True)
+
+    # (c) bench_scheduler: compile_count and fused_dispatch
+    cc, n = on_card("bench_scheduler compile_count",
+                    lambda: bench_scheduler.bench_compiles(device=DEVICE))
+    count(n)
+    need(cc["within_bound"], f"compile_count out of bound: {cc}")
+    need(n["crossmatch"] == cc["batches"] == sum(n.values()),
+         f"compile_count: launches {n}, batches {cc['batches']}")
+    fd, n = on_card("bench_scheduler fused_dispatch",
+                    lambda: bench_scheduler.bench_fused(device=DEVICE))
+    count(n)
+    need(sum(n.values()) == sum(v["dispatches"] for v in fd.values()),
+         f"fused_dispatch: launches {n}, {fd}")
+    cpu_cc = bench_scheduler.bench_compiles(device="cpu")
+    same("compile_count", without(cc, "library_loads", "launch_shapes"),
+         cpu_cc)
+    same("fused_dispatch", {k: without(v, "wall_s") for k, v in fd.items()},
+         {k: without(v, "wall_s") for k, v in
+          bench_scheduler.bench_fused(device="cpu").items()})
+    bench_common.write_report(DRIVER_DIR / "BENCH_torch_scheduler.json", {
+        "compile_count": cc, "fused_dispatch": fd, "device": smi})
+    print(f"[drivers] compile_count: {cc['shapes_compiled']} padded shapes "
+          f"(bound {cc['bound_log2_max_probes_plus_1']}), "
+          f"{cc.get('library_loads')} library loads, {cc.get('launch_shapes')} launch "
+          f"shapes; fused_dispatch {fd}", flush=True)
+
+    # (d) bench_sharedplan: dispatch reduction (K1 per predicate vs K3) and
+    # compile bounding
+    dr, n = on_card("bench_sharedplan device_dispatch_reduction",
+                    lambda: bench_sharedplan.bench_dispatch_reduction(
+                        device=DEVICE))
+    count(n)
+    need(dr["passed"], f"device_dispatch_reduction failed its gate: {dr}")
+    need(n["crossmatch_shared"] > 0 and sum(n.values())
+         == dr["per_predicate_dispatches"] + dr["shared_dispatches"],
+         f"device_dispatch_reduction: launches {n}, {dr}")
+    cb, n = on_card("bench_sharedplan compile_bounding",
+                    lambda: bench_sharedplan.bench_compile_bounding(
+                        device=DEVICE))
+    count(n)
+    need(cb["bounded"] and n["crossmatch_shared"] == cb["distinct_predicates"],
+         f"compile_bounding: {cb}, launches {n}")
+    same("device_dispatch_reduction", dr,
+         bench_sharedplan.bench_dispatch_reduction(device="cpu"))
+    same("compile_bounding", cb,
+         bench_sharedplan.bench_compile_bounding(device="cpu"))
+    bench_common.write_report(DRIVER_DIR / "BENCH_torch_sharedplan.json", {
+        "device_dispatch_reduction": dr, "compile_bounding": cb,
+        "device": smi})
+    print(f"[drivers] sharedplan: {dr['per_predicate_dispatches']} -> "
+          f"{dr['shared_dispatches']} dispatches ({dr['reduction']:.2f}x), "
+          f"bit-equal {dr['results_bit_equal']}", flush=True)
+
+    # (e) kernel_bench
+    rep, n = on_card("kernel_bench", lambda: kernel_bench.run(
+        device=DEVICE, out_path=DRIVER_DIR / "BENCH_torch_kernel_bench.json"))
+    count(n)
+    need(not kernel_bench.check(rep), "kernel_bench: a kernel differs from "
+         f"its plain version: {kernel_bench.check(rep)}")
+    need(all(n[k] > 0 for k in ("crossmatch", "grouped_matmul",
+                                 "paged_attention")),
+         f"kernel_bench: launches {n}")
+
+    # (f) serve_multitenant, default flags and --adaptive
+    for flags in ([], ["--adaptive"]):
+        tag = " ".join(["serve_multitenant", *flags])
+        name = "_".join(["serve_multitenant", *(f[2:] for f in flags)])
+        args = serve_multitenant.build_parser().parse_args(
+            [*flags, "--device", DEVICE,
+             "--out", str(DRIVER_DIR / f"BENCH_torch_{name}.json")])
+        rep, n = on_card(tag, lambda: serve_multitenant.run(args))
+        count(n)
+        steps = rep["layers"] * rep["decode_steps"]
+        need(n["paged_attention"] == steps and n["grouped_matmul"] == 3 * steps,
+             f"{tag}: launches {n} for {rep['layers']} layers x "
+             f"{rep['decode_steps']} steps")
+        cpu = serve_multitenant.run(
+            serve_multitenant.build_parser().parse_args(
+                [*flags, "--device", "cpu", "--out", ""]), verbose=False)
+        keys = ("summary", "controller", "decoded_tokens", "decode_calls",
+                "decode_steps")
+        same(tag, {k: rep[k] for k in keys}, {k: cpu[k] for k in keys})
+    return total
 
 
 if __name__ == "__main__":

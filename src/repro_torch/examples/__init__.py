@@ -1,0 +1,3 @@
+"""The reference's examples on the port: ``python -m
+repro_torch.examples.<name>`` (``crossmatch_skyquery``, ``quickstart``,
+``serve_multitenant``); each takes ``--device`` (``cuda`` by default)."""

@@ -32,6 +32,16 @@ dot and any threshold, including ``cos_thr <= 0``.  The fused and shared
 joins zero the marker column and fence padded rows with segment
 ``PAD_SEG`` instead; padded probe rows of the shared join get threshold
 +2, which nothing passes.
+
+The reference compiles one executable per (join, power-of-two bucket
+rows, power-of-two probe rows, static arguments) and reports their count
+(``jit_cache_size``).  One CUDA library takes every shape here, so
+nothing is compiled per shape; a ``ShapeLog`` collects those keys instead,
+for the calls made while it is open, on either device: the shapes the
+reference would compile for them from a cold cache.  It also collects the
+(join, bucket rows, probe rows) handed to the kernel or its plain
+version: on ``cuda`` the real probe rows, so nearly one shape a batch
+size.
 """
 from __future__ import annotations
 
@@ -49,11 +59,37 @@ from .kernel import (
     crossmatch_shared_kernel,
 )
 
-__all__ = ["crossmatch", "crossmatch_fused", "crossmatch_shared", "resolve_device"]
+__all__ = ["crossmatch", "prepared_crossmatch", "crossmatch_fused",
+           "crossmatch_shared", "ShapeLog", "resolve_device"]
 
 _PAD_THR = 2.0  # threshold for padded probe rows: above any dot, passes never
 _MARKER_COL = 3  # first zero-padded coordinate column; see module docstring
 _MIN_SHAPE = 8  # floor for power-of-two shape buckets
+# The open ShapeLogs.  set.add is atomic: shard threads may share one.
+_LOGS: list = []
+
+
+class ShapeLog:
+    """``with ShapeLog() as log``: ``log.padded`` gets the padded key and
+    ``log.launched`` the launch shape of every join called in the block."""
+
+    def __init__(self):
+        self.padded: set = set()
+        self.launched: set = set()
+
+    def __enter__(self) -> "ShapeLog":
+        _LOGS.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _LOGS.remove(self)
+
+
+def _note_shapes(key: tuple, n_true: int, m_true: int, b8, p8) -> None:
+    for log in _LOGS:
+        log.padded.add((key[0], _pow2_ceil(n_true), _pow2_ceil(m_true),
+                        *key[1:]))
+        log.launched.add((key[0], b8.shape[0], p8.shape[0]))
 
 
 def _pow2_ceil(n: int, floor: int = _MIN_SHAPE) -> int:
@@ -120,15 +156,38 @@ def crossmatch(
     Returns (best_idx, best_dot, n_cand), each of length len(probes).
     ``band`` skips the bucket tiles far from the probe tile's scaled
     diagonal (for SFC-sorted inputs)."""
+    return prepared_crossmatch(bucket, probes, cos_thr, device, bm, bn, band)()
+
+
+def prepared_crossmatch(
+    bucket,
+    probes,
+    cos_thr: float,
+    device=None,
+    bm: int = 128,
+    bn: int = 512,
+    band: Optional[int] = None,
+):
+    """``crossmatch`` cut at the host-device boundary: pads the inputs and
+    copies them to the device now, and returns ``join()``, which runs the
+    device part alone (on ``cuda`` one K1 launch) and returns what
+    ``crossmatch`` returns."""
     dev = resolve_device(device)
     b8, p8, n_true, m_true = _host_prepare(bucket, probes, bm, bn,
                                            dev.type == "cpu")
-    idx, dot, cnt = crossmatch_kernel(
-        torch.from_numpy(b8).to(dev), torch.from_numpy(p8).to(dev),
-        float(cos_thr), bm=bm, bn=bn, band=band, n_real=n_true,
-        m_grid=_probe_grid(m_true, bm),
-    )
-    return _finish(idx, dot, cnt, n_true, m_true)
+    _note_shapes(("crossmatch", float(cos_thr), bm, bn, band), n_true,
+                 m_true, b8, p8)
+    b8t, p8t = torch.from_numpy(b8).to(dev), torch.from_numpy(p8).to(dev)
+    m_grid = _probe_grid(m_true, bm)
+
+    def join():
+        idx, dot, cnt = crossmatch_kernel(
+            b8t, p8t, float(cos_thr), bm=bm, bn=bn, band=band,
+            n_real=n_true, m_grid=m_grid,
+        )
+        return _finish(idx, dot, cnt, n_true, m_true)
+
+    return join
 
 
 def _segmented_inputs(bucket, probes, bucket_seg, probe_seg, bm, bn,
@@ -169,6 +228,8 @@ def crossmatch_fused(
     b8, p8, bseg, pseg, n_true, m_true = _segmented_inputs(
         bucket, probes, bucket_seg, probe_seg, bm, bn, dev.type == "cpu"
     )
+    _note_shapes(("crossmatch_fused", float(cos_thr), bm, bn), n_true,
+                 m_true, b8, p8)
     idx, dot, cnt = crossmatch_fused_kernel(
         torch.from_numpy(b8).to(dev), torch.from_numpy(p8).to(dev),
         torch.from_numpy(bseg).to(dev), torch.from_numpy(pseg).to(dev),
@@ -198,6 +259,7 @@ def crossmatch_shared(
     b8, p8, bseg, pseg, n_true, m_true = _segmented_inputs(
         bucket, probes, bucket_seg, probe_seg, bm, bn, dev.type == "cpu"
     )
+    _note_shapes(("crossmatch_shared", bm, bn), n_true, m_true, b8, p8)
     thr = np.full(p8.shape[0], _PAD_THR, np.float32)
     thr[:m_true] = np.asarray(probe_thr, np.float32)
     idx, dot, cnt = crossmatch_shared_kernel(

@@ -52,7 +52,9 @@ class CudaLibrary:
 
     ``bind(lib)`` declares the ``argtypes``/``restype`` of the source's
     launch entries; ``load`` is safe to call from several threads, and two
-    libraries build concurrently (nvcc runs outside the interpreter lock)."""
+    libraries build concurrently (nvcc runs outside the interpreter lock).
+    ``loads`` counts the times this object built or loaded its library
+    (once a process, unless a caller resets ``_lib``)."""
 
     def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None]):
         self.name = name
@@ -61,6 +63,7 @@ class CudaLibrary:
         self._lock = threading.Lock()
         self._lib: Optional[ctypes.CDLL] = None
         self._info: dict = {}
+        self.loads = 0
 
     def load(self) -> ctypes.CDLL:
         """Compile (if the source's hash is new) and load the library."""
@@ -99,6 +102,7 @@ class CudaLibrary:
                 seconds=time.perf_counter() - t0, log=log,
             )
             self._lib = lib
+            self.loads += 1
             return lib
 
     def info(self) -> dict:

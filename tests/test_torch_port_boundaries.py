@@ -136,6 +136,47 @@ def test_default_device_is_cuda_and_never_the_cpu():
             call()
 
 
+DRIVERS = ["benchmarks." + n for n in (
+    "fig2_hybrid_join", "fig5_bucket_reuse", "fig6_workload_cdf",
+    "fig7_schedulers", "fig8_tradeoff", "bench_scheduler", "bench_sharedplan",
+    "bench_shard", "bench_obs", "bench_adaptive", "bench_prefetch",
+    "serving_bench", "kernel_bench")] + ["examples." + n for n in (
+        "crossmatch_skyquery", "quickstart", "serve_multitenant")]
+
+
+@pytest.mark.parametrize("name", DRIVERS)
+def test_drivers_default_to_cuda_and_raise_without_one(name, tmp_path,
+                                                       monkeypatch):
+    """Every driver's entry point runs on ``cuda`` unless told otherwise:
+    without a card it raises before it writes a report."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the drivers run on it")
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.{name}")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        mod.main(["--out", str(tmp_path / "report.json")])
+    assert not list(tmp_path.iterdir())
+
+
+def test_a_driver_run_as_a_script_without_a_card_fails():
+    """``python -m repro_torch.benchmarks.fig2_hybrid_join`` with no
+    ``--device`` exits non-zero on a machine with no card, and the harness
+    counts every section failed."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the drivers run on it")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for cmd in (["repro_torch.benchmarks.fig2_hybrid_join"],
+                ["repro_torch.benchmarks.run", "--out-dir", "build"]):
+        out = subprocess.run([sys.executable, "-m", *cmd], env=env,
+                             capture_output=True, text=True, timeout=300,
+                             cwd=ROOT)
+        assert out.returncode != 0
+        assert "no CUDA" in out.stderr + out.stdout
+    assert "failures=13" in out.stdout
+
+
 @pytest.mark.parametrize("module", [tkernel, pkernel, gkernel],
                          ids=["crossmatch", "paged_attention", "grouped_matmul"])
 def test_build_without_nvcc_raises(monkeypatch, tmp_path, module):
