@@ -3,7 +3,9 @@
 cross-match (K1-K3), the LifeRaft serving decode of CodeQwen1.5-7B (K4) and
 of the MoE moonshot-v1-16b-a3b (K4 and the grouped matmul K5), the
 durable service daemon over both (a kill -9 drill on the cross-match),
-and the paper's drivers and gates.
+the paper's drivers and gates, and the rest of the model zoo (the SSM,
+the Jamba hybrid, the encoder-decoder and the VLM), served and
+prefilled.
 
     python3 chip_smoke.py
 
@@ -75,19 +77,24 @@ Phases; any failure exits non-zero before the last line is printed:
               H=16, KV=8, page 64 x 32 pages), (c) CodeQwen's heads at a
               long cache (B=8, H=KV=32, page 64 x 64 pages), (d) the MoE
               serving path's own shape (moonshot: H=KV=16, otherwise as
-              (a)) and (e) one CodeQwen sequence of 4,096 slots alone (B=1,
-              H=KV=32, page 64 x 64 pages).  Tolerance: the reference's for
-              this kernel, rtol = 5e-2 in bf16, and atol = 5e-2 times the
-              largest |output| where that is below 1 (an average over
-              thousands of slots is small; a fixed 5e-2 would pass a merge
-              that drops a split).  Each shape prints its splits, chunk,
-              workspace bytes and loads (``path``).
+              (a)), (e) one CodeQwen sequence of 4,096 slots alone (B=1,
+              H=KV=32, page 64 x 64 pages), and phase 11's decode shapes:
+              (f) paligemma's (B=8, H=8 on KV=1, D=256, as (a)'s pages),
+              (g) seamless's self-attention (H=KV=16, D=64) and (h) its
+              cross-attention (16 slots, one page, every sequence full).
+              Tolerance: the reference's for this kernel, rtol = 5e-2 in
+              bf16, and atol = 5e-2 times the largest |output| where that
+              is below 1 (an average over thousands of slots is small; a
+              fixed 5e-2 would pass a merge that drops a split).  Each
+              shape prints its splits, chunk, workspace bytes and loads
+              (``path``).
               Times: ``ms`` is the kernel's device time, 20 launches
               between one pair of CUDA events over 20, after a warm-up;
               ``wrapper_ms`` one call between a pair, median of 20;
               ``profiled_ms`` the kernel's own mean duration in a
-              ``torch.profiler`` trace of 20 launches (what (a) and (d),
-              few-µs kernels behind a host-bound launch, need).  The plain
+              ``torch.profiler`` trace of 20 launches, every shape's in
+              one trace (what (a), (d) and (f)-(h), few-µs kernels behind
+              a host-bound launch, need).  The plain
               version and one ``scaled_dot_product_attention`` call over
               the dense K/V with a length mask (``library_ms``) are timed
               the first way, SDPA also the second.  ``k4_tune.py`` sweeps
@@ -109,7 +116,9 @@ Phases; any failure exits non-zero before the last line is printed:
               f32, and (e) the decode call: (a)'s shape with the real rows of
               each tile (``tile_rows``) from a seeded top-6 routing of 8
               tokens over the 64 experts, computed by the MoE layer's own
-              ``expert_tiles``, and x zero past them.  Tolerance: the
+              ``expert_tiles``, and x zero past them; (j) and (j') the same
+              at jamba's decode call: 8 tokens top-2 over 16 experts of C
+              = 256 rows, d = 4096 -> f = 14336 and back.  Tolerance: the
               reference's, rtol = atol = 5e-2 in bf16 and 1e-5 in f32
               (``tests/test_kernels.py:173``).  Kernel, plain and library
               call (``torch.bmm`` on the (E, C, d) view at (a)/(a')/(e),
@@ -170,6 +179,32 @@ Phases; any failure exits non-zero before the last line is printed:
               equal the cpu run's.  Prints each driver's wall and the
               CUDA-event span around it; the reports go to
               ``build/drivers/BENCH_torch_*.json``.
+11. zoo    -- the families the earlier phases leave out, each on ``cuda``
+              at full width with seeded weights: falcon-mamba-7b (64
+              Mamba layers), paligemma-3b (18 layers, MQA, D=256) and
+              seamless-m4t-large-v2 (24 + 24 layers) whole, and
+              jamba-v0.1-52b cut in depth to 16 of its 32 layers (two
+              periods: 2 attention, 14 Mamba, 8 MoE layers; 26.05 G
+              parameters).  Each: the launcher's engine and trace with
+              ``ZOO_REQUESTS`` (10) of its 40 requests; K4's launches must
+              equal (attention + cross-attention layers) x steps and K5's 3
+              x MoE layers x steps, from ``cfg.uses_attention`` /
+              ``uses_moe``; the summary must equal the ``--no-decode``
+              run's; the median CUDA-event step, rows a second, peak memory
+              and a profile of 4 steps are printed.  Then
+              ``make_prefill_step`` at 8 prompts of 64 tokens (paligemma
+              adds its 256 patch embeddings, seamless takes 64 frames and
+              64 decoder tokens): logits finite, the CUDA-event median of
+              5, prompt positions a second.  Then a 2-layer cut of the same
+              widths in float32 (jamba's: one period of an attention layer
+              with its MLP and a Mamba layer with its MoE), weights made on
+              the CPU and copied, held to ``ZOO_F32_TOL`` under phase 6's
+              rules: the prefill's logits at 2 prompts of 16 tokens (16
+              patches / frames) and its greedy tokens; 16 decode steps (4
+              with experts), seamless's after ``prefill_cross_kv`` filled
+              the cross K/V; for the token-only families the card's decode
+              over the prompt against its forward's last position.  Each
+              model is freed before the next.
 
 The last two lines are the kernels' JSON record and the device record.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -220,7 +255,9 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa:
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import encdec as encdec_mod  # noqa: E402
 from repro_torch.models import registry as models  # noqa: E402
+from repro_torch.training.train_step import make_prefill_step  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.obs import Observability  # noqa: E402
 from repro_torch.serving import ServiceDaemon, ServingHost  # noqa: E402
@@ -269,7 +306,19 @@ PAGED_SHAPES = {
     "d": (8, 16, 16, 128, math.gcd(64, attn_mod.DECODE_PAGE),
           64 // math.gcd(64, attn_mod.DECODE_PAGE), 16),
     "e": (1, 32, 32, 128, 64, 64, 4096),
+    # phase 11's decode shapes: (f) paligemma (MQA, D = 256), (g) seamless's
+    # self-attention (D = 64), (h) its cross-attention over ENC_LEN slots,
+    # every sequence full (PAGED_FULL)
+    "f": (8, 8, 1, 256, math.gcd(64, attn_mod.DECODE_PAGE),
+          64 // math.gcd(64, attn_mod.DECODE_PAGE), 16),
+    "g": (8, 16, 16, 64, math.gcd(64, attn_mod.DECODE_PAGE),
+          64 // math.gcd(64, attn_mod.DECODE_PAGE), 16),
+    "h": (8, 16, 16, 64, math.gcd(serve_launcher.ENC_LEN, attn_mod.DECODE_PAGE),
+          serve_launcher.ENC_LEN
+          // math.gcd(serve_launcher.ENC_LEN, attn_mod.DECODE_PAGE),
+          serve_launcher.ENC_LEN),
 }
+PAGED_FULL = {"h"}  # shapes whose every sequence is max_len long
 MANY = 20  # launches between one pair of CUDA events
 SERVE_ARCH = "codeqwen1.5-7b"
 MOE_ARCH = "moonshot-v1-16b-a3b"
@@ -281,10 +330,15 @@ GMM_SOURCE = "src/repro_torch/csrc/grouped_matmul.cu"
 GMM_REPLACES = "src/repro/kernels/grouped_matmul/kernel.py:48"
 GMM_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-5}  # tests/test_kernels.py:173
 GMM_BT = 128
-# Phase 7 (e): the decode call's routing, B tokens top-k over E experts,
-# at the gate/up shape (e) and the down shape (e') as (d, f).
+# Phase 7 (e), (j): the decode call's routing, B tokens top-k over E
+# experts (moonshot's; jamba's), at the gate/up shape (e), (j) and the down
+# shape (e'), (j') as (routing, d, f).
 GMM_DECODE = dict(B=8, k=6, E=64, C=256)
-GMM_DECODE_SHAPES = {"e": (2048, 1408), "e'": (1408, 2048)}
+JAMBA_DECODE = dict(B=8, k=2, E=16, C=256)
+GMM_DECODE_SHAPES = {"e": (GMM_DECODE, 2048, 1408),
+                     "e'": (GMM_DECODE, 1408, 2048),
+                     "j": (JAMBA_DECODE, 4096, 14336),
+                     "j'": (JAMBA_DECODE, 14336, 4096)}
 # Phase 7's shapes: (T, d, f, group sizes, dtype, weight scale).  The
 # weights of (a)/(a') are the model's init scale, 1/sqrt(d); (b) takes
 # kernel_bench's 0.02.
@@ -300,6 +354,26 @@ GMM_SHAPES = {
 # rounding boundary now and then, one ulp, and the unembedding adds its own.
 BF16_LOGIT_TOL = 2.0**-3
 PROFILE_STEPS = 4
+# Phase 11: the families this slice ports, each at full width; jamba cut
+# to its first 16 layers (two periods of 8), which fit the card with their
+# cache.  The engine runs ZOO_REQUESTS of the launcher's 40 requests.
+ZOO_ARCHS = ("falcon-mamba-7b", "paligemma-3b", "seamless-m4t-large-v2",
+             "jamba-v0.1-52b")
+ZOO_LAYERS = {"jamba-v0.1-52b": 16}
+ZOO_REQUESTS = 10
+PREFILL_B, PREFILL_S = 8, 64  # prompts a prefill, tokens (frames) a prompt
+PREFILL_REPS = 5
+# The 2-layer cut's prefill against the CPU: B prompts of S tokens (S
+# patches / S frames), and the decode tail over those S tokens.
+ZOO_CPU_B, ZOO_CPU_S = 2, 16
+# The cut runs in float32: at the reference's init scale the attention
+# scores spread over hundreds (wq's fan_in is H by its scale rule), so a
+# softmax over a prompt is nearly one-hot and a bf16 rounding can move its
+# winner (paligemma's 2-layer cut in bf16 on the CPU differs from the
+# same in f32 by up to 3.99 in a logit).  Two f32 runs on the CPU with 8
+# threads and with 1 differ by up to 1.3e-2 (seamless's cut; paligemma's
+# 5.9e-4), against logits up to ~7: four times that.
+ZOO_F32_TOL = 5e-2
 
 
 def main() -> int:
@@ -365,6 +439,13 @@ def main() -> int:
     # -- 5. K4 against its plain version -------------------------------------
     paged = {key: measure_paged(key, shape, dev)
              for key, shape in PAGED_SHAPES.items()}
+    # every shape's kernel in one profiler session (each session makes the
+    # later ones of the process lose device events)
+    traced = profiled_runs([r.pop("kernel_fn") for r in paged.values()],
+                           "paged_attention")
+    for (key, rec), (ms, _) in zip(paged.items(), traced):
+        rec["profiled_ms"] = ms
+        print(f"[paged] ({key}) profiled {fmt_ms(ms)} ms", flush=True)
     k4 = dict(paged["a"], shapes={k: v for k, v in paged.items() if k != "a"})
     records.append(k4)
 
@@ -376,8 +457,8 @@ def main() -> int:
     # -- 7. K5 against its plain version -------------------------------------
     grouped = {key: measure_grouped(key, shape, dev)
                for key, shape in GMM_SHAPES.items()}
-    for key, (d, f) in GMM_DECODE_SHAPES.items():
-        grouped[key] = measure_grouped_decode(key, d, f, dev)
+    for key, (routing, d, f) in GMM_DECODE_SHAPES.items():
+        grouped[key] = measure_grouped_decode(key, routing, d, f, dev)
     records.append(dict(grouped["a"], shapes={
         k: v for k, v in grouped.items() if k != "a"}))
 
@@ -400,6 +481,11 @@ def main() -> int:
     t0 = time.perf_counter()
     by_run["drivers"] = run_drivers_phase(smi)
     print(f"[drivers] phase 10 in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # -- 11. the rest of the model zoo: decode and prefill ---------------------
+    t0 = time.perf_counter()
+    by_run["zoo"] = run_zoo_phase(smi)
+    print(f"[zoo] phase 11 in {time.perf_counter() - t0:.1f}s", flush=True)
 
     for rec in records:
         rec["launches_by_run"] = {
@@ -523,7 +609,7 @@ def profiled_runs(fns, name: str, n: int = MANY) -> list:
 
 def profiled_ms(fn, name: str, n: int = MANY):
     """``profiled_runs`` of one fn: its kernel's mean duration over the
-    launches traced, or None."""
+    launches traced, or None (``cm_tune.py``)."""
     return profiled_runs([fn], name, n)[0][0]
 
 
@@ -1195,12 +1281,16 @@ def paged_inputs(B, H, KV, D, page, pages, max_len, dev, seed):
 
 def measure_paged(key, shape, dev) -> dict:
     """Phase 5, one shape: K4 against its plain version on the same card
-    inputs, then its times (the module docstring says how each is taken),
+    inputs, then its times (the module docstring says how each is taken;
+    ``kernel_fn``, the timed call, goes to the caller's one profiler
+    session for ``profiled_ms``),
     the plain version's and one SDPA call's over the dense K/V (gathered
     once, outside the timing) with a length mask; the bound counts the
     valid K/V slots' bytes."""
     B, H, KV, D, page, pages, max_len = shape
     q, kp, vp, table, lens = paged_inputs(*shape, dev, seed=20 + ord(key))
+    if key in PAGED_FULL:
+        lens.fill_(max_len)
     args = (q, kp, vp, table, lens)
     got = PK.paged_attention_kernel(*args)
     want = paged_attention_ref(*args)
@@ -1223,7 +1313,6 @@ def measure_paged(key, shape, dev) -> dict:
     lib_err = float((library().view(B, H, D).float() - want.float()).abs().max())
     k_ms = many_ms(kernel)
     w_ms = cuda_ms(kernel, REPS)
-    prof_ms = profiled_ms(kernel, "paged_attention")
     p_ms = many_ms(lambda: paged_attention_ref(*args))
     l_ms = many_ms(library)
     lw_ms = cuda_ms(library, REPS)
@@ -1241,7 +1330,7 @@ def measure_paged(key, shape, dev) -> dict:
     print(f"[paged] {label}: max |diff| {err:.3e} (SDPA {lib_err:.3e}); "
           f"splits {splits} x chunk {chunk}, workspace {ws} B, loads {path}; "
           f"kernel {k_ms:.4f} ms ({MANY} launches), wrapper {w_ms:.4f} ms "
-          f"(one call), profiled {fmt_ms(prof_ms)} ms; plain {p_ms:.4f} ms; SDPA "
+          f"(one call); plain {p_ms:.4f} ms; SDPA "
           f"{l_ms:.4f} ms ({MANY} launches), {lw_ms:.4f} ms (one call); "
           f"bound {bound:.4f} ms ({bound_by}, {nbytes / 1e6:.3f} MB)",
           flush=True)
@@ -1249,7 +1338,7 @@ def measure_paged(key, shape, dev) -> dict:
         name="paged_attention", route="cuda", source=PAGED_SOURCE,
         replaces=PAGED_REPLACES, launches=0, max_abs_err=err, ms=k_ms,
         plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, library_ms=l_ms,
-        wrapper_ms=w_ms, profiled_ms=prof_ms, library_wrapper_ms=lw_ms,
+        wrapper_ms=w_ms, kernel_fn=kernel, library_wrapper_ms=lw_ms,
         splits=splits, chunk=chunk, workspace_bytes=ws, path=path,
         shape=label,
     )
@@ -1288,7 +1377,8 @@ def profile_steps(cfg, params, dev, tag) -> None:
 
     step = serve_launcher.make_serve_step(cfg, serve_launcher.MAX_SEQ)
     B = serve_launcher.DECODE_BATCH
-    cache = models.make_cache(cfg, B, serve_launcher.MAX_SEQ, device=dev)
+    cache = models.make_cache(cfg, B, serve_launcher.MAX_SEQ, device=dev,
+                              enc_len=serve_launcher.ENC_LEN)
     tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
     tok, cache = step(params, tok, cache)  # warm
     torch.cuda.synchronize()
@@ -1348,7 +1438,8 @@ def count_active_experts(cfg, params, dev, steps, tag) -> None:
 
     step = serve_launcher.make_serve_step(cfg, serve_launcher.MAX_SEQ)
     B = serve_launcher.DECODE_BATCH
-    cache = models.make_cache(cfg, B, serve_launcher.MAX_SEQ, device=dev)
+    cache = models.make_cache(cfg, B, serve_launcher.MAX_SEQ, device=dev,
+                              enc_len=serve_launcher.ENC_LEN)
     tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
     moe_mod.expert_tiles = recording
     try:
@@ -1356,12 +1447,13 @@ def count_active_experts(cfg, params, dev, steps, tag) -> None:
             tok, cache = step(params, tok, cache)
     finally:
         moe_mod.expert_tiles = inner
-    if len(seen) != steps * cfg.n_layers:
+    layers = sum(cfg.uses_moe(i) for i in range(cfg.n_layers))
+    if len(seen) != steps * layers:
         raise SystemExit(f"{tag}: {len(seen)} expert tilings for {steps} "
-                         f"steps of {cfg.n_layers} layers")
-    active = torch.stack(seen).view(steps, cfg.n_layers).cpu()
+                         f"steps of {layers} MoE layers")
+    active = torch.stack(seen).view(steps, layers).cpu()
     print(f"[{tag}] active experts a layer over one decode call ({steps} "
-          f"steps x {cfg.n_layers} layers, B={B}, top-{cfg.top_k} of "
+          f"steps x {layers} MoE layers, B={B}, top-{cfg.top_k} of "
           f"{cfg.n_experts}): min {int(active.min())}, max "
           f"{int(active.max())}, mean {float(active.float().mean()):.3f}; "
           f"step 1: {active[0].tolist()}", flush=True)
@@ -1370,101 +1462,165 @@ def count_active_experts(cfg, params, dev, steps, tag) -> None:
 def compare_with_cpu(cfg, steps, tag) -> None:
     """A 2-layer cut at full width: the same seeded weights, made on the
     CPU and copied to the card, decode ``steps`` steps on both from zero
-    tokens.  Both runs are fed the CPU's greedy tokens, so a close call on
-    one step does not change the inputs of the next."""
+    tokens (``decode_cpu_vs_card``)."""
     cut = dataclasses.replace(cfg, n_layers=CPU_LAYERS)
     t0 = time.perf_counter()
     cpu_params = models.init_params(cut, torch.Generator().manual_seed(1))
-    gpu_params = to_device(cpu_params, DEVICE)
+    params = {"cpu": cpu_params, DEVICE: to_device(cpu_params, DEVICE)}
+    decode_cpu_vs_card(cut, params, steps, tag)
+    print(f"[{tag}] cpu vs card in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+
+def decode_cpu_vs_card(cut, params, steps, tag, prime=None,
+                       tol=BF16_LOGIT_TOL) -> None:
+    """``steps`` decode steps of ``cut`` from zero tokens on the CPU and on
+    the card, ``params`` by device; ``prime(params, cache, device)`` fills
+    a fresh cache first (the encoder-decoder's cross K/V).  Both runs are
+    fed the CPU's greedy tokens, so a close call on one step does not
+    change the inputs of the next.  Step 1's logits within ``tol``
+    (``BF16_LOGIT_TOL``); greedy tokens equal wherever the CPU's top-2
+    margin exceeds it."""
     B, S = serve_launcher.DECODE_BATCH, serve_launcher.MAX_SEQ
     step = models.decode_fn(cut, S)
-    caches = {d: models.make_cache(cut, B, S, device=d) for d in ("cpu", DEVICE)}
+    caches = {d: models.make_cache(cut, B, S, device=d,
+                                   enc_len=serve_launcher.ENC_LEN)
+              for d in ("cpu", DEVICE)}
+    if prime is not None:
+        for d, cache in caches.items():
+            prime(params[d], cache, d)
     tok = torch.zeros((B, 1), dtype=torch.int32)
     checked, agree, margins = 0, 0, []
     for i in range(steps):
-        lc, caches["cpu"] = step(cpu_params, tok, caches["cpu"])
-        lg, caches[DEVICE] = step(gpu_params, tok.to(DEVICE), caches[DEVICE])
+        lc, caches["cpu"] = step(params["cpu"], tok, caches["cpu"])
+        lg, caches[DEVICE] = step(params[DEVICE], tok.to(DEVICE),
+                                  caches[DEVICE])
         lc, lg = lc[:, -1].float(), lg[:, -1].float().cpu()
         if i == 0:
             err = float((lc - lg).abs().max())
             print(f"[{tag}] cpu vs card, step 1 logits ({tuple(lc.shape)}, "
                   f"|logit| <= {float(lc.abs().max()):.3f}): max |diff| "
-                  f"{err:.5f} (tolerance {BF16_LOGIT_TOL})", flush=True)
-            if not (err <= BF16_LOGIT_TOL and torch.isfinite(lg).all()):
+                  f"{err:.5f} (tolerance {tol})", flush=True)
+            if not (err <= tol and torch.isfinite(lg).all()):
                 raise SystemExit(f"{tag}: cpu and card step-1 logits differ")
-        top2 = torch.topk(lc, 2, dim=-1).values
-        margin = top2[:, 0] - top2[:, 1]
-        margins.append(float(margin.min()))
-        sure = margin > BF16_LOGIT_TOL
-        same = lc.argmax(-1) == lg.argmax(-1)
-        checked += int(sure.sum())
-        agree += int((same & sure).sum())
-        if not bool(same[sure].all()):
-            raise SystemExit(f"{tag} step {i + 1}: greedy tokens differ where "
-                             f"the cpu margin exceeds {BF16_LOGIT_TOL}")
+        n, ok, margin = sure_tokens_agree(lc, lg, f"{tag} step {i + 1}", tol)
+        checked, agree = checked + n, agree + ok
+        margins.append(margin)
         tok = lc.argmax(-1).to(torch.int32)[:, None]
-    print(f"[{tag}] cpu vs card, {steps} steps at {CPU_LAYERS} layers: "
-          f"greedy tokens agree on {agree} of {checked} checked rows (rows "
-          f"with a cpu top-2 margin > {BF16_LOGIT_TOL}; smallest margin a "
-          f"step {min(margins):.4f}); {time.perf_counter() - t0:.1f}s",
-          flush=True)
+    print(f"[{tag}] cpu vs card, {steps} steps at {cut.n_layers} layers "
+          f"({cut.dtype}): greedy tokens agree on {agree} of {checked} "
+          f"checked rows (rows with a cpu top-2 margin > {tol}; smallest "
+          f"margin a step {min(margins):.4f})", flush=True)
+
+
+def sure_tokens_agree(want, got, label, tol=BF16_LOGIT_TOL) -> tuple:
+    """Greedy tokens of two (rows, V) logits equal on every row whose
+    ``want`` top-2 margin exceeds ``tol``; exits if not.  Returns (rows
+    checked, rows equal, smallest margin)."""
+    top2 = torch.topk(want, 2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    sure = margin > tol
+    same = want.argmax(-1) == got.argmax(-1)
+    if not bool(same[sure].all()):
+        raise SystemExit(f"{label}: greedy tokens differ where the reference "
+                         f"margin exceeds {tol}")
+    return int(sure.sum()), int((same & sure).sum()), float(margin.min())
+
+
+def expected_launches(cfg, steps: int) -> dict:
+    """K4 once an attention layer a step (twice an encoder-decoder layer:
+    self and cross), K5 three times an MoE layer a step (gate, up,
+    down), from the layer kinds."""
+    attn = sum(cfg.uses_attention(i) for i in range(cfg.n_layers))
+    if cfg.family == "encdec":
+        attn *= 2
+    moe = sum(cfg.uses_moe(i) for i in range(cfg.n_layers))
+    return {"paged_attention": attn * steps,
+            "grouped_matmul": 3 * moe * steps}
 
 
 def run_serve_path(arch, tag, cpu_steps) -> dict:
-    """Phase 6 (dense) or 8 (MoE) for ``arch`` at its full config; returns
-    the serving run's kernel launches, after checking them: K4 once a
-    layer a step, and for MoE layers K5 three times (gate, up, down)."""
+    """Phase 6 (dense) or 8 (MoE) for ``arch`` at its full config
+    (``serve_on_card``), then its 2-layer cut against the CPU; returns the
+    serving run's kernel launches."""
     cfg = get_config(arch)
+    params = seeded_on_card(cfg, arch, tag)
+    launches = serve_on_card(cfg, params, arch, tag)
+    del params
+    torch.cuda.empty_cache()
+    compare_with_cpu(cfg, cpu_steps, tag)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def seeded_on_card(cfg, arch, tag) -> dict:
+    """``cfg``'s weights drawn on the card from seed 0, as the launcher
+    draws them."""
     t0 = time.perf_counter()
     params = models.init_params(
         cfg, torch.Generator(device=DEVICE).manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in iter_leaves(params))
-    print(f"[{tag}] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    full = get_config(arch).n_layers
+    depth = (f"{cfg.n_layers} of {full} layers" if cfg.n_layers != full
+             else f"{full} layers")
+    print(f"[{tag}] {arch} ({cfg.family}): {depth}, d_model {cfg.d_model}, "
           f"{cfg.n_experts} experts top-{cfg.top_k}, {n_params / 1e9:.3f} G "
           f"parameters in {cfg.dtype}, made on the card in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
+    return params
+
+
+def serve_on_card(cfg, params, arch, tag, *extra) -> dict:
+    """The launcher's engine and trace (``launch/serve.py`` with ``extra``
+    arguments) decoding ``cfg`` on the card with ``params``: each step's
+    CUDA-event time, rows a second, peak memory; K4's and K5's launches
+    must equal ``expected_launches`` and the summary the ``--no-decode``
+    run's; then a profile of a few steps and, with experts, the active
+    experts a layer.  Returns the engine run's launches."""
+    dev = torch.device(DEVICE)
+    args = serve_args(arch, *extra)
+    stats = serve_launcher.DecodeStats()
+    decode = serve_launcher.make_decode_fn(cfg, params, dev, stats,
+                                           time_steps=True)
     torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
     t0 = time.perf_counter()
-    summary, stats = serve_launcher.serve(serve_args(arch), params=params,
-                                          time_steps=True)
+    summary = serve_launcher.make_engine(args, decode).run(
+        serve_launcher.make_requests(args.requests, args.tenants, args.rate))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = all_launches()
     step_ms = sorted(stats.step_ms())
     med = step_ms[len(step_ms) // 2]
     peak = torch.cuda.max_memory_allocated()
-    print(f"[{tag}] engine run: {wall:.3f}s wall, {stats.calls} decode calls, "
-          f"{stats.steps} steps, {stats.request_tokens} request tokens, "
-          f"{stats.padded_tokens} decoded rows (B={serve_launcher.DECODE_BATCH}"
-          f" x steps); step {med:.3f} ms median ({step_ms[0]:.3f}-"
-          f"{step_ms[-1]:.3f}), {serve_launcher.DECODE_BATCH / med * 1e3:.1f} "
-          f"decoded rows/s at the median step, "
-          f"{stats.padded_tokens / wall:.1f} over the wall; peak memory "
-          f"{peak / 2**30:.3f} GiB; launches {launches}", flush=True)
-    moe_layers = cfg.n_layers if cfg.n_experts else 0
-    want = {"paged_attention": cfg.n_layers * stats.steps,
-            "grouped_matmul": 3 * moe_layers * stats.steps}
+    want = expected_launches(cfg, stats.steps)
+    B = serve_launcher.DECODE_BATCH
+    print(f"[{tag}] engine run ({args.requests} requests): {wall:.3f}s wall, "
+          f"{stats.calls} decode calls, {stats.steps} steps, "
+          f"{stats.request_tokens} request tokens, {stats.padded_tokens} "
+          f"decoded rows (B={B} x steps); step {med:.3f} ms median "
+          f"({step_ms[0]:.3f}-{step_ms[-1]:.3f}), {B / med * 1e3:.1f} decoded "
+          f"rows/s at the median step, {stats.padded_tokens / wall:.1f} over "
+          f"the wall; peak memory {peak / 2**30:.3f} GiB; launches "
+          f"{launches} ({want['paged_attention'] // max(stats.steps, 1)} K4 "
+          f"and {want['grouped_matmul'] // max(stats.steps, 1)} K5 a step)",
+          flush=True)
     got = {k: launches[k] for k in want}
     if stats.steps <= 0 or got != want:
         raise SystemExit(f"{tag}: launches {got} for {stats.steps} steps of "
                          f"{cfg.n_layers} layers; expected {want}")
-    dry, dry_stats = serve_launcher.serve(serve_args(arch, "--no-decode"))
+    dry, dry_stats = serve_launcher.serve(serve_args(arch, *extra,
+                                                     "--no-decode"))
     if dry != summary or dry_stats.calls:
         raise SystemExit(f"{tag}: the engine summary differs from the "
                          f"--no-decode run")
     print(f"[{tag}] engine summary equals the --no-decode run: "
           f"{summary['n_completed']} completed, makespan "
           f"{summary['makespan']!r}, {summary['batches']} batches", flush=True)
-    profile_steps(cfg, params, torch.device(DEVICE), tag)
+    profile_steps(cfg, params, dev, tag)
     if cfg.n_experts:
-        count_active_experts(cfg, params, torch.device(DEVICE),
-                             stats.steps // stats.calls, tag)
-    del params
-    torch.cuda.empty_cache()
-    compare_with_cpu(cfg, cpu_steps, tag)
-    torch.cuda.empty_cache()
+        count_active_experts(cfg, params, dev, stats.steps // stats.calls, tag)
     return launches
 
 
@@ -1511,14 +1667,14 @@ def measure_grouped(key, shape, dev) -> dict:
                         nbytes, 2.0 * T * d * f, label)
 
 
-def measure_grouped_decode(key, d, f, dev) -> dict:
-    """Phase 7 (e), (e'): the MoE decode's call.  tile_rows from a seeded
-    top-k routing (the same at every shape) through ``moe.expert_tiles``;
-    x random in the real rows and zero past them, so ``torch.bmm`` on the
-    dense view computes the same function.  The bound counts the active
-    experts' weights, x's real rows, tile_gid and tile_rows read once, y
-    (all T rows) written once, and 2 d f operations a real row."""
-    c = GMM_DECODE
+def measure_grouped_decode(key, c, d, f, dev) -> dict:
+    """Phase 7 (e), (e'), (j), (j'): the MoE decode's call.  tile_rows from
+    a seeded top-k routing ``c`` (the same seed at every shape) through
+    ``moe.expert_tiles``; x random in the real rows and zero past them, so
+    ``torch.bmm`` on the dense view computes the same function.  The bound
+    counts the active experts' weights, x's real rows, tile_gid and
+    tile_rows read once, y (all T rows) written once, and 2 d f operations
+    a real row."""
     E, C = c["E"], c["C"]
     T = E * C
     gen = torch.Generator(device=dev).manual_seed(75)
@@ -1908,6 +2064,190 @@ def run_drivers_phase(smi) -> dict:
         keys = ("summary", "controller", "decoded_tokens", "decode_calls",
                 "decode_steps")
         same(tag, {k: rep[k] for k in keys}, {k: cpu[k] for k in keys})
+    return total
+
+
+# ---------------------------------------------------------------- phase 11
+def zoo_config(arch):
+    """The arch's full config, jamba cut in depth (``ZOO_LAYERS``)."""
+    cfg = get_config(arch)
+    if arch in ZOO_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=ZOO_LAYERS[arch])
+    return cfg
+
+
+def zoo_cut(cfg):
+    """A 2-layer cut at full width.  The hybrid's is one period of two:
+    an attention layer with its MLP, then a Mamba mixer with its MoE (the
+    layer kinds jamba pairs); the encoder-decoder cuts both stacks."""
+    if cfg.family == "hybrid":
+        return dataclasses.replace(cfg, n_layers=CPU_LAYERS,
+                                   attn_period=CPU_LAYERS, attn_offset=0)
+    if cfg.family == "encdec":
+        return dataclasses.replace(cfg, n_layers=CPU_LAYERS,
+                                   n_enc_layers=CPU_LAYERS)
+    return dataclasses.replace(cfg, n_layers=CPU_LAYERS)
+
+
+def prefill_batch(cfg, B, S, dev, seed, n_prefix=None) -> tuple:
+    """(batch, positions a prompt) in the reference's batch keys, seeded:
+    B prompts of S tokens; the VLM adds ``n_prefix`` (by default
+    ``cfg.n_prefix``) patch embeddings before them, the encoder-decoder
+    takes S frames and S decoder tokens."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=dev, dtype=torch.int32)
+
+    def embeds(n):
+        return torch.randn(B, n, cfg.d_model, generator=gen, device=dev)
+
+    if cfg.family == "encdec":
+        return {"frames": embeds(S), "dec_tokens": toks}, 2 * S
+    if cfg.family == "vlm":
+        n_prefix = cfg.n_prefix if n_prefix is None else n_prefix
+        return {"patches": embeds(n_prefix), "tokens": toks}, n_prefix + S
+    return {"tokens": toks}, S
+
+
+def measure_prefill(cfg, params, tag) -> dict:
+    """``make_prefill_step`` at PREFILL_B prompts of PREFILL_S tokens on the
+    card: the forward's logits finite and of the expected shape, then the
+    CUDA-event median of PREFILL_REPS steps after a warm one, the prompt
+    positions a second, peak memory; returns the launches of all of it."""
+    dev = torch.device(DEVICE)
+    batch, per = prefill_batch(cfg, PREFILL_B, PREFILL_S, dev, seed=90)
+    reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    logits = models.forward_fn(cfg)(params, batch)
+    shape = tuple(logits.shape)
+    rows = PREFILL_S if cfg.family == "encdec" else per  # decoder positions
+    if shape[:2] != (PREFILL_B, rows) or not bool(
+            torch.isfinite(logits).all()):
+        raise SystemExit(f"[{tag}] prefill logits {shape} not finite or not "
+                         f"of the prompt's shape")
+    del logits
+    step = make_prefill_step(cfg)
+    tok = step(params, batch)
+    times = []
+    for _ in range(PREFILL_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tok = step(params, batch)
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    ms = sorted(s.elapsed_time(e) for s, e in times)
+    med = ms[len(ms) // 2]
+    if tok.shape != (PREFILL_B,) or tok.dtype != torch.int32 or not bool(
+            ((tok >= 0) & (tok < shape[-1])).all()):
+        raise SystemExit(f"[{tag}] prefill tokens {tok}")
+    launches = all_launches()
+    print(f"[{tag}] prefill: B={PREFILL_B} x {per} positions ({shape[1]} "
+          f"logit rows of {shape[-1]}): {med:.3f} ms median of "
+          f"{PREFILL_REPS} ({ms[0]:.3f}-{ms[-1]:.3f}), "
+          f"{PREFILL_B * per / med * 1e3:.1f} prompt positions/s; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"launches {launches} in {PREFILL_REPS + 2} passes", flush=True)
+    return launches
+
+
+def zoo_cpu_check(cfg, tag) -> None:
+    """Phase 11's card against the CPU, at ``zoo_cut(cfg)`` in float32
+    with the same seeded weights made on the CPU and copied: the prefill's
+    logits (all positions; ZOO_CPU_B prompts of ZOO_CPU_S tokens, and as
+    many patches or frames) within ``ZOO_F32_TOL`` and its greedy tokens
+    equal where the CPU's margin exceeds it; ``CPU_STEPS`` decode steps
+    (``MOE_CPU_STEPS`` with experts) under phase 6's rules at that
+    tolerance, the encoder-decoder's after ``prefill_cross_kv`` has filled
+    both caches' cross K/V; and, for the token-only families, on the card,
+    the decode over the prompt against the forward's last position under
+    the same rules."""
+    cut = dataclasses.replace(zoo_cut(cfg), dtype="float32")
+    tol = ZOO_F32_TOL
+    t0 = time.perf_counter()
+    cpu_params = models.init_params(cut, torch.Generator().manual_seed(1))
+    params = {"cpu": cpu_params, DEVICE: to_device(cpu_params, DEVICE)}
+    batch, _ = prefill_batch(cut, ZOO_CPU_B, ZOO_CPU_S, torch.device("cpu"),
+                             seed=91, n_prefix=ZOO_CPU_S)
+    fwd = models.forward_fn(cut)
+    lc = fwd(params["cpu"], batch).float()
+    lg = fwd(params[DEVICE], to_device(batch, DEVICE)).float().cpu()
+    err = float((lc - lg).abs().max())
+    print(f"[{tag}] cpu vs card at {cut.n_layers} layers ({cut.dtype}), "
+          f"prefill logits {tuple(lc.shape)} (|logit| <= "
+          f"{float(lc.abs().max()):.3f}): max |diff| {err:.5f} (tolerance "
+          f"{tol})", flush=True)
+    if not (err <= tol and torch.isfinite(lg).all()):
+        raise SystemExit(f"{tag}: cpu and card prefill logits differ")
+    n, ok, margin = sure_tokens_agree(lc[:, -1], lg[:, -1], f"{tag} prefill",
+                                      tol)
+    tc = make_prefill_step(cut)(params["cpu"], batch)
+    if not torch.equal(tc, lc[:, -1].argmax(-1).to(torch.int32)):
+        raise SystemExit(f"{tag}: make_prefill_step is not the forward's "
+                         f"argmax")
+    print(f"[{tag}] prefill tokens agree on {ok} of {n} checked rows "
+          f"(smallest margin {margin:.4f})", flush=True)
+
+    prime = None
+    if cut.family == "encdec":
+        frames = torch.randn(serve_launcher.DECODE_BATCH,
+                             serve_launcher.ENC_LEN, cut.d_model,
+                             generator=torch.Generator().manual_seed(92))
+
+        def prime(p, cache, d):
+            _, ck, cv = encdec_mod.prefill_cross_kv(cut, p, frames.to(d))
+            cache["cross_k"].copy_(ck)
+            cache["cross_v"].copy_(cv)
+
+    steps = MOE_CPU_STEPS if cut.n_experts else CPU_STEPS
+    decode_cpu_vs_card(cut, params, steps, tag, prime, tol)
+
+    if cut.family not in ("encdec", "vlm"):
+        toks = batch["tokens"].to(DEVICE)
+        cache = models.make_cache(cut, ZOO_CPU_B, ZOO_CPU_S, device=DEVICE)
+        step = models.decode_fn(cut, ZOO_CPU_S)
+        for t in range(ZOO_CPU_S):
+            ld, cache = step(params[DEVICE], toks[:, t:t + 1], cache)
+        ld = ld[:, 0].float().cpu()
+        tail = float((ld - lg[:, -1]).abs().max())
+        print(f"[{tag}] card decode over the {ZOO_CPU_S}-token prompt vs the "
+              f"card forward's last position: max |diff| {tail:.5f}",
+              flush=True)
+        if tail > tol:
+            raise SystemExit(f"{tag}: the decode tail differs from the "
+                             f"forward's last position")
+        sure_tokens_agree(lg[:, -1], ld, f"{tag} decode tail", tol)
+    print(f"[{tag}] cpu vs card in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+
+def run_zoo_model(arch) -> dict:
+    """Phase 11 for one arch; returns the launches of its engine run and
+    its prefill passes."""
+    cfg = zoo_config(arch)
+    tag = f"zoo {arch}"
+    params = seeded_on_card(cfg, arch, tag)
+    launches = serve_on_card(cfg, params, arch, tag, "--requests",
+                             str(ZOO_REQUESTS))
+    prefill = measure_prefill(cfg, params, tag)
+    del params
+    torch.cuda.empty_cache()
+    zoo_cpu_check(cfg, tag)
+    torch.cuda.empty_cache()
+    return {k: launches[k] + prefill[k] for k in launches}
+
+
+def run_zoo_phase(smi) -> dict:
+    """Phase 11: every family this slice ports, served and prefilled on the
+    card and held to the CPU; returns the launches of its runs."""
+    total: dict = {}
+    for arch in ZOO_ARCHS:
+        t0 = time.perf_counter()
+        for k, v in run_zoo_model(arch).items():
+            total[k] = total.get(k, 0) + v
+        print(f"[zoo] {arch} in {time.perf_counter() - t0:.1f}s ({smi})",
+              flush=True)
     return total
 
 

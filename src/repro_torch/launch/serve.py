@@ -10,13 +10,21 @@ tokens, into a fresh ``MAX_SEQ``-slot cache.  Weights come from
 defaults to ``cuda`` and raises without a card; ``--device cpu`` runs the
 plain PyTorch versions of the kernels.
 
-The dense (``codeqwen1.5-7b``) and MoE (``moonshot-v1-16b-a3b``,
-``mixtral-8x22b``) families decode; the others raise.
+Every arch of the registry decodes: dense (``codeqwen1.5-7b``,
+``mistral-large-123b``, ``qwen1.5-110b``, ``nemotron-4-340b``), MoE
+(``moonshot-v1-16b-a3b``, ``mixtral-8x22b``), SSM (``falcon-mamba-7b``),
+the Jamba hybrid (``jamba-v0.1-52b``), the encoder-decoder
+(``seamless-m4t-large-v2``, its cross K/V ``ENC_LEN`` slots of zeros, as
+the reference's launcher leaves them) and the VLM (``paligemma-3b``, whose
+decode takes no image prefix).
 
     python -m repro_torch.launch.serve --arch codeqwen1.5-7b --device cpu
     python -m repro_torch.launch.serve --arch codeqwen1.5-7b --full-config
     python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --device cpu
-    python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --full-config
+    python -m repro_torch.launch.serve --arch falcon-mamba-7b --device cpu
+    python -m repro_torch.launch.serve --arch jamba-v0.1-52b --device cpu
+    python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --device cpu
+    python -m repro_torch.launch.serve --arch paligemma-3b --device cpu
 """
 from __future__ import annotations
 
@@ -34,11 +42,13 @@ from ..models import registry as R
 from ..serving import AdapterSpec, LifeRaftEngine, Request, ServeConfig
 from ..training.train_step import make_serve_step
 
-__all__ = ["DECODE_BATCH", "MAX_SEQ", "DecodeStats", "build_parser",
-           "make_requests", "make_decode_fn", "make_engine", "serve", "main"]
+__all__ = ["DECODE_BATCH", "MAX_SEQ", "ENC_LEN", "DecodeStats",
+           "build_parser", "make_requests", "make_decode_fn", "make_engine",
+           "serve", "main"]
 
 DECODE_BATCH = 8  # sequences decoded per call (B)
 MAX_SEQ = 64  # cache slots per sequence
+ENC_LEN = 16  # the encoder-decoder's cross K/V slots (the reference's)
 
 
 @dataclasses.dataclass
@@ -99,7 +109,8 @@ def make_decode_fn(cfg, params: dict, device: torch.device,
     step = make_serve_step(cfg, MAX_SEQ)
 
     def decode_fn(adapter_id, batch, quantum):
-        cache = R.make_cache(cfg, DECODE_BATCH, MAX_SEQ, device=device)
+        cache = R.make_cache(cfg, DECODE_BATCH, MAX_SEQ, device=device,
+                             enc_len=ENC_LEN)
         tok = torch.zeros((DECODE_BATCH, 1), dtype=torch.int32, device=device)
         for _ in range(quantum):
             if time_steps:

@@ -1,22 +1,27 @@
-"""Attention, the decode half: GQA/MQA/MHA with a sliding-window ring cache.
+"""Attention: GQA/MQA/MHA, sliding-window, prefix-LM, cross-attn, KV cache.
 
-The port of ``repro.models.attention``'s single-token decode path.  The
-cache is pre-allocated (B, S_alloc, KV, D) and updated IN PLACE at slot
-``pos`` (``pos % window`` for the ring buffer of sliding-window
-attention): where the reference returns new cache arrays, the port writes
-into the ones it was given and returns them.  The attention core is the
-paged decode-attention kernel (K4) over a page view of that cache, which
-copies nothing; its page table and lengths come from tables made once per
-(batch, cache layout, device), so a step launches nothing for them.
-``attn_full`` and cross-attention are not on the decode
-path and are not ported yet.
+The port of ``repro.models.attention``.  Full-sequence (train/prefill)
+attention, ``attn_full`` and ``cross_attn_full``, stays plain PyTorch as the
+reference's is plain ``jnp``: einsums, with the scores and the softmax in
+f32 and the products in the activation dtype.
+
+Decode: the cache is pre-allocated (B, S_alloc, KV, D) and updated IN
+PLACE at slot ``pos`` (``pos % window`` for the ring buffer of
+sliding-window attention): where the reference returns new cache arrays,
+the port writes into the ones it was given and returns them.  The
+attention core of ``attn_decode`` and ``cross_attn_decode`` is the paged
+decode-attention kernel (K4) over a page view of the cache (or of the
+static cross K/V), which copies nothing; its page table and lengths come
+from tables made once per (batch, slots, device), so a step launches
+nothing for them.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..kernels.paged_attention import ops
@@ -26,13 +31,19 @@ __all__ = [
     "DECODE_PAGE",
     "DecodeCacheLayout",
     "init_attention",
+    "attn_full",
     "cache_layout",
     "attn_decode",
+    "init_cross_attention",
+    "cross_attn_full",
+    "precompute_cross_kv",
+    "cross_attn_decode",
 ]
 
 # Largest page K4 sees on the decode path: the page is gcd(S_alloc,
 # DECODE_PAGE), so it always divides the allocated slots.
 DECODE_PAGE = 16
+_NEG_INF = -1e30
 
 
 def init_attention(cfg, f: ParamFactory, layers: int | None = None) -> dict:
@@ -62,6 +73,61 @@ def _qkv(cfg, p, x):
         k = k + p["bk"]
         v = v + p["bv"]
     return q, k, v
+
+
+def _scale(head_dim: int) -> float:
+    """1 / sqrt(head_dim) in float32 arithmetic, as the reference's
+    ``1.0 / jnp.sqrt(head_dim).astype(jnp.float32)``."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(head_dim)))
+
+
+def _gqa_scores(q, k, scale):
+    """q (B,S,H,D), k (B,T,KV,D) -> scores (B,KV,G,S,T) in f32."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, D)
+    s = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
+    return s * scale
+
+
+def _attend(probs, v):
+    """probs (B,KV,G,S,T) f32, v (B,T,KV,D) -> (B,S,H,D)."""
+    B, KV, G, S, T = probs.shape
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+    return out.reshape(B, S, KV * G, -1)
+
+
+def attn_full(
+    cfg,
+    p: dict,
+    x: torch.Tensor,  # (B, S, d)
+    positions: torch.Tensor,  # (S,) int
+    causal: bool = True,
+    window: Optional[int] = None,
+    prefix_len: int = 0,
+) -> torch.Tensor:
+    """Full self-attention. ``prefix_len`` > 0 gives a bidirectional prefix
+    (prefix-LM, used by the VLM's image tokens)."""
+    S = x.shape[1]
+    q, k, v = _qkv(cfg, p, x)
+    cos, sin = make_rope(positions, cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    scores = _gqa_scores(q, k, _scale(cfg.head_dim))
+
+    ii = positions[:, None]  # (S, 1) query pos
+    jj = positions[None, :]  # (1, S) key pos
+    mask = torch.ones((S, S), dtype=torch.bool, device=x.device)
+    if causal:
+        mask &= jj <= ii
+        if prefix_len > 0:  # bidirectional over the prefix block
+            mask |= (ii < prefix_len) & (jj < prefix_len)
+    if window is not None:
+        mask &= ii - jj < window
+    scores = torch.where(mask, scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = _attend(probs, v)
+    return torch.einsum("bshd,hdm->bsm", out, p["wo"])
 
 
 class DecodeCacheLayout(NamedTuple):
@@ -135,3 +201,52 @@ def attn_decode(
     out = ops.paged_attention(q[:, 0], k_pages, v_pages, page_table, seq_lens)
     out = torch.einsum("bshd,hdm->bsm", out[:, None], p["wo"])
     return out, k_cache, v_cache
+
+
+# ---------------------------------------------------------------- cross-attention
+def init_cross_attention(cfg, f: ParamFactory, layers: int | None = None) -> dict:
+    return init_attention(cfg, f, layers)
+
+
+def _cross_kv(cfg, p, memory):
+    k = torch.einsum("btd,dhk->bthk", memory, p["wk"])
+    v = torch.einsum("btd,dhk->bthk", memory, p["wv"])
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return k, v
+
+
+def cross_attn_full(cfg, p: dict, x: torch.Tensor,
+                    memory: torch.Tensor) -> torch.Tensor:
+    """Decoder attends to encoder ``memory`` (B, T, d). No RoPE, no mask."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    k, v = _cross_kv(cfg, p, memory)
+    probs = torch.softmax(_gqa_scores(q, k, _scale(cfg.head_dim)), dim=-1)
+    out = _attend(probs, v)
+    return torch.einsum("bshd,hdm->bsm", out, p["wo"])
+
+
+def precompute_cross_kv(cfg, p: dict, memory: torch.Tensor):
+    """Cross-attention K/V are static per sequence -- computed once at
+    prefill; contiguous (B, T, KV, D), so K4 takes a page view of them."""
+    k, v = _cross_kv(cfg, p, memory)
+    return k.contiguous(), v.contiguous()
+
+
+def cross_attn_decode(cfg, p: dict, x: torch.Tensor, ck: torch.Tensor,
+                      cv: torch.Tensor) -> torch.Tensor:
+    """One decoder token against the static cross K/V (B, enc_len, KV, D),
+    contiguous: K4 over their page view, pages of gcd(enc_len,
+    DECODE_PAGE) slots, every sequence ``enc_len`` long."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    B, T, KV, D = ck.shape
+    page = math.gcd(T, DECODE_PAGE)
+    table, lens = _cached_tables(B, T, page, torch.device(x.device))
+    out = ops.paged_attention(q[:, 0], ck.view(B * T // page, page, KV, D),
+                              cv.view(B * T // page, page, KV, D), table,
+                              lens[T - 1])
+    return torch.einsum("bshd,hdm->bsm", out[:, None], p["wo"])

@@ -1,10 +1,18 @@
-"""Model API for the port: init / decode / cache.
+"""Unified model API over all families: init / forward / decode / cache.
 
-The port of ``repro.models.registry`` for what the serving decode path
-calls: ``init_params``, ``decode_fn`` and ``make_cache``.  The dense and
-MoE families are ported; every other family raises
-``NotImplementedError`` naming its roadmap item
-(``transformer.require_ported``).
+The port of ``repro.models.registry`` for every family (dense, MoE, SSM,
+hybrid, encoder-decoder, VLM):
+
+  init_params(cfg, generator | device)         -> params (nested dicts)
+  forward_fn(cfg)(params, batch)               -> logits  [prefill]
+  decode_fn(cfg, max_seq)(params, token, cache) -> (logits, cache) [decode]
+  make_cache(cfg, batch, max_seq, device, enc_len) -> cache
+
+``forward_fn``'s batch has the reference's keys: ``tokens``; ``patches``
+and ``tokens`` for the VLM; ``frames`` and ``dec_tokens`` for the
+encoder-decoder.  Not ported yet: ``loss_fn`` (the training substrate,
+ROADMAP.md §1 item 8), and ``param_axes``, ``input_specs``, ``batch_axes``
+and ``cache_axes`` (the mesh tools, item 9).
 """
 from __future__ import annotations
 
@@ -14,10 +22,12 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from . import encdec as _encdec
+from . import hybrid as _hybrid
 from . import transformer as _lm
 from .common import ParamFactory
 
-__all__ = ["init_params", "decode_fn", "make_cache"]
+__all__ = ["init_params", "forward_fn", "decode_fn", "make_cache"]
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -25,25 +35,72 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """Parameters drawn from ``generator`` on its device; with none, from a
     generator seeded 0 on ``device`` (``cuda`` by default; ``meta`` gives
     shapes only)."""
-    _lm.require_ported(cfg)
     if generator is None:
         dev = resolve_device(device)
         if dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(0)
-    return _lm.init_lm(cfg, ParamFactory(generator, cfg.activation_dtype))
+    f = ParamFactory(generator, cfg.activation_dtype)
+    if cfg.family == "encdec":
+        return _encdec.init_encdec(cfg, f)
+    if cfg.family == "hybrid":
+        return _hybrid.init_hybrid(cfg, f)
+    return _lm.init_lm(cfg, f)
+
+
+def forward_fn(cfg: ModelConfig):
+    """(params, batch) -> logits over the padded vocab (B, S, V)."""
+    if cfg.family == "encdec":
+
+        def fwd(params, batch):
+            return _encdec.encdec_forward(cfg, params, batch["frames"],
+                                          batch["dec_tokens"])
+
+        return fwd
+    if cfg.family == "hybrid":
+
+        def fwd(params, batch):
+            return _hybrid.hybrid_forward(cfg, params, batch["tokens"])[0]
+
+        return fwd
+    if cfg.family == "vlm":
+
+        def fwd(params, batch):
+            return _lm.lm_forward(cfg, params, batch["tokens"],
+                                  prefix_embeds=batch["patches"])[0]
+
+        return fwd
+
+    def fwd(params, batch):
+        return _lm.lm_forward(cfg, params, batch["tokens"])[0]
+
+    return fwd
 
 
 def decode_fn(cfg: ModelConfig, max_seq: int):
-    _lm.require_ported(cfg)
+    if cfg.family == "encdec":
+        step_fn = _encdec.encdec_decode_step
+    elif cfg.family == "hybrid":
+        step_fn = _hybrid.hybrid_decode_step
+    else:
+        step_fn = _lm.lm_decode_step
 
     def step(params, token, cache):
-        return _lm.lm_decode_step(cfg, params, token, cache, max_seq)
+        return step_fn(cfg, params, token, cache, max_seq)
 
     return step
 
 
-def make_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> dict:
-    """Zero decode cache on ``device`` (``cuda`` by default)."""
-    _lm.require_ported(cfg)
+def make_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
+               enc_len: Optional[int] = None) -> dict:
+    """Zero decode cache on ``device`` (``cuda`` by default).  The
+    encoder-decoder's cross K/V hold ``enc_len`` slots, which it must be
+    given; the other families ignore it."""
     f = ParamFactory(None, cfg.activation_dtype, resolve_device(device))
+    if cfg.family == "encdec":
+        if enc_len is None:
+            raise ValueError(f"{cfg.name}: the encoder-decoder cache needs "
+                             f"enc_len, the encoder's length")
+        return _encdec.make_encdec_cache(cfg, f, batch, max_seq, enc_len)
+    if cfg.family == "hybrid":
+        return _hybrid.make_hybrid_cache(cfg, f, batch, max_seq)
     return _lm.make_decode_cache(cfg, f, batch, max_seq)

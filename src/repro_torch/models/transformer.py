@@ -1,46 +1,36 @@
-"""Decoder-only LM backbone, the dense and MoE decode paths.
+"""Decoder-only LM backbone: dense / MoE / VLM-prefix / SSM families.
 
-The port of ``repro.models.transformer``'s ``init_lm``,
-``make_decode_cache`` and ``lm_decode_step`` for the dense and MoE
-families.  The reference's ``lax.scan`` over the stacked (L, ...) layer
-parameters becomes a Python loop over the layer index.  The SSM, hybrid,
-encoder-decoder and VLM variants and the full-sequence (train/prefill)
-forward are not ported yet.
+The port of ``repro.models.transformer``'s ``init_lm``, ``lm_forward``,
+``make_decode_cache`` and ``lm_decode_step``.  The reference's
+``lax.scan`` over the stacked (L, ...) layer parameters becomes a Python
+loop over the layer index; the decode cache is written in place.  The
+losses belong to the training substrate, which is not ported yet.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from .attention import attn_decode, cache_layout, init_attention
+from .attention import attn_decode, attn_full, cache_layout, init_attention
 from .common import ParamFactory, pad_vocab, rms_norm
 from .mlp import init_mlp, mlp_apply
 from .moe import init_moe, moe_apply_with_aux
+from .ssm import init_mamba, mamba_decode, mamba_full, mamba_state_shapes
 
-__all__ = ["init_lm", "make_decode_cache", "lm_decode_step", "require_ported"]
-
-PORTED_FAMILIES = ("dense", "moe")
-
-
-def require_ported(cfg) -> None:
-    """Raise for a family whose decode is not ported yet (ROADMAP.md §1,
-    item 2: SSM, hybrid, encoder-decoder and VLM decode).  A hybrid config
-    with experts (jamba) is hybrid, not MoE."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; see "
-            f"ROADMAP.md §1, item 2"
-        )
+__all__ = ["init_lm", "lm_forward", "make_decode_cache", "lm_decode_step"]
 
 
 # ------------------------------------------------------------------ init
 def _init_layer_stack(cfg, f: ParamFactory) -> dict:
     L = cfg.n_layers
     d = cfg.d_model
-    p = {
-        "ln1": f.const(1.0, (L, d), ("layers", "embed")),
-        "attn": init_attention(cfg, f, layers=L),
-        "ln2": f.const(1.0, (L, d), ("layers", "embed")),
-    }
+    p = {"ln1": f.const(1.0, (L, d), ("layers", "embed"))}
+    if cfg.family == "ssm":
+        p["mixer"] = init_mamba(cfg, f, layers=L)
+        return p
+    p["attn"] = init_attention(cfg, f, layers=L)
+    p["ln2"] = f.const(1.0, (L, d), ("layers", "embed"))
     if cfg.n_experts and cfg.moe_every == 1:
         p["moe"] = init_moe(cfg, f, layers=L)
     else:
@@ -49,7 +39,6 @@ def _init_layer_stack(cfg, f: ParamFactory) -> dict:
 
 
 def init_lm(cfg, f: ParamFactory) -> dict:
-    require_ported(cfg)
     V = pad_vocab(cfg.vocab_size)
     d = cfg.d_model
     params = {
@@ -59,6 +48,9 @@ def init_lm(cfg, f: ParamFactory) -> dict:
     }
     if not cfg.tie_embeddings:
         params["unembed"] = f.param((V, d), ("vocab", "embed"), scale=0.02)
+    if cfg.family == "vlm":
+        # Stub frontend adapter: precomputed patch embeddings -> d_model.
+        params["vision_proj"] = f.param((d, d), ("embed", None))
     return params
 
 
@@ -68,13 +60,85 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
+def _unembed(cfg, params, x):
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return torch.einsum("bsd,vd->bsv", x, table)
+
+
+# ------------------------------------------------------------------ blocks
+def _block_full(cfg, lp: dict, x, positions, prefix_len: int):
+    """One layer, full-sequence. Returns (x, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if cfg.family == "ssm":
+        return x + mamba_full(cfg, lp["mixer"], h), aux
+    a = attn_full(cfg, lp["attn"], h, positions, causal=True,
+                  window=cfg.sliding_window, prefix_len=prefix_len)
+    x = x + a
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if "moe" in lp:
+        m, aux = moe_apply_with_aux(cfg, lp["moe"], h)
+    else:
+        m = mlp_apply(cfg, lp["mlp"], h)
+    return x + m, aux
+
+
+# ------------------------------------------------------------------ forward
+def _embed_inputs(cfg, params, tokens, prefix_embeds):
+    x = params["embed"][tokens.long()].to(cfg.activation_dtype)
+    if cfg.family == "vlm":
+        if prefix_embeds is None:
+            raise ValueError(f"{cfg.name}: the VLM needs prefix_embeds")
+        pe = torch.einsum("bpd,de->bpe",
+                          prefix_embeds.to(cfg.activation_dtype),
+                          params["vision_proj"])
+        x = torch.cat([pe, x], dim=1)
+    return x
+
+
+def lm_forward(
+    cfg,
+    params: dict,
+    tokens: torch.Tensor,  # (B, S_text)
+    prefix_embeds: Optional[torch.Tensor] = None,  # (B, P, d) for VLM
+    return_hidden: bool = False,
+):
+    """(logits over the padded vocab (B, S_total, V), aux loss); with
+    ``return_hidden``, the final-normed hidden state in place of the
+    logits."""
+    x = _embed_inputs(cfg, params, tokens, prefix_embeds)
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    prefix_len = prefix_embeds.shape[1] if prefix_embeds is not None else 0
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, a = _block_full(cfg, _layer(params["layers"], i), x, positions,
+                           prefix_len)
+        aux = aux + a
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if return_hidden:
+        return x, aux
+    return _unembed(cfg, params, x), aux
+
+
 # ------------------------------------------------------------------ decode
 def make_decode_cache(cfg, f: ParamFactory, batch: int, max_seq: int) -> dict:
-    """Pre-allocated decode cache: zero K/V (L, B, S_alloc, KV, D) in the
-    factory's dtype on its device, and ``pos`` as a Python int."""
-    require_ported(cfg)
+    """Pre-allocated decode cache on the factory's device, ``pos`` a Python
+    int: zero K/V (L, B, S_alloc, KV, D) in the factory's dtype, or for the
+    SSM family the conv tails (L, B, conv-1, d_inner) and the f32 states
+    (L, B, d_inner, N)."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        cs, hs = mamba_state_shapes(cfg, batch)
+        return {
+            "conv": f.param((L, *cs), ("layers", "batch", "conv", "inner"),
+                            zero=True),
+            "h": f.param((L, *hs), ("layers", "batch", "inner", "state"),
+                         zero=True, dtype=torch.float32),
+            "pos": 0,
+        }
     layout = cache_layout(cfg, max_seq)
-    kv = (cfg.n_layers, batch, layout.seq, cfg.n_kv_heads, cfg.head_dim)
+    kv = (L, batch, layout.seq, cfg.n_kv_heads, cfg.head_dim)
     lax_ = ("layers", "batch", "cache_seq", "cache_kv_heads", "head_dim")
     return {
         "k": f.param(kv, lax_, zero=True),
@@ -87,25 +151,30 @@ def lm_decode_step(cfg, params: dict, token: torch.Tensor, cache: dict,
                    max_seq: int):
     """One decode step. token: (B, 1) int. Returns (logits (B,1,V), cache).
 
-    The returned cache holds the same K/V tensors, written in place, and
+    The returned cache holds the same state tensors, written in place, and
     ``pos + 1``."""
-    require_ported(cfg)
     x = params["embed"][token.long()].to(cfg.activation_dtype)
     pos = int(cache["pos"])
-    layout = cache_layout(cfg, max_seq)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        a, _, _ = attn_decode(cfg, lp["attn"], hn, cache["k"][i],
-                              cache["v"][i], pos, layout)
-        x = x + a
-        hn = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        if "moe" in lp:
-            m, _ = moe_apply_with_aux(cfg, lp["moe"], hn)
-        else:
-            m = mlp_apply(cfg, lp["mlp"], hn)
-        x = x + m
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            out, _, _ = mamba_decode(cfg, lp["mixer"], hn, cache["conv"][i],
+                                     cache["h"][i])
+            x = x + out
+    else:
+        layout = cache_layout(cfg, max_seq)
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            a, _, _ = attn_decode(cfg, lp["attn"], hn, cache["k"][i],
+                                  cache["v"][i], pos, layout)
+            x = x + a
+            hn = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            if "moe" in lp:
+                m, _ = moe_apply_with_aux(cfg, lp["moe"], hn)
+            else:
+                m = mlp_apply(cfg, lp["mlp"], hn)
+            x = x + m
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    logits = torch.einsum("bsd,vd->bsv", x, table)
-    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    return _unembed(cfg, params, x), dict(cache, pos=pos + 1)

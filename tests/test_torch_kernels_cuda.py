@@ -31,7 +31,11 @@ at d > 512 both the kernel and the plain version are held to the float64
 product within the f32 dot-product bound sqrt(d) * 2**-24 * sum|x||w|
 (Higham's probabilistic bound), elementwise; a wrong group or tile would be
 off by O(1).  The MoE decode at smoke size on the card is held to the same
-decode on the CPU.
+decode on the CPU, and so is the decode of each family the model zoo adds
+(SSM, hybrid, encoder-decoder, VLM); K4 and K5 are held at those
+families' full-width decode shapes too (K4 at D = 256 with eight query
+heads on one KV head and at D = 64; K5 at jamba's 16 experts of d = 4096,
+f = 14336, against the plain version on the card).
 
 The tests here are marked ``cuda``: they run the CUDA kernels on a card
 against the plain versions on the CPU, and skip without one.  They import
@@ -657,6 +661,35 @@ def test_k4_scalar_instance(card, dtype):
 
 
 # ------------------------------------------------------------------ K5
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape,full", [
+    ((8, 8, 1, 256, 16, 4, 16), False),  # paligemma: MQA, G = 8, D = 256
+    ((8, 16, 16, 64, 16, 4, 16), False),  # seamless's self-attention, D = 64
+    ((8, 16, 16, 64, 16, 1, 16), True),  # its cross-attention: 16 slots, full
+], ids=["paligemma", "seamless_self", "seamless_cross"])
+def test_k4_zoo_decode_shapes_match_plain(card, shape, full, dtype):
+    """K4 at the decode shapes of the families the zoo adds: the instances
+    of a 32-vector row with eight query heads on one KV head (bf16 D = 256)
+    and of an 8-vector row (bf16 D = 64)."""
+    B, H, KV, D, page, pages, max_len = shape
+    args = _paged_case(np.random.default_rng(D + H), B, H, KV, D, page,
+                       pages, max_len, dtype)
+    if full:
+        args[4].fill_(max_len)
+    want = pops.paged_attention(*args)
+    on_card = [x.to(card) for x in args]
+    assert pkernel.kernel_path(*on_card[:3]) == "async"
+    before = pkernel.LAUNCHES["paged_attention"]
+    got = pops.paged_attention(*on_card)
+    torch.cuda.synchronize()
+    assert pkernel.LAUNCHES["paged_attention"] == before + 1
+    tol = PAGED_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), rtol=tol, atol=tol)
+
+
 GMM_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-5}
 
 
@@ -826,3 +859,79 @@ def test_moe_decode_on_card_matches_cpu(card, arch):
         assert torch.equal(lg[:, -1].argmax(-1).cpu(), tok[:, 0].long())
     assert gkernel.LAUNCHES["grouped_matmul"] - g0 == 4 * 3 * cfg.n_layers
     assert pkernel.LAUNCHES["paged_attention"] - p0 == 4 * cfg.n_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f", [(4096, 14336), (14336, 4096)],
+                         ids=["gate_up", "down"])
+def test_k5_jamba_decode_call_matches_plain(card, d, f):
+    """K5 at jamba's decode call: 8 tokens routed top-2 over 16 experts of
+    C = 256 rows (``moe.expert_tiles``), d = 4096 and f = 14336, bf16 at
+    the init scale; x is noise past each tile's real rows.  Held to the
+    plain version on the card (the CPU's would take minutes at this
+    size)."""
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_tiles_ref
+    from repro_torch.models import moe as tmoe
+
+    E, C, bt = 16, 256, tmoe.EXPERT_BT
+    gen = torch.Generator(device=card).manual_seed(5)
+    top = torch.rand(8, E, device=card, generator=gen).argsort(dim=1)[:, :2]
+    gid, rows = tmoe.expert_tiles(top, E, C, bt)
+    x = torch.randn(E * C, d, device=card, generator=gen).to(torch.bfloat16)
+    w = (torch.randn(E, d, f, device=card, generator=gen)
+         * d ** -0.5).to(torch.bfloat16)
+    assert gkernel.kernel_path(x, w) == "tma"
+    before = gkernel.LAUNCHES["grouped_matmul"]
+    got = gkernel.grouped_matmul_kernel(x, gid, w, bt, rows)
+    torch.cuda.synchronize()
+    assert gkernel.LAUNCHES["grouped_matmul"] == before + 1
+    want = grouped_matmul_tiles_ref(x, gid, w, bt, rows)
+    tol = GMM_TOL[torch.bfloat16]
+    assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    past = (torch.arange(bt, device=card)[None, :] >= rows[:, None]).reshape(-1)
+    assert bool((got[past] == 0).all()) and int(rows.sum()) == 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-v0.1-52b",
+                                  "seamless-m4t-large-v2", "paligemma-3b"])
+def test_zoo_decode_on_card_matches_cpu(card, arch):
+    """Four greedy decode steps of each family the zoo adds (its smoke
+    config, f32; the encoder-decoder after ``prefill_cross_kv`` filled the
+    cross K/V) from the same weights: logits within 1e-4 and the same
+    tokens on the card as on the CPU; K4 once an attention layer (twice an
+    encoder-decoder layer) a step, K5 three times an MoE layer a step."""
+    from repro_torch.models import encdec as tencdec
+
+    cfg = smoke_config(arch)
+    params = tmodels.init_params(cfg, torch.Generator().manual_seed(0))
+    on_card = _tree_to(params, card)
+    step = tmodels.decode_fn(cfg, 32)
+    caches = {CPU: tmodels.make_cache(cfg, 8, 32, device=CPU, enc_len=12),
+              "cuda": tmodels.make_cache(cfg, 8, 32, device=card, enc_len=12)}
+    if cfg.family == "encdec":
+        frames = torch.randn(8, 12, cfg.d_model,
+                             generator=torch.Generator().manual_seed(1))
+        for key, p, dev in ((CPU, params, CPU), ("cuda", on_card, card)):
+            _, ck, cv = tencdec.prefill_cross_kv(cfg, p, frames.to(dev))
+            caches[key]["cross_k"].copy_(ck)
+            caches[key]["cross_v"].copy_(cv)
+    attn = sum(cfg.uses_attention(i) for i in range(cfg.n_layers))
+    attn *= 2 if cfg.family == "encdec" else 1
+    moe = sum(cfg.uses_moe(i) for i in range(cfg.n_layers))
+    tok = torch.zeros((8, 1), dtype=torch.int32)
+    g0, p0 = gkernel.LAUNCHES["grouped_matmul"], pkernel.LAUNCHES["paged_attention"]
+    for _ in range(4):
+        lc, caches[CPU] = step(params, tok, caches[CPU])
+        lg, caches["cuda"] = step(on_card, tok.to(card), caches["cuda"])
+        np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+        tok = lc[:, -1].argmax(-1).to(torch.int32)[:, None]
+        assert torch.equal(lg[:, -1].argmax(-1).cpu(), tok[:, 0].long())
+    assert gkernel.LAUNCHES["grouped_matmul"] - g0 == 4 * 3 * moe
+    assert pkernel.LAUNCHES["paged_attention"] - p0 == 4 * attn
+    for k in caches[CPU]:
+        if k != "pos":
+            np.testing.assert_allclose(caches["cuda"][k].cpu().numpy(),
+                                       caches[CPU][k].numpy(), rtol=1e-4,
+                                       atol=1e-4)

@@ -34,6 +34,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import replay  # noqa: E402
+from repro.configs import ARCHS as JR_ARCHS  # noqa: E402
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.configs import smoke_config as j_smoke  # noqa: E402
 from repro.launch import serve as j_serve  # noqa: E402
@@ -264,28 +265,43 @@ def test_param_scale_rule_and_chunked_draws(monkeypatch):
         TFactory(None, torch.float32, "cpu").param((2, 2), ("a", "b"))
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-v0.1-52b",
-                                  "seamless-m4t-large-v2", "paligemma-3b"])
-def test_other_families_name_their_roadmap_item(arch):
-    """The dense and MoE families decode (the MoE one is held in
-    ``test_torch_moe.py``); every other family raises."""
-    cfg = t_smoke(arch)
-    for call in (lambda: TR.init_params(cfg, device="cpu"),
-                 lambda: TR.decode_fn(cfg, 16),
-                 lambda: TR.make_cache(cfg, 2, 16, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+def _shapes(tree):
+    return {k: _shapes(v) if isinstance(v, dict)
+            else (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+            for k, v in tree.items() if k != "pos"}
 
 
-def test_hybrid_with_experts_is_not_taken_for_moe():
-    """jamba has experts on every other layer but is the hybrid family:
-    admitting MoE does not admit it."""
-    cfg = t_smoke("jamba-v0.1-52b")
-    assert cfg.n_experts and cfg.family == "hybrid"
-    with pytest.raises(NotImplementedError, match="hybrid family"):
-        TR.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="hybrid family"):
-        t_serve.main(["--arch", cfg.name, "--requests", "2", "--device", "cpu"])
+@pytest.mark.parametrize("arch", sorted(JR_ARCHS))
+def test_every_family_builds_like_the_reference(arch):
+    """Each arch at its full config, shapes only: the port's meta init
+    gives the reference's abstract parameter tree (keys, shapes, dtypes),
+    and its decode cache the reference's cache shapes and dtypes, ``pos``
+    a Python 0 (the encoder-decoder's cross K/V at the launcher's
+    ``enc_len``)."""
+    jcfg, tcfg = j_get_config(arch), t_get_config(arch)
+    jshapes = jax.tree_util.tree_map(
+        lambda a: (tuple(a.shape), str(a.dtype)),
+        JR.init_params(jcfg, mode="abstract"))
+    assert _shapes(TR.init_params(tcfg, device="meta")) == jshapes
+    B, S, T = t_serve.DECODE_BATCH, t_serve.MAX_SEQ, t_serve.ENC_LEN
+    jcache = JR.make_cache(jcfg, B, S, mode="abstract", enc_len=T)
+    tcache = TR.make_cache(tcfg, B, S, device="meta", enc_len=T)
+    assert tcache["pos"] == 0 and set(tcache) == set(jcache)
+    assert _shapes(tcache) == {
+        k: (tuple(a.shape), str(a.dtype)) for k, a in jcache.items()
+        if k != "pos"}
+
+
+def test_make_cache_needs_enc_len_for_encdec():
+    """The encoder-decoder's cross K/V length is the caller's to give: no
+    silent default (the reference falls back to ``max_seq``)."""
+    cfg = t_smoke("seamless-m4t-large-v2")
+    with pytest.raises(ValueError, match="enc_len"):
+        TR.make_cache(cfg, 2, 16, device="cpu")
+    cache = TR.make_cache(cfg, 2, 16, device="cpu", enc_len=8)
+    assert cache["cross_k"].shape[2] == 8 and cache["k"].shape[2] == 16
+    dense = TR.make_cache(t_smoke(ARCH), 2, 16, device="cpu", enc_len=8)
+    assert set(dense) == {"k", "v", "pos"}  # the others ignore it
 
 
 # ------------------------------------------------------------------ engine
