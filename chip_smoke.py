@@ -3,9 +3,9 @@
 cross-match (K1-K3), the LifeRaft serving decode of CodeQwen1.5-7B (K4) and
 of the MoE moonshot-v1-16b-a3b (K4 and the grouped matmul K5), the
 durable service daemon over both (a kill -9 drill on the cross-match),
-the paper's drivers and gates, and the rest of the model zoo (the SSM,
+the paper's drivers and gates, the rest of the model zoo (the SSM,
 the Jamba hybrid, the encoder-decoder and the VLM), served and
-prefilled.
+prefilled, and the MoE train step with K5's backward.
 
     python3 chip_smoke.py
 
@@ -205,6 +205,34 @@ Phases; any failure exits non-zero before the last line is printed:
               the cross K/V; for the token-only families the card's decode
               over the prompt against its forward's last position.  Each
               model is freed before the next.
+12. train  -- training on ``cuda``: moonshot-v1-16b-a3b at its published
+              widths cut in depth to ``TRAIN_LAYERS`` (4) of its 48 layers
+              (2.95 G parameters; the cut is forced by memory), bf16, its
+              own AdamW and remat.  (a) K5's backward against its plain
+              versions on the card at the training call's shapes, E = 64
+              experts of C = 512 rows (8 x 512 tokens top-6, routing from
+              the model's first MoE layer on a real batch), gate/up (d =
+              2048, f = 1408) and down (1408 -> 2048), plus a ragged f32
+              case with an empty expert and a partly filled tile: dX (K5 on
+              the transposed weights) and dW (its own kernel) within
+              ``TRAIN_DW_TOL`` of the largest value, an empty expert's dW
+              and a padding row's dX +0; kernel, plain and ``torch.bmm``
+              CUDA-event medians beside the bound; the transposed-weight
+              copy's time.  (c) ``TRAIN_STEPS`` (10) steps of
+              ``make_train_step`` on ``TokenPipeline(seed=0)`` batches of 8
+              x 512: each step's loss and grad norm (finite, the last loss
+              below the first), the median CUDA-event step after step 1,
+              tokens a second, peak memory, K5's forward / dX / dW launches
+              a step (6 / 3 / 3 a layer with remat), the experts' first
+              moments nonzero after step 1 (their gradients reached them),
+              the step's floor (its operations at the bf16 peak against
+              AdamW's bytes at 3.35 TB/s), then a profile of 2 steps
+              (device busy, launches a step).  (b) A 2-layer float32 cut
+              at the same widths, weights made on the CPU and copied: the
+              loss and every gradient leaf for 2 x 16 tokens on the card
+              against the CPU within ``TRAIN_LOSS_TOL`` (relative) and
+              ``TRAIN_GRAD_TOL`` (of each leaf's largest value), each MoE
+              layer's routing compared and a flip printed.
 
 The last two lines are the kernels' JSON record and the device record.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -249,7 +277,9 @@ from repro_torch.kernels.crossmatch import ops, ref  # noqa: E402
 from repro_torch.kernels.nvcc import CudaLibrary  # noqa: E402
 from repro_torch.kernels.grouped_matmul import kernel as GK  # noqa: E402
 from repro_torch.kernels.grouped_matmul import ops as gmm_ops  # noqa: E402
-from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_tiles_ref  # noqa: E402
+from repro_torch.kernels.grouped_matmul.ref import (  # noqa: E402
+    grouped_matmul_dw_ref, grouped_matmul_tiles_ref,
+)
 from repro_torch.kernels.paged_attention import kernel as PK  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
@@ -257,6 +287,10 @@ from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import encdec as encdec_mod  # noqa: E402
 from repro_torch.models import registry as models  # noqa: E402
+from repro_torch.data import DataConfig, TokenPipeline  # noqa: E402
+from repro_torch.models.common import pad_vocab  # noqa: E402
+from repro_torch.training import make_optimizer, make_train_step  # noqa: E402
+from repro_torch.training.optimizer import tree_leaves, tree_map  # noqa: E402
 from repro_torch.training.train_step import make_prefill_step  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.obs import Observability  # noqa: E402
@@ -374,6 +408,28 @@ ZOO_CPU_B, ZOO_CPU_S = 2, 16
 # threads and with 1 differ by up to 1.3e-2 (seamless's cut; paligemma's
 # 5.9e-4), against logits up to ~7: four times that.
 ZOO_F32_TOL = 5e-2
+# Phase 12: moonshot at full width cut to TRAIN_LAYERS of 48 layers, the
+# cut forced by memory (4 layers: 2.95 G parameters; bf16 weights and
+# gradients, AdamW's f32 moments and the step's temporaries; 8 would not
+# fit in 80 GB); TRAIN_STEPS steps of B x S tokens, the last
+# TRAIN_PROFILE_STEPS profiled.
+TRAIN_LAYERS = 4
+TRAIN_B, TRAIN_S = 8, 512
+TRAIN_STEPS = 10
+TRAIN_PROFILE_STEPS = 2
+# (b): the float32 cut against the CPU, 2 prompts of 16 tokens.  Tighter
+# than ZOO_F32_TOL: the loss within 1e-4 relative, each gradient leaf
+# within 1e-2 of its largest value (an H100 at 700 W measured 9.5e-7 of
+# a loss of 12.5 and 2.2e-3, the embedding's: the 163,840-row table's
+# gradient is scattered from 32 tokens, each a sum in another order).
+TRAIN_CPU_LAYERS = 2
+TRAIN_CPU_B, TRAIN_CPU_S = 2, 16
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-2
+# (a): K5's backward against its plain versions, of the largest value: in
+# bf16 both round an f32 sum over up to C = 512 rows to bf16 once (one
+# bf16 rounding is 2^-8 relative); in f32 the sums differ in order only.
+TRAIN_DW_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 
 
 def main() -> int:
@@ -487,9 +543,15 @@ def main() -> int:
     by_run["zoo"] = run_zoo_phase(smi)
     print(f"[zoo] phase 11 in {time.perf_counter() - t0:.1f}s", flush=True)
 
+    # -- 12. training: K5's backward and the train step at full width -------
+    t0 = time.perf_counter()
+    by_run["train"], backward = run_train_phase(smi)
+    records.extend(backward)
+    print(f"[train] phase 12 in {time.perf_counter() - t0:.1f}s", flush=True)
+
     for rec in records:
         rec["launches_by_run"] = {
-            run: counts[rec["name"]] for run, counts in by_run.items()
+            run: counts.get(rec["name"], 0) for run, counts in by_run.items()
         }
         rec["launches"] = sum(rec["launches_by_run"].values())
     missing = [r["name"] for r in records if r["launches"] <= 0]
@@ -2249,6 +2311,359 @@ def run_zoo_phase(smi) -> dict:
         print(f"[zoo] {arch} in {time.perf_counter() - t0:.1f}s ({smi})",
               flush=True)
     return total
+
+
+# ---------------------------------------------------------------- phase 12
+def train_tiles(cfg, params, tokens) -> tuple:
+    """The (tile_gid, tile_rows) that ``moe.expert_tiles`` hands K5 in the
+    first MoE layer of a no-grad forward of ``params`` over ``tokens``: the
+    training call's routing, from real tokens."""
+    seen = []
+    inner = moe_mod.expert_tiles
+
+    def recording(top_idx, E, C, bt=moe_mod.EXPERT_BT):
+        out = inner(top_idx, E, C, bt)
+        seen.append(out)
+        return out
+
+    moe_mod.expert_tiles = recording
+    try:
+        with torch.no_grad():
+            models.forward_fn(cfg)(params, {"tokens": tokens})
+    finally:
+        moe_mod.expert_tiles = inner
+    return seen[0]
+
+
+def measure_backward(key, gid, rows, E, d, f, dtype, label) -> tuple:
+    """Phase 12 (a): K5's backward at one shape against its plain versions
+    on the card.  x (E*C, d) and dy (E*C, f) random in the real rows and
+    zero past them (so ``torch.bmm`` on the (E, C, .) views computes the
+    same functions), w (E, d, f) at the init scale.  dX is K5 on the
+    transposed weights (the copy timed apart), dW the dW kernel.  Returns
+    the (dX, dW) records; the bounds count each input read once (x's and
+    dy's real rows, the active experts' weights, the ids) and each output
+    written once, and 2 d f operations a real row."""
+    T = gid.numel() * GMM_BT
+    C = T // E
+    dev = gid.device
+    gen = torch.Generator(device=dev).manual_seed(120 + d)
+    real = (torch.arange(GMM_BT, device=dev) < rows[:, None]).reshape(-1)
+    n_real = int(real.sum())
+    active = int((rows.view(E, -1).sum(dim=1) > 0).sum())
+    x = torch.randn(T, d, device=dev, generator=gen).mul_(
+        real[:, None]).to(dtype)
+    dy = torch.randn(T, f, device=dev, generator=gen).mul_(
+        real[:, None]).to(dtype)
+    w = (torch.randn(E, d, f, device=dev, generator=gen) * d ** -0.5).to(dtype)
+    wt = w.transpose(1, 2).contiguous()
+    esize = x.element_size()
+    flops = 2.0 * n_real * d * f
+    ids = (gid.numel() + rows.numel()) * 4
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    tol = TRAIN_DW_TOL[dtype]
+    out = []
+    for name, kern, plain, lib, nbytes in (
+        ("grouped_matmul_dx",
+         lambda: GK._k5(dy, gid, wt, GMM_BT, rows, "grouped_matmul_dx"),
+         lambda: grouped_matmul_tiles_ref(dy, gid, wt, GMM_BT, rows),
+         lambda: torch.bmm(dy.view(E, C, f), w.transpose(1, 2)).view(T, d),
+         (n_real * f + active * d * f + T * d) * esize + ids),
+        ("grouped_matmul_dw",
+         lambda: GK.grouped_matmul_dw_kernel(x, dy, gid, E, GMM_BT, rows),
+         lambda: grouped_matmul_dw_ref(x, dy, gid, E, GMM_BT, rows),
+         lambda: torch.bmm(x.view(E, C, d).transpose(1, 2), dy.view(E, C, f)),
+         (n_real * (d + f) + E * d * f) * esize + ids),
+    ):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        scale = float(want.float().abs().max()) or 1.0
+        err = float((got.float() - want.float()).abs().max())
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got.float(), want.float(), rtol=tol, atol=tol * scale)
+        lib_err = float((lib().float() - want.float()).abs().max())
+        k_ms = cuda_ms(kern, REPS)
+        p_ms = cuda_ms(plain, REPS)
+        l_ms = cuda_ms(lib, REPS)
+        bound, bound_by = bound_ms(nbytes, flops, peak)
+        print(f"[train] ({key}) {name} {label}: max |diff| {err:.3e} of "
+              f"{scale:.3e} (tolerance {tol} of the largest); kernel "
+              f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain "
+              f"{p_ms:.4f} ms, torch.bmm {l_ms:.4f} ms (max |diff| "
+              f"{lib_err:.3e}), bound {bound:.4f} ms ({bound_by}, "
+              f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.3f} GFLOP)", flush=True)
+        if not ok:
+            raise SystemExit(f"[train] ({key}) {name} differs from its plain "
+                             f"version: max |diff| {err}")
+        out.append(dict(
+            name=name, route="cuda", source=GMM_SOURCE,
+            replaces=GMM_REPLACES, launches=0, max_abs_err=err, ms=k_ms,
+            plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
+            library_ms=l_ms, library="torch.bmm", shape=f"({key}) {label}",
+            note=("backward of K5; the reference has no Pallas backward "
+                  "(XLA transposes its einsum)"),
+        ))
+    if dtype == torch.bfloat16:
+        copy_ms = cuda_ms(lambda: w.transpose(1, 2).contiguous(), REPS)
+        print(f"[train] ({key}) the transposed-weight copy dX takes first: "
+              f"{copy_ms:.4f} ms ({2 * w.numel() * esize / 1e6:.3f} MB "
+              f"moved, {2 * w.numel() * esize / copy_ms / 1e9:.3f} TB/s)",
+              flush=True)
+    if rows is not None:
+        idle = rows.view(E, -1).sum(dim=1) == 0
+        dw = GK.grouped_matmul_dw_kernel(x, dy, gid, E, GMM_BT, rows)
+        dx = GK._k5(dy, gid, wt, GMM_BT, rows, "grouped_matmul_dx")
+        if not (bool((dw[idle] == 0).all())
+                and bool((dx[~real] == 0).all())):
+            raise SystemExit(f"[train] ({key}) an empty expert's dW or a "
+                             f"padding row's dX is not +0")
+    print(f"[train] ({key}) {E} experts, {active} active, {n_real} real rows "
+          f"of {T}, {int(idle.sum()) if rows is not None else 0} empty "
+          f"experts", flush=True)
+    return out
+
+
+def train_batch(cfg, B, S, seed=0) -> dict:
+    """``TokenPipeline(seed)``'s first batch of B x S tokens."""
+    return TokenPipeline(DataConfig(cfg.vocab_size, S, B, seed=seed)).next_batch()
+
+
+def batch_on(b, dev) -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def train_cpu_check(cfg, tag) -> None:
+    """Phase 12 (b): the float32 cut (``TRAIN_CPU_LAYERS`` layers at full
+    width), the same seeded weights made on the CPU and copied: the loss
+    and every gradient leaf on the card against the CPU, the routing of
+    each MoE layer compared (a flip is printed)."""
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CPU_LAYERS, dtype="float32")
+    t0 = time.perf_counter()
+    cpu_params = models.init_params(cut, torch.Generator().manual_seed(1))
+    params = {"cpu": cpu_params, DEVICE: to_device(cpu_params, DEVICE)}
+    b = train_batch(cut, TRAIN_CPU_B, TRAIN_CPU_S, seed=1)
+    out = {}
+    inner = moe_mod.expert_tiles
+    for dev in ("cpu", DEVICE):
+        routes = []
+
+        def recording(top_idx, E, C, bt=moe_mod.EXPERT_BT):
+            routes.append(top_idx.cpu())
+            return inner(top_idx, E, C, bt)
+
+        live = tree_map(lambda p: p.detach().requires_grad_(True),
+                        params[dev])
+        moe_mod.expert_tiles = recording
+        try:
+            loss = models.loss_fn(cut)(live, batch_on(b, dev))
+        finally:
+            moe_mod.expert_tiles = inner
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        out[dev] = (float(loss.detach()), [g.float().cpu() for g in grads],
+                   routes)
+    (lc, gc, rc), (lg, gg, rg) = out["cpu"], out[DEVICE]
+    flips = sum(int((a != b).any(dim=1).sum()) for a, b in zip(rc, rg))
+    print(f"[{tag}] cpu vs card, {cut.n_layers}-layer cut in float32, "
+          f"{TRAIN_CPU_B} x {TRAIN_CPU_S} tokens: routing of "
+          f"{len(rc)} MoE layers, {flips} token(s) routed differently",
+          flush=True)
+    worst, where = 0.0, ""
+    names = [n for n, _ in iter_named_leaves(cpu_params)]
+    for name, a, g in zip(names, gc, gg):
+        scale = float(a.abs().max()) or 1.0
+        rel = float((a - g).abs().max()) / scale
+        if rel > worst:
+            worst, where = rel, name
+    print(f"[{tag}] loss cpu {lc:.6f} card {lg:.6f} (|diff| "
+          f"{abs(lc - lg):.3e}); {len(gc)} gradient leaves, the largest "
+          f"|diff| / the leaf's largest value {worst:.3e} ({where}); "
+          f"tolerances {TRAIN_LOSS_TOL} (loss, relative) and "
+          f"{TRAIN_GRAD_TOL} (leaves); {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    if not (abs(lc - lg) <= TRAIN_LOSS_TOL * abs(lc)
+            and worst <= TRAIN_GRAD_TOL and math.isfinite(lg)):
+        raise SystemExit(f"{tag}: the card's loss or gradients differ from "
+                         f"the cpu's")
+
+
+def iter_named_leaves(tree, path=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from iter_named_leaves(v, f"{path}{k}.")
+        else:
+            yield f"{path}{k}", v
+
+
+def train_flops(cfg, B, S, n_real) -> float:
+    """The operations of one train step from its shapes: each MoE layer's
+    products (attention projections, scores and values over all S x S
+    pairs as ``attn_full`` computes them, the router, the expert products
+    on ``n_real`` real rows) run 4 times with remat (forward, recomputed
+    forward, two backward products), 3 without; the unembedding 3 times."""
+    T, d = B * S, cfg.d_model
+    hd = cfg.n_heads * cfg.head_dim
+    kv = cfg.n_kv_heads * cfg.head_dim
+    ff = cfg.moe_d_ff or cfg.d_ff
+    proj = 2 * T * d * (2 * hd + 2 * kv)
+    scores = 2 * 2 * B * cfg.n_heads * S * S * cfg.head_dim
+    layer = proj + scores + 2 * T * d * cfg.n_experts + 3 * 2 * n_real * d * ff
+    passes = 4 if cfg.remat else 3
+    unembed = 2 * T * d * pad_vocab(cfg.vocab_size)
+    return cfg.n_layers * passes * layer + 3 * unembed
+
+
+def profile_train(step, params, state, batch, tag) -> None:
+    """Device busy share, launches and the heaviest kernels of
+    ``TRAIN_PROFILE_STEPS`` train steps under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_PROFILE_STEPS):
+            params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    launch_calls = sum(a.count for a in prof.key_averages()
+                       if "LaunchKernel" in a.key)
+    n = TRAIN_PROFILE_STEPS
+    if not ev:
+        print(f"[{tag}] device time not measured (the profiler saw no "
+              f"device events); {n} steps {wall:.4f}s; kernel launch calls "
+              f"{launch_calls / n:.1f} a step", flush=True)
+        return
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    by_name: dict = {}
+    for e in ev:
+        ms, k = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, k + 1)
+    print(f"[{tag}] profile of {n} steps: wall {wall * 1e3:.3f} ms "
+          f"(profiler on), device busy {busy:.3f} ms "
+          f"({100 * busy / (wall * 1e3):.2f}%), {len(ev) / n:.1f} device "
+          f"events and {launch_calls / n:.1f} kernel launch calls a step; "
+          f"the heaviest kernels:", flush=True)
+    for name, (ms, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"[{tag}]   {ms / n:9.3f} ms a step in {k / n:6.1f} launches  "
+              f"{name[:90]}")
+
+
+def run_train_phase(smi) -> tuple:
+    """Phase 12: K5's backward against its plain versions at moonshot's
+    training call, the float32 2-layer cut's gradients against the CPU,
+    and ``make_train_step`` at full width (``TRAIN_LAYERS`` layers, bf16,
+    the config's AdamW and remat) on ``TokenPipeline(seed=0)``.  Returns
+    the launches of the train run and the (dX, dW) kernel records."""
+    tag = "train"
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=TRAIN_LAYERS)
+    params = seeded_on_card(cfg, MOE_ARCH, tag)
+    b0 = train_batch(cfg, TRAIN_B, TRAIN_S)
+    gid, rows = train_tiles(cfg, params, batch_on(b0, dev)["tokens"])
+    E = cfg.n_experts
+    C = gid.numel() * GMM_BT // E
+
+    # (a) K5's backward at the training call: gate/up (2048 -> 1408) and
+    # down (1408 -> 2048); then a ragged float32 case
+    label = (f"T={E * C} (E={E} x C={C}), {TRAIN_B} x {TRAIN_S} tokens "
+             f"top-{cfg.top_k}, bf16")
+    up = measure_backward("a", gid, rows, E, cfg.d_model, cfg.moe_d_ff,
+                          torch.bfloat16, f"d={cfg.d_model} f={cfg.moe_d_ff} "
+                          + label)
+    down = measure_backward("a'", gid, rows, E, cfg.moe_d_ff, cfg.d_model,
+                            torch.bfloat16, f"d={cfg.moe_d_ff} "
+                            f"f={cfg.d_model} " + label)
+    rgid = torch.arange(8, dtype=torch.int32, device=dev) // 2
+    rrows = torch.tensor([128, 128, 0, 0, 128, 77, 5, 0], dtype=torch.int32,
+                         device=dev)
+    ragged = measure_backward("r", rgid, rrows, 4, 192, 160, torch.float32,
+                              "d=192 f=160 f32, 4 experts of 256 rows, one "
+                              "empty, a partly filled tile")
+    dx_rec = dict(up[0], shapes={"a'": down[0], "r f32": ragged[0]})
+    dw_rec = dict(up[1], shapes={"a'": down[1], "r f32": ragged[1]})
+
+    # (c) the slice at full width
+    opt = make_optimizer(cfg.optimizer)
+    step = make_train_step(cfg, opt)
+    state = opt.init(params)
+    n_params = sum(t.numel() for t in iter_leaves(params))
+    data = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0))
+    batches = [batch_on(data.next_batch(), dev) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    metrics, events = [], []
+    for i, batch in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, m = step(params, state, batch)
+        end.record()
+        metrics.append(m)
+        events.append((start, end))
+        if i == 0:
+            mu = state["mu"]["layers"]["moe"]
+            nonzero = {k: int((mu[k]["m"] != 0).sum()) for k in ("wg", "wu",
+                                                              "wd")}
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    ms = [s.elapsed_time(e) for s, e in events]
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    for i, (l, g, t) in enumerate(zip(losses, norms, ms)):
+        print(f"[{tag}] step {i + 1}: loss {l:.6f}, grad norm {g:.6f}, "
+              f"{t:.3f} ms", flush=True)
+    later = sorted(ms[1:])
+    med = later[len(later) // 2]
+    tokens = TRAIN_B * TRAIN_S
+    per = {k: launches[k] / TRAIN_STEPS for k in
+           ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw")}
+    flops = train_flops(cfg, TRAIN_B, TRAIN_S, int(rows.sum()))
+    opt_bytes = 22 * n_params  # AdamW: p, g, m, v read; p, m, v written
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = opt_bytes / bench_common.PEAK_BYTES * 1e3
+    print(f"[{tag}] {MOE_ARCH} at full width, {cfg.n_layers} of "
+          f"{get_config(MOE_ARCH).n_layers} layers, {n_params / 1e9:.3f} G "
+          f"parameters, bf16, {opt.name}, remat={cfg.remat}: step "
+          f"{med:.3f} ms median of steps 2-{TRAIN_STEPS} ({later[0]:.3f}-"
+          f"{later[-1]:.3f}), {tokens / med * 1e3:.1f} tokens/s; peak memory "
+          f"{peak / 2**30:.3f} GiB; K5 launches a step: forward "
+          f"{per['grouped_matmul']:.1f}, dX {per['grouped_matmul_dx']:.1f}, "
+          f"dW {per['grouped_matmul_dw']:.1f}; floor "
+          f"{max(t_ops, t_bytes):.3f} ms (operations {flops / 1e12:.3f} TFLOP "
+          f"at the bf16 peak {t_ops:.3f} ms; AdamW's {opt_bytes / 1e9:.3f} GB "
+          f"at 3.35 TB/s {t_bytes:.3f} ms); experts' first moments nonzero "
+          f"after step 1: {nonzero} ({smi})", flush=True)
+    want = {"grouped_matmul": 3 * cfg.n_layers * (2 if cfg.remat else 1),
+            "grouped_matmul_dx": 3 * cfg.n_layers,
+            "grouped_matmul_dw": 3 * cfg.n_layers}
+    if {k: int(v) for k, v in per.items()} != want or any(
+            v % 1 for v in per.values()):
+        raise SystemExit(f"[{tag}] K5 launches a step {per}, expected {want}")
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise SystemExit(f"[{tag}] a loss or grad norm is not finite")
+    if not all(v > 0 for v in nonzero.values()):
+        raise SystemExit(f"[{tag}] an expert weight got no gradient")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"[{tag}] the loss did not fall: {losses}")
+    profile_train(step, params, state, batches[-1], tag)
+    # AdamW's update alone (zero gradients), beside its bytes
+    zeros = tree_map(torch.zeros_like, params)
+    upd_ms = cuda_ms(lambda: opt.update(zeros, state, params), 3)
+    print(f"[{tag}] the AdamW update alone: {upd_ms:.3f} ms a step, "
+          f"{opt_bytes / upd_ms / 1e9:.3f} TB/s of its {opt_bytes / 1e9:.3f} "
+          f"GB (floor {t_bytes:.3f} ms); the loss and its gradients the "
+          f"other {med - upd_ms:.3f} ms of the median step", flush=True)
+    del params, state, batches, metrics, zeros
+    torch.cuda.empty_cache()
+
+    # (b) the float32 cut against the CPU
+    train_cpu_check(cfg, tag)
+    torch.cuda.empty_cache()
+    return launches, [dx_rec, dw_rec]
 
 
 if __name__ == "__main__":

@@ -590,6 +590,238 @@ __global__ void __launch_bounds__(kFThreads)
     }
 }
 
+// ------------------------------------------ the weights' gradient (dW)
+// The backward of K5 with respect to w.  The Pallas kernel has none: the
+// reference's MoE is an einsum that XLA transposes.  The port runs the
+// expert products through K5, so it owes their gradient:
+//   dw[g] = sum over tiles t with tile_gid[t] == g, over the tile's real
+//           rows r < tile_rows[t] (all bt without tile_rows), of
+//           x[t bt + r]^T dy[t bt + r]
+// with f32 sums and dw cast to w's type once.  A group that owns no real
+// row gets +0 (the einsum's gradient of an expert with no token); a tile
+// whose id lies outside [0, G) belongs to no group.  One block computes a
+// (d-tile, f-tile) of one group's dw: it walks the tile list itself
+// (tile_gid is small: 256 ids at moonshot's training call), and the depth
+// of its product is the group's real rows, in 32-row (bf16) or 16-row
+// (f32) slices, so padding rows past a tile's count cost nothing.
+//
+// Bound.  At moonshot's training call (64 experts of C = 512 rows, 24,576
+// real rows, d = 2048, f = 1408, bf16) a call does 2 x 24,576 x 2048 x
+// 1408 = 142 GFLOP on ~540 MB (x, dy, dw): 0.14 ms of bf16 tensor-core
+// work against 0.16 ms of bytes.  This first kernel is the simple one:
+// wmma 16x16x16 fragments from double-buffered shared-memory slices with
+// element-wise masked loads (bf16), CUDA-core FMA (f32); TMA and wgmma
+// are left for later.
+constexpr int kDEK = 32;  // rows of a bf16 dW slice
+constexpr int kDALd = kBM + 8;  // pitch of the x slice (d columns)
+constexpr int kDBLd = kBN + 8;  // of the dy slice (f columns)
+constexpr int kDVecs = kDEK * kBM / 8 / kThreads;  // 8-element groups a thread
+
+struct __align__(128) DwTiles {
+  uint16_t a[2][kDEK * kDALd];
+  uint16_t b[2][kDEK * kDBLd];
+  float stage[kThreads / 32][16 * 16];
+};
+
+// Real rows of tile t for group g: 0 unless the tile is g's.
+__device__ __forceinline__ int dw_rows(const int* tile_gid,
+                                       const int* tile_rows, int t, int g,
+                                       int bt) {
+  if (tile_gid[t] != g) return 0;
+  return tile_rows == nullptr ? bt : min(max(tile_rows[t], 0), bt);
+}
+
+// Steps (t, k0) to the next slice of group g's real rows: k0 advances by
+// `step` inside tile t, else to the next tile of g with a real row.
+// `rt` is tile t's real rows.  False once the tiles are walked.
+__device__ __forceinline__ bool dw_next(const int* tile_gid,
+                                        const int* tile_rows, int ntiles,
+                                        int g, int bt, int step, int& t,
+                                        int& k0, int& rt) {
+  k0 += step;
+  while (t < ntiles && k0 >= rt) {
+    ++t;
+    k0 = 0;
+    rt = t < ntiles ? dw_rows(tile_gid, tile_rows, t, g, bt) : 0;
+  }
+  return t < ntiles;
+}
+
+// Eight consecutive bf16 of p of which the first `valid` are read; with
+// kVec (16-byte aligned rows) a whole group is one load.
+template <bool kVec>
+__device__ __forceinline__ uint4 load8v(const uint16_t* p, int valid) {
+  if (kVec && valid >= 8) return *reinterpret_cast<const uint4*>(p);
+  return load8(p, valid);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+    gmm_dw_bf16(const uint16_t* __restrict__ x, const uint16_t* __restrict__ dy,
+                const int* __restrict__ tile_gid,
+                const int* __restrict__ tile_rows,
+                __nv_bfloat16* __restrict__ dw, int d, int f, int ntiles,
+                int bt) {
+  __shared__ DwTiles s;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
+  const int n0 = blockIdx.x * kBN;  // f columns
+  const int m0 = blockIdx.y * kBM;  // d rows of dw
+  const int g = blockIdx.z;
+  __nv_bfloat16* out = dw + size_t(g) * d * f;
+
+  int t = -1, k0 = 0, rt = 0;
+  if (!dw_next(tile_gid, tile_rows, ntiles, g, bt, kDEK, t, k0, rt)) {
+    for (int e = tid; e < kBM * kBN; e += kThreads) {
+      const int r = m0 + e / kBN, c = n0 + e % kBN;
+      if (r < d && c < f) out[size_t(r) * f + c] = __float2bfloat16(0.0f);
+    }
+    return;
+  }
+
+  uint4 ra[kDVecs], rb[kDVecs];
+  // Slice rows [t bt + k0, + kDEK): those at or past rt are zero.
+  auto load = [&](int tt, int kk0, int rtt) {
+#pragma unroll
+    for (int i = 0; i < kDVecs; ++i) {
+      const int v = tid + i * kThreads;
+      const int r = v / (kBM / 8), c = (v % (kBM / 8)) * 8;
+      const bool real = kk0 + r < rtt;
+      const size_t row = size_t(tt) * bt + kk0 + r;
+      ra[i] = load8v<kVec>(x + row * d + m0 + c, real ? d - (m0 + c) : 0);
+      rb[i] = load8v<kVec>(dy + row * f + n0 + c, real ? f - (n0 + c) : 0);
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < kDVecs; ++i) {
+      const int v = tid + i * kThreads;
+      const int r = v / (kBM / 8), c = (v % (kBM / 8)) * 8;
+      *reinterpret_cast<uint4*>(&s.a[buf][r * kDALd + c]) = ra[i];
+      *reinterpret_cast<uint4*>(&s.b[buf][r * kDBLd + c]) = rb[i];
+    }
+  };
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kFM][kFN];
+#pragma unroll
+  for (int i = 0; i < kFM; ++i)
+#pragma unroll
+    for (int j = 0; j < kFN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  load(t, k0, rt);
+  store(0);
+  __syncthreads();
+  for (int cur = 0;; cur ^= 1) {
+    int nt = t, nk0 = k0, nrt = rt;
+    const bool more =
+        dw_next(tile_gid, tile_rows, ntiles, g, bt, kDEK, nt, nk0, nrt);
+    if (more) load(nt, nk0, nrt);
+#pragma unroll
+    for (int kk = 0; kk < kDEK; kk += 16) {
+      // A = x^T: the slice holds x's rows, so A is column-major in it.
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major>
+          af[kFM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>
+          bf[kFN];
+#pragma unroll
+      for (int i = 0; i < kFM; ++i)
+        wmma::load_matrix_sync(
+            af[i], as_bf16(&s.a[cur][kk * kDALd + wm * kWM + i * 16]), kDALd);
+#pragma unroll
+      for (int j = 0; j < kFN; ++j)
+        wmma::load_matrix_sync(
+            bf[j], as_bf16(&s.b[cur][kk * kDBLd + wn * kWN + j * 16]), kDBLd);
+#pragma unroll
+      for (int i = 0; i < kFM; ++i)
+#pragma unroll
+        for (int j = 0; j < kFN; ++j)
+          wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
+    }
+    // The other buffer was last read before the previous barrier.
+    if (more) store(cur ^ 1);
+    __syncthreads();
+    if (!more) break;
+    t = nt;
+    k0 = nk0;
+    rt = nrt;
+  }
+
+  // Epilogue: each accumulator tile through the warp's staging tile, cast
+  // to bf16 once.
+  float* st = s.stage[warp];
+  const int r = lane >> 1, c = (lane & 1) * 8;
+#pragma unroll
+  for (int i = 0; i < kFM; ++i) {
+#pragma unroll
+    for (int j = 0; j < kFN; ++j) {
+      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int rr = m0 + wm * kWM + i * 16 + r;
+      const int col = n0 + wn * kWN + j * 16 + c;
+      if (rr < d) {
+        const float* v = st + r * 16 + c;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (col + e < f)
+            out[size_t(rr) * f + col + e] = __float2bfloat16(v[e]);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+constexpr int kDFK = 16;  // rows of an f32 dW slice
+
+__global__ void __launch_bounds__(kFThreads)
+    gmm_dw_f32(const float* __restrict__ x, const float* __restrict__ dy,
+               const int* __restrict__ tile_gid,
+               const int* __restrict__ tile_rows, float* __restrict__ dw,
+               int d, int f, int ntiles, int bt) {
+  __shared__ float as[kDFK][kFBM + 4];  // x slice: rows x d columns
+  __shared__ float bs[kDFK][kFBN + 4];  // dy slice: rows x f columns
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int n0 = blockIdx.x * kFBN;
+  const int m0 = blockIdx.y * kFBM;
+  const int g = blockIdx.z;
+  float acc[4][4] = {};
+  int t = -1, k0 = 0, rt = 0;
+  while (dw_next(tile_gid, tile_rows, ntiles, g, bt, kDFK, t, k0, rt)) {
+#pragma unroll
+    for (int i = 0; i < kDFK * kFBM / kFThreads; ++i) {
+      const int e = tid + i * kFThreads;
+      const int r = e / kFBM, c = e % kFBM;
+      const bool real = k0 + r < rt;
+      const size_t row = size_t(t) * bt + k0 + r;
+      as[r][c] = real && m0 + c < d ? x[row * d + m0 + c] : 0.0f;
+      bs[r][c] = real && n0 + c < f ? dy[row * f + n0 + c] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kDFK; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = as[k][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = bs[k][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* out = dw + size_t(g) * d * f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int rr = m0 + ty + 16 * i, col = n0 + tx + 16 * j;
+      if (rr < d && col < f) out[size_t(rr) * f + col] = acc[i][j];
+    }
+}
+
 // ------------------------------------------------------- host: tensor maps
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -682,6 +914,38 @@ int grouped_matmul_launch(const void* x, const int* tile_gid,
     gmm_f32<<<grid, kFThreads, 0, st>>>(
         static_cast<const float*>(x), tile_gid, tile_rows,
         static_cast<const float*>(w), static_cast<float*>(y), d, f, G, bt);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dw (G, d, f) = the gradient of K5 with respect to w, from x (T, d) and
+// dy (T, f) of one dtype (0 = float32, 1 = bfloat16), over T / bt tiles.
+// vec (bf16 only): d and f are multiples of 8 and x, dy 16-byte aligned,
+// so eight elements load at once.  tile_rows may be null.
+int grouped_matmul_dw_launch(const void* x, const void* dy,
+                             const int* tile_gid, const int* tile_rows,
+                             void* dw, int T, int d, int f, int G, int bt,
+                             int dtype, int vec, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ntiles = T / bt;
+  if (dtype == 1) {
+    const dim3 grid((f + kBN - 1) / kBN, (d + kBM - 1) / kBM, G);
+    const auto* xs = static_cast<const uint16_t*>(x);
+    const auto* ys = static_cast<const uint16_t*>(dy);
+    auto* out = static_cast<__nv_bfloat16*>(dw);
+    if (vec)
+      gmm_dw_bf16<true><<<grid, kThreads, 0, st>>>(xs, ys, tile_gid,
+                                                   tile_rows, out, d, f,
+                                                   ntiles, bt);
+    else
+      gmm_dw_bf16<false><<<grid, kThreads, 0, st>>>(xs, ys, tile_gid,
+                                                    tile_rows, out, d, f,
+                                                    ntiles, bt);
+  } else {
+    const dim3 grid((f + kFBN - 1) / kFBN, (d + kFBM - 1) / kFBM, G);
+    gmm_dw_f32<<<grid, kFThreads, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dy), tile_gid,
+        tile_rows, static_cast<float*>(dw), d, f, ntiles, bt);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,11 +11,22 @@ each ``bt``-row tile: the other rows count as zero and are written as +0,
 and a tile with none reads no weights.  At the MoE decode shapes K5 is
 bound by the bytes of the experts' weights; see the source's note.
 
+Training.  ``grouped_matmul_fn`` is K5 with a backward (an autograd
+Function): dX is K5 itself on each group's transposed weights, and dW the
+source's ``gmm_dw_*`` kernels (``grouped_matmul_dw_kernel``), which the
+reference has no counterpart of (XLA transposes its einsum).  With no
+input that requires grad it is the raw wrapper, so serving launches and
+copies nothing more.  The raw ``grouped_matmul_kernel`` raises when grad
+mode is on and a CUDA input requires grad: its output would carry no
+gradient.
+
 A wrapper given CPU tensors runs the plain PyTorch version from ``ref``;
 given CUDA tensors it launches the kernel on the current stream, or
-raises.  ``LAUNCHES["grouped_matmul"]`` counts kernel launches.  The
-source is compiled at first use (``nvcc.CudaLibrary``); nothing is built
-when this module is imported.
+raises.  ``LAUNCHES`` counts kernel launches: ``grouped_matmul`` the
+forward's, ``grouped_matmul_dx`` the backward's K5 on the transposed
+weights, ``grouped_matmul_dw`` the weight gradient's.  The source is
+compiled at first use (``nvcc.CudaLibrary``); nothing is built when this
+module is imported.
 """
 from __future__ import annotations
 
@@ -25,7 +36,7 @@ import threading
 import torch
 
 from ..nvcc import CudaLibrary
-from .ref import grouped_matmul_tiles_ref
+from .ref import grouped_matmul_dw_ref, grouped_matmul_tiles_ref
 
 __all__ = [
     "LAUNCHES",
@@ -33,6 +44,8 @@ __all__ = [
     "reset_launches",
     "build",
     "build_info",
+    "grouped_matmul_dw_kernel",
+    "grouped_matmul_fn",
     "grouped_matmul_kernel",
     "kernel_path",
 ]
@@ -44,24 +57,28 @@ ROW_TILE = {torch.float32: 64, torch.bfloat16: 128}
 _MAX_GRID_Y = 65535
 _INT32_MAX = 2**31 - 1
 
-LAUNCHES = {"grouped_matmul": 0}
+LAUNCHES = {"grouped_matmul": 0, "grouped_matmul_dx": 0,
+            "grouped_matmul_dw": 0}
 _count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
     with _count_lock:
-        LAUNCHES["grouped_matmul"] = 0
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
-def _count() -> None:
+def _count(name: str) -> None:
     with _count_lock:
-        LAUNCHES["grouped_matmul"] += 1
+        LAUNCHES[name] += 1
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.grouped_matmul_launch.argtypes = [p, p, p, p, p] + [i] * 7 + [p]
     lib.grouped_matmul_launch.restype = ctypes.c_int
+    lib.grouped_matmul_dw_launch.argtypes = [p, p, p, p, p] + [i] * 7 + [p]
+    lib.grouped_matmul_dw_launch.restype = ctypes.c_int
     lib.grouped_matmul_row_tile.argtypes = [i]
     lib.grouped_matmul_row_tile.restype = ctypes.c_int
 
@@ -140,7 +157,18 @@ def grouped_matmul_kernel(
 ) -> torch.Tensor:
     """Tile-mapped grouped matmul (K5): (T, f) in x's dtype.  With
     ``tile_rows``, the rows of each tile past its count are taken as zero
-    and come out +0."""
+    and come out +0.  Has no backward: a CUDA call with grad mode on and
+    an input that requires grad raises (use ``grouped_matmul_fn``)."""
+    if (x.device.type == "cuda" and torch.is_grad_enabled()
+            and (x.requires_grad or w.requires_grad)):
+        raise RuntimeError("grouped_matmul_kernel has no backward and its "
+                           "input requires grad: call grouped_matmul_fn")
+    return _k5(x, tile_gid, w, bt, tile_rows, "grouped_matmul")
+
+
+def _k5(x, tile_gid, w, bt, tile_rows, counter: str) -> torch.Tensor:
+    """K5 on CPU (the plain version) or CUDA tensors, the launch counted
+    under ``counter``."""
     if x.device.type == "cpu":
         return grouped_matmul_tiles_ref(x, tile_gid, w, bt, tile_rows)
     if x.device.type != "cuda":
@@ -161,5 +189,109 @@ def grouped_matmul_kernel(
             int(path == "tma"), torch.cuda.current_stream().cuda_stream,
         )
     LIBRARY.check(code, "grouped_matmul")
-    _count()
+    _count(counter)
     return out
+
+
+def grouped_matmul_dw_kernel(
+    x: torch.Tensor,  # (T, d) f32 or bf16, T % bt == 0
+    dy: torch.Tensor,  # (T, f), x's dtype
+    tile_gid: torch.Tensor,  # (T // bt,) int32
+    n_groups: int,
+    bt: int,
+    tile_rows: torch.Tensor | None = None,  # (T // bt,) int32 real rows
+) -> torch.Tensor:
+    """K5's weight gradient: dw (n_groups, d, f) in x's dtype, dw[g] the
+    f32 sum of x[r]^T dy[r] over the real rows of g's tiles; +0 for a
+    group with none."""
+    if x.device.type == "cpu":
+        return grouped_matmul_dw_ref(x, dy, tile_gid, n_groups, bt, tile_rows)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check_dw(x, dy, tile_gid, n_groups, bt, tile_rows)
+    T, d = x.shape
+    f = dy.shape[1]
+    dw = torch.empty((n_groups, d, f), dtype=x.dtype, device=x.device)
+    if dw.numel() == 0:
+        return dw
+    vec = (d % 8 == 0 and f % 8 == 0 and x.data_ptr() % 16 == 0
+           and dy.data_ptr() % 16 == 0)
+    lib = build()
+    with torch.cuda.device(x.device):
+        code = lib.grouped_matmul_dw_launch(
+            x.data_ptr(), dy.data_ptr(), tile_gid.data_ptr(),
+            None if tile_rows is None else tile_rows.data_ptr(),
+            dw.data_ptr(), T, d, f, n_groups, bt, _DTYPES[x.dtype], int(vec),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    LIBRARY.check(code, "grouped_matmul_dw")
+    _count("grouped_matmul_dw")
+    return dw
+
+
+def _check_dw(x, dy, tile_gid, n_groups, bt, tile_rows) -> None:
+    named = [("dy", dy), ("tile_gid", tile_gid)]
+    if tile_rows is not None:
+        named.append(("tile_rows", tile_rows))
+    for name, t in named:
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, expected {x.device}")
+    if x.dtype not in _DTYPES or dy.dtype != x.dtype:
+        raise ValueError(f"x and dy must share float32 or bfloat16: "
+                         f"{x.dtype}, {dy.dtype}")
+    if x.dim() != 2 or dy.dim() != 2 or dy.shape[0] != x.shape[0]:
+        raise ValueError(f"expected x (T, d) and dy (T, f); got "
+                         f"{tuple(x.shape)}, {tuple(dy.shape)}")
+    T = x.shape[0]
+    if bt <= 0 or T % bt:
+        raise ValueError(f"{T} rows are not a whole number of {bt}-row tiles")
+    for name, t in [("tile_gid", tile_gid), ("tile_rows", tile_rows)]:
+        if t is not None and (t.dtype != torch.int32
+                              or t.shape != (T // bt,)):
+            raise ValueError(f"{name} must be int32 ({T // bt},), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    d, f = x.shape[1], dy.shape[1]
+    if not 0 < n_groups <= _MAX_GRID_Y or max(
+            x.numel(), dy.numel(), n_groups * d * f) > _INT32_MAX:
+        raise ValueError(f"x {tuple(x.shape)}, dy {tuple(dy.shape)}, "
+                         f"{n_groups} groups: too large for one launch")
+    for name, t in [("x", x)] + named:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """K5 with its backward: dx = K5(dy, w^T), dw = the dW kernel."""
+
+    @staticmethod
+    def forward(ctx, x, tile_gid, w, bt, tile_rows):
+        ctx.save_for_backward(x, tile_gid, w, tile_rows)
+        ctx.bt = bt
+        return _k5(x, tile_gid, w, bt, tile_rows, "grouped_matmul")
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, tile_gid, w, tile_rows = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # The copy of w^T (G x f x d) costs one read and one write of
+            # the weights a call; a transposed-operand kernel would not.
+            dx = _k5(dy, tile_gid, w.transpose(1, 2).contiguous(), ctx.bt,
+                     tile_rows, "grouped_matmul_dx")
+        if ctx.needs_input_grad[2]:
+            dw = grouped_matmul_dw_kernel(x, dy, tile_gid, w.shape[0],
+                                          ctx.bt, tile_rows)
+        return dx, None, dw, None, None
+
+
+def grouped_matmul_fn(x: torch.Tensor, tile_gid: torch.Tensor,
+                      w: torch.Tensor, bt: int,
+                      tile_rows: torch.Tensor | None = None) -> torch.Tensor:
+    """K5 (``grouped_matmul_kernel``'s function) with a backward: where
+    grad mode is on and x or w requires grad, through the autograd
+    Function (on the CPU its forward and backward are the plain
+    versions); else the raw wrapper, with no extra launch or copy."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _GroupedMatmul.apply(x, tile_gid, w, bt, tile_rows)
+    return _k5(x, tile_gid, w, bt, tile_rows, "grouped_matmul")

@@ -3,6 +3,8 @@
 The port of ``repro.kernels.grouped_matmul.ops``.  The device picks the
 path (a CUDA tensor goes through the kernel, a CPU tensor through the
 plain version), so there is no ``use_pallas`` or ``interpret`` argument.
+Both wrappers are differentiable: the kernel path goes through
+``grouped_matmul_fn``, K5 with its backward.
 
 ``grouped_matmul``        -- dense tile-mapped kernel path (the 'sequential
                              scan').
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import grouped_matmul_kernel
+from .kernel import grouped_matmul_fn
 from .ref import row_groups
 
 __all__ = ["grouped_matmul", "hybrid_grouped_matmul", "pad_groups_to_tiles",
@@ -60,7 +62,7 @@ def grouped_matmul(x: torch.Tensor, group_sizes, w: torch.Tensor,
     carry over; the CUDA kernel tiles f and d itself and pads neither."""
     gs = torch.as_tensor(group_sizes, device=x.device)
     tile_gid = tile_groups(gs, x.shape[0], bt, w.shape[0])
-    return grouped_matmul_kernel(x, tile_gid, w, bt)
+    return grouped_matmul_fn(x, tile_gid, w, bt)
 
 
 def hybrid_grouped_matmul(x: torch.Tensor, group_sizes, w: torch.Tensor,

@@ -15,12 +15,17 @@ adapter bucket).
   casts once.  With ``tile_rows`` the rows of each tile past its count are
   taken as zero: they come out +0, by a mask on the device, with no host
   sync for the counts.
+* ``grouped_matmul_dw_ref`` is the plain version of K5's weight gradient:
+  dw[g] = the sum of x[r]^T dy[r] over the real rows r of g's tiles, in
+  float32, cast to x's dtype.  The reference has no such kernel (XLA
+  transposes its einsum); the port's K5 owes it.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["grouped_matmul_ref", "grouped_matmul_tiles_ref", "row_groups"]
+__all__ = ["grouped_matmul_dw_ref", "grouped_matmul_ref",
+           "grouped_matmul_tiles_ref", "row_groups"]
 
 
 def row_groups(group_sizes: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -49,6 +54,34 @@ def grouped_matmul_ref(x: torch.Tensor, group_sizes: torch.Tensor,
     return out
 
 
+def _check_tiles(T: int, tile_gid, bt: int, tile_rows) -> None:
+    if bt <= 0 or T % bt:
+        raise ValueError(f"{T} rows are not a whole number of {bt}-row tiles")
+    if tile_gid.shape != (T // bt,):
+        raise ValueError(f"tile_gid must be ({T // bt},), got "
+                         f"{tuple(tile_gid.shape)}")
+    if tile_rows is not None and tile_rows.shape != (T // bt,):
+        raise ValueError(f"tile_rows must be ({T // bt},), got "
+                         f"{tuple(tile_rows.shape)}")
+
+
+def _runs(gids: list):
+    """(first tile, end tile, group id) of each run of equal tile ids."""
+    i = 0
+    while i < len(gids):
+        j = i
+        while j < len(gids) and gids[j] == gids[i]:
+            j += 1
+        yield i, j, gids[i]
+        i = j
+
+
+def _past_rows(T: int, bt: int, tile_rows, device) -> torch.Tensor:
+    """(T, 1) bool: the rows past their tile's real count."""
+    past = torch.arange(bt, device=device) >= tile_rows[:, None]
+    return past.reshape(T, 1)
+
+
 def grouped_matmul_tiles_ref(x: torch.Tensor, tile_gid: torch.Tensor,
                              w: torch.Tensor, bt: int,
                              tile_rows: torch.Tensor | None = None
@@ -59,27 +92,40 @@ def grouped_matmul_tiles_ref(x: torch.Tensor, tile_gid: torch.Tensor,
     (T // bt,) int, the real leading rows of each tile; the others are
     taken as zero, so their outputs are +0."""
     T = x.shape[0]
-    if bt <= 0 or T % bt:
-        raise ValueError(f"{T} rows are not a whole number of {bt}-row tiles")
-    if tile_gid.shape != (T // bt,):
-        raise ValueError(f"tile_gid must be ({T // bt},), got "
-                         f"{tuple(tile_gid.shape)}")
-    if tile_rows is not None and tile_rows.shape != (T // bt,):
-        raise ValueError(f"tile_rows must be ({T // bt},), got "
-                         f"{tuple(tile_rows.shape)}")
+    _check_tiles(T, tile_gid, bt, tile_rows)
     gids = tile_gid.tolist()
     if gids and (min(gids) < 0 or max(gids) >= w.shape[0]):
         raise ValueError(f"tile_gid outside [0, {w.shape[0]})")
     out = torch.empty((T, w.shape[-1]), dtype=x.dtype, device=x.device)
-    i = 0
-    while i < len(gids):
-        j = i
-        while j < len(gids) and gids[j] == gids[i]:
-            j += 1
+    for i, j, g in _runs(gids):
         rows = slice(i * bt, j * bt)
-        out[rows] = (x[rows].float() @ w[gids[i]].float()).to(x.dtype)
-        i = j
+        out[rows] = (x[rows].float() @ w[g].float()).to(x.dtype)
     if tile_rows is not None:
-        past = torch.arange(bt, device=x.device) >= tile_rows[:, None]
-        out.masked_fill_(past.reshape(T, 1), 0)
+        out.masked_fill_(_past_rows(T, bt, tile_rows, x.device), 0)
     return out
+
+
+def grouped_matmul_dw_ref(x: torch.Tensor, dy: torch.Tensor,
+                          tile_gid: torch.Tensor, n_groups: int, bt: int,
+                          tile_rows: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """The plain version of K5's weight gradient: (G, d, f) in x's dtype,
+    dw[g] = sum of x[r]^T dy[r] over the rows r of the tiles whose id is g,
+    in float32.  x: (T, d), dy: (T, f).  With ``tile_rows`` only each
+    tile's real leading rows count; a group with none gets +0, and a tile
+    id outside [0, n_groups) belongs to no group."""
+    T, d = x.shape
+    if dy.shape[0] != T:
+        raise ValueError(f"x has {T} rows, dy {dy.shape[0]}")
+    _check_tiles(T, tile_gid, bt, tile_rows)
+    xs, dys = x.float(), dy.float()
+    if tile_rows is not None:
+        past = _past_rows(T, bt, tile_rows, x.device)
+        xs, dys = xs.masked_fill(past, 0), dys.masked_fill(past, 0)
+    out = torch.zeros((n_groups, d, dy.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for i, j, g in _runs(tile_gid.tolist()):
+        if 0 <= g < n_groups:
+            rows = slice(i * bt, j * bt)
+            out[g] += xs[rows].T @ dys[rows]
+    return out.to(x.dtype)

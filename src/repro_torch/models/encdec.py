@@ -6,7 +6,8 @@ adapter into the encoder.  Decoder = self-attention (causal, cached) +
 cross-attention (static K/V, precomputed at prefill) + MLP.  The
 reference's scans over the stacked layers become Python loops over the
 layer index; the decode cache is written in place, and both attentions
-of a decode step go through K4.
+of a decode step go through K4.  ``cfg.remat`` checkpoints each encoder
+and each decoder layer, as the reference's ``jax.checkpoint(body)``.
 """
 from __future__ import annotations
 
@@ -24,12 +25,13 @@ from .attention import (
 )
 from .common import ParamFactory, pad_vocab, rms_norm
 from .mlp import init_mlp, mlp_apply
-from .transformer import _layer
+from .transformer import _layer, cross_entropy, remat
 
 __all__ = [
     "init_encdec",
     "encdec_encode",
     "encdec_forward",
+    "encdec_loss",
     "make_encdec_cache",
     "prefill_cross_kv",
     "encdec_decode_step",
@@ -70,12 +72,15 @@ def encdec_encode(cfg, params: dict, frames: torch.Tensor) -> torch.Tensor:
     x = torch.einsum("bsd,de->bse", frames.to(cfg.activation_dtype),
                      params["frontend_proj"])
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    for i in range(cfg.n_enc_layers):
-        lp = _layer(params["enc"], i)
+
+    def body(x, lp):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         x = x + attn_full(cfg, lp["attn"], h, positions, causal=False)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(cfg, lp["mlp"], h)
+        return x + mlp_apply(cfg, lp["mlp"], h)
+
+    for i in range(cfg.n_enc_layers):
+        x = remat(cfg, body, x, _layer(params["enc"], i))
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -86,18 +91,27 @@ def encdec_forward(cfg, params: dict, frames: torch.Tensor,
     memory = encdec_encode(cfg, params, frames)
     x = params["embed"][dec_tokens.long()].to(cfg.activation_dtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["dec"], i)
+
+    def body(x, memory, lp):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         x = x + attn_full(cfg, lp["self_attn"], h, positions, causal=True)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + cross_attn_full(cfg, lp["cross_attn"], h, memory)
         h = rms_norm(x, lp["ln3"], cfg.norm_eps)
-        x = x + mlp_apply(cfg, lp["mlp"], h)
+        return x + mlp_apply(cfg, lp["mlp"], h)
+
+    for i in range(cfg.n_layers):
+        x = remat(cfg, body, x, memory, _layer(params["dec"], i))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x
     return torch.einsum("bsd,vd->bsv", x, params["unembed"])
+
+
+def encdec_loss(cfg, params, frames, dec_tokens, labels):
+    """Teacher-forced CE of the decoder over the padded vocab."""
+    hidden = encdec_forward(cfg, params, frames, dec_tokens, return_hidden=True)
+    return cross_entropy(cfg, hidden, params["unembed"], labels)
 
 
 def make_encdec_cache(cfg, f: ParamFactory, batch: int, max_seq: int,

@@ -9,6 +9,8 @@ the reference's scan over periods becomes a Python loop over the period
 index, and within a period the fixed layer pattern is unrolled.  The
 decode cache is written in place: the attention K/V at ``[p]``, the Mamba
 states at ``[p, mi]`` (``mi`` the Mamba layer's index within its period).
+``cfg.remat`` checkpoints each period, as the reference's
+``jax.checkpoint(period_body)``.
 """
 from __future__ import annotations
 
@@ -19,11 +21,12 @@ from .common import ParamFactory, pad_vocab, rms_norm
 from .mlp import init_mlp, mlp_apply
 from .moe import init_moe, moe_apply_with_aux
 from .ssm import init_mamba, mamba_decode, mamba_full, mamba_state_shapes
-from .transformer import _layer
+from .transformer import _layer, cross_entropy, remat
 
 __all__ = [
     "init_hybrid",
     "hybrid_forward",
+    "hybrid_loss",
     "make_hybrid_cache",
     "hybrid_decode_step",
 ]
@@ -77,8 +80,8 @@ def hybrid_forward(cfg, params: dict, tokens: torch.Tensor,
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in range(_n_periods(cfg)):
-        pp = _layer(params["periods"], p)
+
+    def period_body(x, aux, pp):
         for i in range(cfg.attn_period):
             lp = pp[f"layer{i}"]
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -91,10 +94,21 @@ def hybrid_forward(cfg, params: dict, tokens: torch.Tensor,
             if a is not None:
                 aux = aux + a
             x = x + m
+        return x, aux
+
+    for p in range(_n_periods(cfg)):
+        x, aux = remat(cfg, period_body, x, aux, _layer(params["periods"], p))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x, aux
     return torch.einsum("bsd,vd->bsv", x, params["unembed"]), aux
+
+
+def hybrid_loss(cfg, params, tokens, labels, aux_weight: float = 0.01):
+    """Next-token CE plus ``aux_weight`` x the MoE layers' load-balance
+    loss."""
+    hidden, aux = hybrid_forward(cfg, params, tokens, return_hidden=True)
+    return cross_entropy(cfg, hidden, params["unembed"], labels) + aux_weight * aux
 
 
 def make_hybrid_cache(cfg, f: ParamFactory, batch: int, max_seq: int) -> dict:

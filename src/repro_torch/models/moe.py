@@ -14,8 +14,10 @@ the first min(tokens routed to e, C) rows of expert e's C are real (the
 rest stay zero); ``expert_tiles`` hands K5 that count for each tile, once
 a layer and on the device, so K5 writes the other rows as +0 (what the
 einsum gives for a zero row) and reads no weights of an expert with no
-token.  Where the reference relies on JAX's semantics the port spells them
-out:
+token.  The products go through ``grouped_matmul_fn``, K5 with its
+backward (dX on the transposed weights, dW its own kernel), so the
+experts' weights train as the reference's einsums do.  Where the
+reference relies on JAX's semantics the port spells them out:
 
 * ``jax.lax.top_k`` takes the lower index first among equal gates; the
   port takes its top k from a stable descending sort.
@@ -28,7 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.grouped_matmul.kernel import grouped_matmul_kernel
+from ..kernels.grouped_matmul.kernel import grouped_matmul_fn
 from ..kernels.grouped_matmul.ops import tile_groups
 from .common import ParamFactory
 from .mlp import act_fn, is_gated
@@ -163,7 +165,7 @@ def moe_apply_with_aux(cfg, p: dict, x: torch.Tensor):
     tile_gid, tile_rows = expert_tiles(top_idx, E, C)
 
     def experts(h, w):
-        return grouped_matmul_kernel(h, tile_gid, w, EXPERT_BT, tile_rows)
+        return grouped_matmul_fn(h, tile_gid, w, EXPERT_BT, tile_rows)
 
     up = experts(xe, p["wu"])
     if is_gated(cfg.activation):

@@ -4,15 +4,16 @@ The port of ``repro.models.registry`` for every family (dense, MoE, SSM,
 hybrid, encoder-decoder, VLM):
 
   init_params(cfg, generator | device)         -> params (nested dicts)
+  loss_fn(cfg)(params, batch)                  -> scalar loss [train]
   forward_fn(cfg)(params, batch)               -> logits  [prefill]
   decode_fn(cfg, max_seq)(params, token, cache) -> (logits, cache) [decode]
   make_cache(cfg, batch, max_seq, device, enc_len) -> cache
 
 ``forward_fn``'s batch has the reference's keys: ``tokens``; ``patches``
 and ``tokens`` for the VLM; ``frames`` and ``dec_tokens`` for the
-encoder-decoder.  Not ported yet: ``loss_fn`` (the training substrate,
-ROADMAP.md §1 item 8), and ``param_axes``, ``input_specs``, ``batch_axes``
-and ``cache_axes`` (the mesh tools, item 9).
+encoder-decoder; ``loss_fn``'s adds ``labels``.  Not ported yet:
+``param_axes``, ``abstract_params``, ``input_specs``, ``batch_axes`` and
+``cache_axes`` (the mesh tools).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from . import hybrid as _hybrid
 from . import transformer as _lm
 from .common import ParamFactory
 
-__all__ = ["init_params", "forward_fn", "decode_fn", "make_cache"]
+__all__ = ["init_params", "loss_fn", "forward_fn", "decode_fn", "make_cache"]
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -45,6 +46,39 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if cfg.family == "hybrid":
         return _hybrid.init_hybrid(cfg, f)
     return _lm.init_lm(cfg, f)
+
+
+def loss_fn(cfg: ModelConfig):
+    """(params, batch) -> the scalar training loss (f32), by family: the
+    encoder-decoder's batch is ``frames``, ``dec_tokens`` and ``labels``;
+    the VLM's ``patches``, ``tokens`` and ``labels`` (its loss over the text
+    positions); the others' ``tokens`` and ``labels``."""
+    if cfg.family == "encdec":
+
+        def loss(params, batch):
+            return _encdec.encdec_loss(cfg, params, batch["frames"],
+                                       batch["dec_tokens"], batch["labels"])
+
+        return loss
+    if cfg.family == "hybrid":
+
+        def loss(params, batch):
+            return _hybrid.hybrid_loss(cfg, params, batch["tokens"],
+                                       batch["labels"])
+
+        return loss
+    if cfg.family == "vlm":
+
+        def loss(params, batch):
+            return _lm.lm_loss(cfg, params, batch["tokens"], batch["labels"],
+                               prefix_embeds=batch["patches"])
+
+        return loss
+
+    def loss(params, batch):
+        return _lm.lm_loss(cfg, params, batch["tokens"], batch["labels"])
+
+    return loss
 
 
 def forward_fn(cfg: ModelConfig):

@@ -1,16 +1,20 @@
 """Decoder-only LM backbone: dense / MoE / VLM-prefix / SSM families.
 
-The port of ``repro.models.transformer``'s ``init_lm``, ``lm_forward``,
-``make_decode_cache`` and ``lm_decode_step``.  The reference's
-``lax.scan`` over the stacked (L, ...) layer parameters becomes a Python
-loop over the layer index; the decode cache is written in place.  The
-losses belong to the training substrate, which is not ported yet.
+The port of ``repro.models.transformer``: ``init_lm``, ``lm_forward``,
+the losses (``cross_entropy``, ``lm_loss``), ``make_decode_cache`` and
+``lm_decode_step``.  The reference's ``lax.scan`` over the stacked
+(L, ...) layer parameters becomes a Python loop over the layer index; the
+decode cache is written in place.  ``cfg.remat`` checkpoints each layer
+(``remat``, ``torch.utils.checkpoint``) where the reference wraps its
+scan body in ``jax.checkpoint``: the values are the same, the backward
+recomputes the layer's forward instead of keeping its activations.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import attn_decode, attn_full, cache_layout, init_attention
 from .common import ParamFactory, pad_vocab, rms_norm
@@ -18,7 +22,8 @@ from .mlp import init_mlp, mlp_apply
 from .moe import init_moe, moe_apply_with_aux
 from .ssm import init_mamba, mamba_decode, mamba_full, mamba_state_shapes
 
-__all__ = ["init_lm", "lm_forward", "make_decode_cache", "lm_decode_step"]
+__all__ = ["init_lm", "lm_forward", "cross_entropy", "lm_loss", "remat",
+           "make_decode_cache", "lm_decode_step"]
 
 
 # ------------------------------------------------------------------ init
@@ -58,6 +63,29 @@ def _layer(tree: dict, i: int) -> dict:
     """Layer ``i`` of a stacked (L, ...) parameter tree, as views."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``, checkpointed (``use_reentrant=False``) where
+    ``cfg.remat`` is set and autograd records it (grad mode on and an
+    input that requires grad); otherwise, as in serving, a plain call.
+    The bodies hold no randomness, so no RNG state is kept."""
+    if (cfg.remat and torch.is_grad_enabled()
+            and any(t.requires_grad for t in _tensors(args))):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 def _unembed(cfg, params, x):
@@ -111,14 +139,59 @@ def lm_forward(
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     prefix_len = prefix_embeds.shape[1] if prefix_embeds is not None else 0
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(x, aux, lp):
+        x, a = _block_full(cfg, lp, x, positions, prefix_len)
+        return x, aux + a
+
     for i in range(cfg.n_layers):
-        x, a = _block_full(cfg, _layer(params["layers"], i), x, positions,
-                           prefix_len)
-        aux = aux + a
+        x, aux = remat(cfg, body, x, aux, _layer(params["layers"], i))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x, aux
     return _unembed(cfg, params, x), aux
+
+
+def cross_entropy(cfg, hidden: torch.Tensor, table: torch.Tensor,
+                  labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over the padded vocab, the padding columns masked to -1e30;
+    token-chunked where ``cfg.loss_chunk`` is set and shorter than S.
+
+    Each chunk of c positions makes its (B, c, V) f32 logits, reduces them
+    to the sum of its tokens' nll and drops them: the full (B, S, V) f32
+    logits are never held at once (the reference unrolls its chunks for
+    the same reason)."""
+    B, S, _ = hidden.shape
+    V = table.shape[0]
+    vmask = torch.arange(V, device=hidden.device) < cfg.vocab_size
+
+    def chunk_nll(xc, lc):
+        logits = torch.einsum("bsd,vd->bsv", xc, table)
+        logits = torch.where(vmask, logits.float(), -1e30)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+        return torch.sum(lse - ll)
+
+    c = cfg.loss_chunk
+    if not c or c >= S:
+        return chunk_nll(hidden, labels) / (B * S)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S, c):
+        total = total + chunk_nll(hidden[:, i:i + c], labels[:, i:i + c])
+    return total / (B * S)
+
+
+def lm_loss(cfg, params: dict, tokens: torch.Tensor, labels: torch.Tensor,
+            prefix_embeds: Optional[torch.Tensor] = None,
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """Next-token CE plus ``aux_weight`` x the MoE load-balance loss; the
+    VLM's loss is over its text positions only."""
+    hidden, aux = lm_forward(cfg, params, tokens, prefix_embeds,
+                             return_hidden=True)
+    if cfg.family == "vlm":
+        hidden = hidden[:, prefix_embeds.shape[1]:, :]
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return cross_entropy(cfg, hidden, table, labels) + aux_weight * aux
 
 
 # ------------------------------------------------------------------ decode

@@ -35,7 +35,11 @@ decode on the CPU, and so is the decode of each family the model zoo adds
 (SSM, hybrid, encoder-decoder, VLM); K4 and K5 are held at those
 families' full-width decode shapes too (K4 at D = 256 with eight query
 heads on one KV head and at D = 64; K5 at jamba's 16 experts of d = 4096,
-f = 14336, against the plain version on the card).
+f = 14336, against the plain version on the card).  K5's backward (dX,
+K5 on the transposed weights; dW, its own kernel) is held to its plain
+versions on the CPU at 1e-2 (bf16) and 1e-5 (f32) of the largest value
+(the sums run over at most 256 rows here), and one MoE layer's backward
+on the card to the same layer's on the CPU at 1e-4 (f32).
 
 The tests here are marked ``cuda``: they run the CUDA kernels on a card
 against the plain versions on the CPU, and skip without one.  They import
@@ -890,6 +894,118 @@ def test_k5_jamba_decode_call_matches_plain(card, d, f):
     assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
     past = (torch.arange(bt, device=card)[None, :] >= rows[:, None]).reshape(-1)
     assert bool((got[past] == 0).all()) and int(rows.sum()) == 16
+
+
+def _close_to_max(got, want, tol):
+    want = want.float()
+    scale = float(want.abs().max()) or 1.0
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(),
+                               rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f,dtype,with_rows", [
+    (192, 160, torch.bfloat16, True),
+    (100, 37, torch.bfloat16, True),  # element loads
+    (192, 160, torch.float32, True),
+    (192, 160, torch.bfloat16, False),
+], ids=["bf16", "bf16_odd", "f32", "bf16_dense"])
+def test_k5_backward_matches_plain(card, d, f, dtype, with_rows):
+    """K5's backward on the card: dX (K5 on the transposed weights) and dW
+    (the dW kernel) against their plain versions on the CPU, at 4 groups
+    of 256 rows with an empty group, a partly filled tile and noise past
+    each tile's count; tolerances 1e-2 (bf16) and 1e-5 (f32) of the
+    largest value.  The empty group's dW and the rows past the counts' dX
+    are +0, and each backward launched one of each."""
+    from repro_torch.kernels.grouped_matmul.ref import (
+        grouped_matmul_dw_ref, grouped_matmul_tiles_ref,
+    )
+
+    rng = np.random.default_rng(d + f)
+    G, C, bt = 4, 256, 128
+    x, _, w = _gmm_case(rng, [C] * G, d, f, dtype)
+    dy = torch.from_numpy(rng.normal(size=(G * C, f)).astype(np.float32)
+                          ).to(dtype)
+    gid = torch.arange(G * C // bt, dtype=torch.int32) // (C // bt)
+    rows = (torch.tensor([128, 128, 0, 0, 128, 77, 5, 0], dtype=torch.int32)
+            if with_rows else None)
+    want_dx = grouped_matmul_tiles_ref(dy, gid, w.transpose(1, 2).contiguous(),
+                                       bt, rows)
+    want_dw = grouped_matmul_dw_ref(x, dy, gid, G, bt, rows)
+    x_ = x.to(card).requires_grad_()
+    w_ = w.to(card).requires_grad_()
+    before = dict(gkernel.LAUNCHES)
+    y = gkernel.grouped_matmul_fn(x_, gid.to(card), w_, bt,
+                                  None if rows is None else rows.to(card))
+    y.backward(dy.to(card))
+    torch.cuda.synchronize()
+    for k in ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw"):
+        assert gkernel.LAUNCHES[k] == before[k] + 1, k
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert x_.grad.dtype == w_.grad.dtype == dtype
+    _close_to_max(x_.grad, want_dx, tol)
+    _close_to_max(w_.grad, want_dw, tol)
+    if rows is not None:
+        assert bool((w_.grad[1] == 0).all())
+        past = (torch.arange(bt)[None, :] >= rows[:, None]).reshape(-1)
+        dx = x_.grad.cpu()[past]
+        assert bool((dx == 0).all()) and not torch.signbit(dx).any()
+
+
+@pytest.mark.cuda
+def test_k5_raw_kernel_refuses_grad(card):
+    """The raw wrapper has no backward: with grad mode on and an input that
+    requires grad it raises instead of returning a detached output."""
+    x, _, w = _gmm_case(np.random.default_rng(3), [128, 128], 64, 32,
+                        torch.bfloat16)
+    gid = torch.tensor([0, 1], dtype=torch.int32, device=card)
+    w_ = w.to(card).requires_grad_()
+    with pytest.raises(RuntimeError, match="grouped_matmul_fn"):
+        gkernel.grouped_matmul_kernel(x.to(card), gid, w_, 128)
+    with torch.no_grad():
+        assert gkernel.grouped_matmul_kernel(x.to(card), gid, w_, 128).shape \
+            == (256, 32)
+
+
+@pytest.mark.cuda
+def test_moe_layer_backward_on_card_matches_cpu(card):
+    """One MoE layer of the moonshot smoke config (f32), the sum of its
+    output times a fixed cotangent plus its aux loss: the loss and the
+    gradients of every weight and of the input on the card equal the
+    CPU's within 1e-4 of each leaf's largest value; the card ran 3
+    forward, 3 dX and 3 dW launches."""
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.common import ParamFactory
+
+    cfg = smoke_config("moonshot-v1-16b-a3b")
+    p = tmoe.init_moe(cfg, ParamFactory(torch.Generator().manual_seed(8),
+                                        torch.float32))
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(4, 64, cfg.d_model, generator=gen)
+    r = torch.randn(4, 64, cfg.d_model, generator=gen)
+    grads = {}
+    for dev in (CPU, card):
+        pd = {k: v.detach().to(dev, copy=True).requires_grad_()
+              for k, v in p.items()}
+        xd = x.to(dev, copy=True).requires_grad_()
+        before = dict(gkernel.LAUNCHES)
+        y, aux = tmoe.moe_apply_with_aux(cfg, pd, xd)
+        loss = torch.sum(y * r.to(dev)) + aux
+        loss.backward()
+        grads[str(dev)] = (float(loss.detach()), {k: v.grad.cpu()
+                                                  for k, v in pd.items()},
+                           xd.grad.cpu())
+        if dev == card:
+            torch.cuda.synchronize()
+            for k in ("grouped_matmul", "grouped_matmul_dx",
+                      "grouped_matmul_dw"):
+                assert gkernel.LAUNCHES[k] - before[k] == 3, k
+    (lc, gc, xc), (lg, gg, xg) = grads[CPU], grads[str(card)]
+    assert lg == pytest.approx(lc, rel=1e-5)
+    for k in gc:
+        _close_to_max(gg[k], gc[k], 1e-4)
+        assert bool((gg[k] != 0).any())
+    _close_to_max(xg, xc, 1e-4)
 
 
 @pytest.mark.cuda

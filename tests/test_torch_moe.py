@@ -264,9 +264,9 @@ def test_expert_tiles_count_the_buffers_real_rows(case, dispatch,
 
     def spy(h, tile_gid, w, bt, tile_rows):
         calls.append((h, tile_gid, bt, tile_rows))
-        return gkernel.grouped_matmul_kernel(h, tile_gid, w, bt, tile_rows)
+        return gkernel.grouped_matmul_fn(h, tile_gid, w, bt, tile_rows)
 
-    monkeypatch.setattr(tmoe, "grouped_matmul_kernel", spy)
+    monkeypatch.setattr(tmoe, "grouped_matmul_fn", spy)
     (jy, _), (ty, _) = _apply_both(jcfg, tcfg, p, x)
     np.testing.assert_allclose(ty, jy, rtol=MOE_TOL, atol=MOE_TOL)
     assert len(calls) == 3
