@@ -327,6 +327,11 @@ PLANTED_FAULTS = {
     "the whole bucket short of its last real row": (
         "    hi = a.rows;", "    hi = a.rows - 1;", ("K1",)),
 }
+# Phase 12's planted fault: a copy of GMM_SOURCE whose TMA dW kernel no
+# longer zeroes the rows past a tile's count in the boxes it loads (line,
+# mutation); it must fail phase 12 (a)'s dW check.
+DW_PLANTED_FAULT = ("      const bool straddles = valid < kBK;",
+                    "      const bool straddles = false;")
 K1_BAND = 2  # phase 2's band (tiles of 128 x 512)
 PAGED_SOURCE = "src/repro_torch/csrc/paged_attention.cu"
 PAGED_REPLACES = "src/repro/kernels/paged_attention/kernel.py:102"
@@ -430,6 +435,10 @@ TRAIN_GRAD_TOL = 1e-2
 # bf16 both round an f32 sum over up to C = 512 rows to bf16 once (one
 # bf16 rounding is 2^-8 relative); in f32 the sums differ in order only.
 TRAIN_DW_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+# The earlier element-load wmma dW kernel's median at (a) and (a') on an
+# H100 80GB HBM3 at 700.00 W, as PERF.md records it: printed beside this
+# run's time, not measured here (the kernel is gone).
+DW_EARLIER_MS = {"a": 2.8397, "a'": 2.7099}
 
 
 def main() -> int:
@@ -446,13 +455,15 @@ def main() -> int:
     t0 = time.perf_counter()
     faults = planted_libraries()
     counting = counting_library()
+    dw_fault = planted_dw_library()
     builds = [m.build for m in (K, PK, GK)] + [
-        lib.load for lib in (*faults.values(), counting)]
+        lib.load for lib in (*faults.values(), counting, dw_fault)]
     with ThreadPoolExecutor(len(builds)) as pool:
         for fut in [pool.submit(b) for b in builds]:
             fut.result()
     print(f"[build] three libraries, {len(faults)} planted-fault copies of "
-          f"the cross-match kernel and its counting build in "
+          f"the cross-match kernel, its counting build and a planted-fault "
+          f"copy of the grouped matmul in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
     for mod in (K, PK, GK):
         info = mod.build_info()
@@ -545,7 +556,7 @@ def main() -> int:
 
     # -- 12. training: K5's backward and the train step at full width -------
     t0 = time.perf_counter()
-    by_run["train"], backward = run_train_phase(smi)
+    by_run["train"], backward = run_train_phase(smi, dw_fault)
     records.extend(backward)
     print(f"[train] phase 12 in {time.perf_counter() - t0:.1f}s", flush=True)
 
@@ -1040,14 +1051,15 @@ def profile_cases(cases) -> None:
 
 
 # ---------------------------------------------------------------- faults
-def source_copy(text: str, where: str) -> CudaLibrary:
-    """A ``CudaLibrary`` of ``text``, a variant of ``SOURCE`` written to
-    ``build/<where>/crossmatch.cu``."""
-    path = os.path.join(ROOT, "build", where, "crossmatch.cu")
+def source_copy(text: str, where: str, name: str = "crossmatch",
+                bind=K._bind) -> CudaLibrary:
+    """A ``CudaLibrary`` of ``text``, a variant of ``csrc/<name>.cu``
+    (``SOURCE`` by default) written to ``build/<where>/<name>.cu``."""
+    path = os.path.join(ROOT, "build", where, f"{name}.cu")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         f.write(text)
-    lib = CudaLibrary("crossmatch", K._bind)
+    lib = CudaLibrary(name, bind)
     lib.source = pathlib.Path(path)
     return lib
 
@@ -1064,6 +1076,18 @@ def planted_libraries() -> dict:
                              f"{SOURCE} exactly once")
         out[fault] = source_copy(text.replace(old, new), f"planted/{i}")
     return out
+
+
+def planted_dw_library() -> CudaLibrary:
+    """A copy of ``GMM_SOURCE`` with ``DW_PLANTED_FAULT`` (the TMA dW
+    kernel keeps the rows past each count), under ``build/planted/dw/``."""
+    text = open(os.path.join(ROOT, GMM_SOURCE)).read()
+    old, new = DW_PLANTED_FAULT
+    if text.count(old) != 1:
+        raise SystemExit(f"planted dW fault: its line is not in "
+                         f"{GMM_SOURCE} exactly once")
+    return source_copy(text.replace(old, new), "planted/dw",
+                       "grouped_matmul", GK._bind)
 
 
 def counting_library() -> CudaLibrary:
@@ -1699,7 +1723,9 @@ def grouped_library(x, w, sizes):
     """One PyTorch call computing K5's function on the same inputs: a
     batched product where the groups are equal, ``torch._grouped_mm``
     (bf16, with offsets) where they are not and the card's torch has it;
-    else None."""
+    in float32 with unequal groups ``torch.bmm`` over the row tiles, each
+    with its group's weights (gathered once, outside the timing: the call
+    reads a copy of w for each tile); else None."""
     G, d, f = w.shape
     if len(set(sizes)) == 1:
         xv = x.view(G, sizes[0], d)
@@ -1710,6 +1736,13 @@ def grouped_library(x, w, sizes):
         wt = w.transpose(-2, -1).contiguous().transpose(-2, -1)
         return (lambda: torch._grouped_mm(x, wt, offs=offs),
                 "torch._grouped_mm")
+    if x.dtype == torch.float32:
+        T = x.shape[0]
+        gid = gmm_ops.tile_groups(torch.tensor(sizes, device=x.device), T,
+                                  GMM_BT, G)
+        tiles, wg = x.view(T // GMM_BT, GMM_BT, d), w[gid.long()]
+        return (lambda: torch.bmm(tiles, wg).view(T, f),
+                "torch.bmm over row tiles (weights gathered once)")
     return None, "none"
 
 
@@ -2335,12 +2368,20 @@ def train_tiles(cfg, params, tokens) -> tuple:
     return seen[0]
 
 
-def measure_backward(key, gid, rows, E, d, f, dtype, label) -> tuple:
+def measure_backward(key, gid, rows, E, d, f, dtype, label,
+                     dw_fault=None) -> list:
     """Phase 12 (a): K5's backward at one shape against its plain versions
-    on the card.  x (E*C, d) and dy (E*C, f) random in the real rows and
-    zero past them (so ``torch.bmm`` on the (E, C, .) views computes the
-    same functions), w (E, d, f) at the init scale.  dX is K5 on the
-    transposed weights (the copy timed apart), dW the dW kernel.  Returns
+    on the card.  x (E*C, d) and dy (E*C, f) random, with seeded noise in
+    the rows past each tile's count and NaN in one partly filled tile's
+    (the kernels and the plain versions must mask them: the TMA dW kernel
+    loads whole 64-row boxes and zeroes those rows itself); zero-padded
+    copies feed ``torch.bmm``, which has no mask.  w (E, d, f) at the init
+    scale.  dX reads w through its tensor map and must equal K5 on a
+    contiguous w^T (the earlier path, whose copy is timed apart) bit for
+    bit; dW is held to its plain version within ``TRAIN_DW_TOL`` and
+    printed beside the earlier kernel's recorded time (``DW_EARLIER_MS``).
+    With ``dw_fault`` (a library
+    whose dW keeps the rows past the counts) the check must fail.  Returns
     the (dX, dW) records; the bounds count each input read once (x's and
     dy's real rows, the active experts' weights, the ids) and each output
     written once, and 2 d f operations a real row."""
@@ -2351,10 +2392,21 @@ def measure_backward(key, gid, rows, E, d, f, dtype, label) -> tuple:
     real = (torch.arange(GMM_BT, device=dev) < rows[:, None]).reshape(-1)
     n_real = int(real.sum())
     active = int((rows.view(E, -1).sum(dim=1) > 0).sum())
-    x = torch.randn(T, d, device=dev, generator=gen).mul_(
-        real[:, None]).to(dtype)
-    dy = torch.randn(T, f, device=dev, generator=gen).mul_(
-        real[:, None]).to(dtype)
+    # NaN past a count that ends inside a 16-row step, so a kernel that
+    # kept those rows would read them
+    partial = torch.nonzero(rows % 16 != 0).flatten()
+    if partial.numel() == 0:
+        raise SystemExit(f"[train] ({key}) no tile's count ends inside a "
+                         f"16-row step: nothing to hold the row mask to")
+    nan_tile = int(partial[0])
+    tile = torch.arange(T, device=dev) // GMM_BT
+    nan_rows = ~real & (tile == nan_tile)
+    x = torch.randn(T, d, device=dev, generator=gen)
+    dy = torch.randn(T, f, device=dev, generator=gen)
+    x[nan_rows], dy[nan_rows] = float("nan"), float("nan")
+    x, dy = x.to(dtype), dy.to(dtype)
+    x0 = x.masked_fill(~real[:, None], 0)
+    dy0 = dy.masked_fill(~real[:, None], 0)
     w = (torch.randn(E, d, f, device=dev, generator=gen) * d ** -0.5).to(dtype)
     wt = w.transpose(1, 2).contiguous()
     esize = x.element_size()
@@ -2362,36 +2414,60 @@ def measure_backward(key, gid, rows, E, d, f, dtype, label) -> tuple:
     ids = (gid.numel() + rows.numel()) * 4
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     tol = TRAIN_DW_TOL[dtype]
+    bf16 = dtype == torch.bfloat16
     out = []
-    for name, kern, plain, lib, nbytes in (
+    for name, kern, earlier, plain, lib, nbytes, path in (
         ("grouped_matmul_dx",
+         lambda: GK._k5(dy, gid, w, GMM_BT, rows, "grouped_matmul_dx",
+                        w_transposed=True),
          lambda: GK._k5(dy, gid, wt, GMM_BT, rows, "grouped_matmul_dx"),
          lambda: grouped_matmul_tiles_ref(dy, gid, wt, GMM_BT, rows),
-         lambda: torch.bmm(dy.view(E, C, f), w.transpose(1, 2)).view(T, d),
-         (n_real * f + active * d * f + T * d) * esize + ids),
+         lambda: torch.bmm(dy0.view(E, C, f), w.transpose(1, 2)).view(T, d),
+         (n_real * f + active * d * f + T * d) * esize + ids,
+         GK.kernel_path(dy, w)),
         ("grouped_matmul_dw",
          lambda: GK.grouped_matmul_dw_kernel(x, dy, gid, E, GMM_BT, rows),
+         None,
          lambda: grouped_matmul_dw_ref(x, dy, gid, E, GMM_BT, rows),
-         lambda: torch.bmm(x.view(E, C, d).transpose(1, 2), dy.view(E, C, f)),
-         (n_real * (d + f) + E * d * f) * esize + ids),
+         lambda: torch.bmm(x0.view(E, C, d).transpose(1, 2),
+                           dy0.view(E, C, f)),
+         (n_real * (d + f) + E * d * f) * esize + ids,
+         GK.dw_kernel_path(x, dy)),
     ):
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        scale = float(want.float().abs().max()) or 1.0
-        err = float((got.float() - want.float()).abs().max())
-        ok = bool(torch.isfinite(got).all()) and torch.allclose(
-            got.float(), want.float(), rtol=tol, atol=tol * scale)
+        ok, err, scale = backward_close(got, want, tol)
         lib_err = float((lib().float() - want.float()).abs().max())
+        if name == "grouped_matmul_dx" and not torch.equal(
+                got.view(torch.int16 if bf16 else torch.int32),
+                earlier().view(torch.int16 if bf16 else torch.int32)):
+            raise SystemExit(f"[train] ({key}) dX read through w's tensor "
+                             f"map differs from K5 on a contiguous w^T")
+        if name == "grouped_matmul_dw" and dw_fault is not None:
+            check_dw_fault(dw_fault, kern, want, tol, key)
         k_ms = cuda_ms(kern, REPS)
+        e_ms = cuda_ms(earlier, REPS) if earlier is not None else None
         p_ms = cuda_ms(plain, REPS)
         l_ms = cuda_ms(lib, REPS)
         bound, bound_by = bound_ms(nbytes, flops, peak)
-        print(f"[train] ({key}) {name} {label}: max |diff| {err:.3e} of "
-              f"{scale:.3e} (tolerance {tol} of the largest); kernel "
-              f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s), plain "
-              f"{p_ms:.4f} ms, torch.bmm {l_ms:.4f} ms (max |diff| "
-              f"{lib_err:.3e}), bound {bound:.4f} ms ({bound_by}, "
-              f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.3f} GFLOP)", flush=True)
+        if e_ms is not None:
+            before = (f"; the earlier design {e_ms:.4f} ms (K5 on a copied "
+                      f"w^T, the copy apart)")
+        elif key in DW_EARLIER_MS and name == "grouped_matmul_dw":
+            before = (f"; the earlier element-load wmma kernel "
+                      f"{DW_EARLIER_MS[key]:.4f} ms as recorded, not timed "
+                      f"here")
+        else:
+            before = ""
+        print(f"[train] ({key}) {name} {label}: path {path}; max |diff| "
+              f"{err:.3e} of {scale:.3e} (tolerance {tol} of the largest, "
+              f"noise past the counts, NaN past tile {nan_tile}'s "
+              f"{int(rows[nan_tile])}); kernel {k_ms:.4f} ms "
+              f"({flops / k_ms / 1e9:.1f} TFLOP/s, {k_ms / l_ms:.2f}x "
+              f"torch.bmm){before}; plain {p_ms:.4f} ms, torch.bmm "
+              f"{l_ms:.4f} ms (max |diff| {lib_err:.3e}), bound {bound:.4f} "
+              f"ms ({bound_by}, {nbytes / 1e6:.3f} MB, {flops / 1e9:.3f} "
+              f"GFLOP)", flush=True)
         if not ok:
             raise SystemExit(f"[train] ({key}) {name} differs from its plain "
                              f"version: max |diff| {err}")
@@ -2399,28 +2475,60 @@ def measure_backward(key, gid, rows, E, d, f, dtype, label) -> tuple:
             name=name, route="cuda", source=GMM_SOURCE,
             replaces=GMM_REPLACES, launches=0, max_abs_err=err, ms=k_ms,
             plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
-            library_ms=l_ms, library="torch.bmm", shape=f"({key}) {label}",
+            library_ms=l_ms, library="torch.bmm", kernel_path=path,
+            **({} if e_ms is None else {"earlier_ms": e_ms}),
+            shape=f"({key}) {label}",
             note=("backward of K5; the reference has no Pallas backward "
                   "(XLA transposes its einsum)"),
         ))
-    if dtype == torch.bfloat16:
+    if bf16:
         copy_ms = cuda_ms(lambda: w.transpose(1, 2).contiguous(), REPS)
-        print(f"[train] ({key}) the transposed-weight copy dX takes first: "
-              f"{copy_ms:.4f} ms ({2 * w.numel() * esize / 1e6:.3f} MB "
-              f"moved, {2 * w.numel() * esize / copy_ms / 1e9:.3f} TB/s)",
+        print(f"[train] ({key}) removed: the transposed-weight copy the "
+              f"earlier dX took first, {copy_ms:.4f} ms "
+              f"({2 * w.numel() * esize / 1e6:.3f} MB moved, "
+              f"{2 * w.numel() * esize / copy_ms / 1e9:.3f} TB/s)",
               flush=True)
-    if rows is not None:
-        idle = rows.view(E, -1).sum(dim=1) == 0
-        dw = GK.grouped_matmul_dw_kernel(x, dy, gid, E, GMM_BT, rows)
-        dx = GK._k5(dy, gid, wt, GMM_BT, rows, "grouped_matmul_dx")
-        if not (bool((dw[idle] == 0).all())
-                and bool((dx[~real] == 0).all())):
-            raise SystemExit(f"[train] ({key}) an empty expert's dW or a "
-                             f"padding row's dX is not +0")
+    idle = rows.view(E, -1).sum(dim=1) == 0
+    dw = GK.grouped_matmul_dw_kernel(x, dy, gid, E, GMM_BT, rows)
+    dx = GK._k5(dy, gid, w, GMM_BT, rows, "grouped_matmul_dx",
+                w_transposed=True)
+    if not (bool((dw[idle] == 0).all()) and bool((dx[~real] == 0).all())
+            and not bool(torch.signbit(dw[idle]).any())
+            and not bool(torch.signbit(dx[~real]).any())):
+        raise SystemExit(f"[train] ({key}) an empty expert's dW or a "
+                         f"padding row's dX is not +0")
     print(f"[train] ({key}) {E} experts, {active} active, {n_real} real rows "
-          f"of {T}, {int(idle.sum()) if rows is not None else 0} empty "
-          f"experts", flush=True)
+          f"of {T}, {int(idle.sum())} empty experts", flush=True)
     return out
+
+
+def backward_close(got, want, tol) -> tuple:
+    """(finite and within ``tol`` of the largest value, max |diff|, the
+    largest value)."""
+    scale = float(want.float().abs().max()) or 1.0
+    err = float((got.float() - want.float()).abs().max())
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(
+        got.float(), want.float(), rtol=tol, atol=tol * scale)
+    return ok, err, scale
+
+
+def check_dw_fault(lib: CudaLibrary, kern, want, tol, key) -> None:
+    """The dW kernel of ``lib`` (``DW_PLANTED_FAULT``: the rows past the
+    counts kept) through the wrapper must fail phase 12 (a)'s check."""
+    saved = GK.LIBRARY
+    GK.LIBRARY = lib
+    try:
+        got = kern()
+        torch.cuda.synchronize()
+    finally:
+        GK.LIBRARY = saved
+    ok, err, _ = backward_close(got, want, tol)
+    if ok:
+        raise SystemExit(f"[faults] ({key}) the dW kernel with the row "
+                         f"zeroing removed passed phase 12 (a)'s check")
+    print(f"[faults] ({key}) the dW kernel with the row zeroing removed "
+          f"fails phase 12 (a)'s check, as it must: max |diff| {err:.3e}, "
+          f"{int((~torch.isfinite(got)).sum())} non-finite", flush=True)
 
 
 def train_batch(cfg, B, S, seed=0) -> dict:
@@ -2549,13 +2657,31 @@ def profile_train(step, params, state, batch, tag) -> None:
         print(f"[{tag}]   {ms / n:9.3f} ms a step in {k / n:6.1f} launches  "
               f"{name[:90]}")
 
+    def total(match):
+        hits = [v for name, v in by_name.items() if match(name)]
+        return sum(v[0] for v in hits) / n, sum(v[1] for v in hits) / n
 
-def run_train_phase(smi) -> tuple:
+    dw_ms, dw_k = total(lambda name: "gmm_dw" in name)
+    cp_ms, cp_k = total(lambda name: name.startswith("Memcpy DtoD"))
+    ck_ms, ck_k = total(lambda name: "direct_copy_kernel" in name)
+    print(f"[{tag}] a step: dW {dw_ms:.3f} ms in {dw_k:.1f} launches; "
+          f"device-to-device copies {cp_k:.1f} Memcpy DtoD ({cp_ms:.3f} ms) "
+          f"and {ck_k:.1f} copy kernels ({ck_ms:.3f} ms), by kernel:",
+          flush=True)
+    for name, (ms, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        if "direct_copy_kernel" in name:
+            head = name.split("at::native::direct_copy_kernel_cuda")[0]
+            print(f"[{tag}]   {ms / n:9.3f} ms a step in {k / n:6.1f} "
+                  f"launches  {head[:70]}direct_copy", flush=True)
+
+
+def run_train_phase(smi, dw_fault=None) -> tuple:
     """Phase 12: K5's backward against its plain versions at moonshot's
     training call, the float32 2-layer cut's gradients against the CPU,
     and ``make_train_step`` at full width (``TRAIN_LAYERS`` layers, bf16,
     the config's AdamW and remat) on ``TokenPipeline(seed=0)``.  Returns
-    the launches of the train run and the (dX, dW) kernel records."""
+    the launches of the train run and the (dX, dW) kernel records.
+    ``dw_fault``: the planted dW library (built here if not given)."""
     tag = "train"
     dev = torch.device(DEVICE)
     cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=TRAIN_LAYERS)
@@ -2569,9 +2695,11 @@ def run_train_phase(smi) -> tuple:
     # down (1408 -> 2048); then a ragged float32 case
     label = (f"T={E * C} (E={E} x C={C}), {TRAIN_B} x {TRAIN_S} tokens "
              f"top-{cfg.top_k}, bf16")
+    if dw_fault is None:
+        dw_fault = planted_dw_library()
     up = measure_backward("a", gid, rows, E, cfg.d_model, cfg.moe_d_ff,
                           torch.bfloat16, f"d={cfg.d_model} f={cfg.moe_d_ff} "
-                          + label)
+                          + label, dw_fault)
     down = measure_backward("a'", gid, rows, E, cfg.moe_d_ff, cfg.d_model,
                             torch.bfloat16, f"d={cfg.moe_d_ff} "
                             f"f={cfg.d_model} " + label)

@@ -40,7 +40,11 @@
 //    128-byte-swizzled layout with the transpose bit set) and release a
 //    stage once the next stage's products are issued.  The sums run over d
 //    in ascending 16-deep steps; a block with at most 64 real rows runs
-//    one warpgroup (and loads 64 rows of x), the other writes zeros.
+//    one warpgroup (and loads 64 rows of x), the other writes zeros.  K5's
+//    dX (dy times each group's w^T) is the instance with kWKMajor: it
+//    reads the forward's w through a tensor map over the same memory,
+//    boxes 64 deep x 64 columns along w's contiguous f, as a K-major B
+//    (transpose bit clear), so no transposed copy of the weights is made.
 //  * bfloat16 that TMA cannot describe (d or f not a multiple of 8, or an
 //    unaligned base; gmm_bf16_elem): tensor cores through nvcuda::wmma,
 //    16x16x16 fragments, 8 warps on a 128 x 128 tile, element loads with
@@ -73,6 +77,7 @@
 #include <math_constants.h>
 #include <mma.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
@@ -221,8 +226,12 @@ __device__ __forceinline__ void acc_fence(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 128, f32) += A (64 x 16, bf16, K-major) * B (16 x 128, bf16,
-// MN-major: transpose bit set).
+// d (64 x 128, f32) += A (64 x 16, bf16) * B (16 x 128, bf16).  kTransA /
+// kTransB are wgmma's transpose immediates: 0 reads the operand K-major
+// (its depth contiguous), 1 MN-major (its rows or columns contiguous).
+// K5's forward reads x K-major and w MN-major (0, 1); its dX instance
+// reads w K-major (0, 0); the dW kernel reads both MN-major (1, 1).
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
                                                  uint64_t b) {
   asm volatile(
@@ -235,7 +244,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
       "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
       "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
       "%57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -250,11 +259,18 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(kTransA), "n"(kTransB));
 }
 
-// tmx: x as (T rows, d) with 64 x 64 boxes; tmw: w as (G, d, f) with
-// 1 x 64 x 64 boxes; both 128-byte swizzled with zero fill past the edges.
+// tmx: x as (T rows, d) with 64 x 64 boxes; tmw: w with 1 x 64 x 64 boxes;
+// both 128-byte swizzled with zero fill past the edges.  kWKMajor false:
+// w is (G, d, f), a box 64 deep x 64 columns, read MN-major (the forward).
+// kWKMajor true: w is stored (G, f, d), the transpose of the weights this
+// call multiplies by (dX = dy w^T reads the forward's w untransposed), a
+// box 64 columns (rows of the stored w) x 64 deep, read K-major: the same
+// products in the same order, so the result equals the call on a
+// contiguous copy of w^T bit for bit.
+template <bool kWKMajor>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     gmm_bf16_tma(const __grid_constant__ CUtensorMap tmx,
                  const __grid_constant__ CUtensorMap tmw,
@@ -316,8 +332,12 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
         mbar_expect_tx(full(s), bytes);
         for (int h = 0; h < nwg; ++h)
           tma_load_2d(xbox(s, h), &tmx, kt * kBK, row0 + 64 * h, full(s));
-        for (int j = 0; j < kBN / 64; ++j)
-          tma_load_3d(wbox(s, j), &tmw, n0 + 64 * j, kt * kBK, g, full(s));
+        for (int j = 0; j < kBN / 64; ++j) {
+          if (kWKMajor)
+            tma_load_3d(wbox(s, j), &tmw, kt * kBK, n0 + 64 * j, g, full(s));
+          else
+            tma_load_3d(wbox(s, j), &tmw, n0 + 64 * j, kt * kBK, g, full(s));
+        }
       }
     }
     return;
@@ -341,8 +361,15 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      wgmma_m64n128k16(acc, gmma_desc(xbox(s, wg) + 32 * kk, kALbo, kASbo),
-                       gmma_desc(wbox(s, 0) + 2048 * kk, kBLbo, kBSbo));
+      const uint64_t a = gmma_desc(xbox(s, wg) + 32 * kk, kALbo, kASbo);
+      // K-major w: each of the 128 columns one 128-byte line of depth, as
+      // x's rows (the two boxes adjoin, so 8-column atoms stay 1 KB apart)
+      if (kWKMajor)
+        wgmma_m64n128k16<0, 0>(acc, a,
+                               gmma_desc(wbox(s, 0) + 32 * kk, kALbo, kASbo));
+      else
+        wgmma_m64n128k16<0, 1>(acc, a,
+                               gmma_desc(wbox(s, 0) + 2048 * kk, kBLbo, kBSbo));
     }
     wgmma_commit();
     acc_fence(acc);
@@ -602,16 +629,48 @@ __global__ void __launch_bounds__(kFThreads)
 // whose id lies outside [0, G) belongs to no group.  One block computes a
 // (d-tile, f-tile) of one group's dw: it walks the tile list itself
 // (tile_gid is small: 256 ids at moonshot's training call), and the depth
-// of its product is the group's real rows, in 32-row (bf16) or 16-row
-// (f32) slices, so padding rows past a tile's count cost nothing.
+// of its product is the group's real rows in ascending order, so padding
+// rows past a tile's count cost nothing and every output element is the
+// sum of one block, the same bits run to run (no atomics).
 //
 // Bound.  At moonshot's training call (64 experts of C = 512 rows, 24,576
 // real rows, d = 2048, f = 1408, bf16) a call does 2 x 24,576 x 2048 x
-// 1408 = 142 GFLOP on ~540 MB (x, dy, dw): 0.14 ms of bf16 tensor-core
-// work against 0.16 ms of bytes.  This first kernel is the simple one:
-// wmma 16x16x16 fragments from double-buffered shared-memory slices with
-// element-wise masked loads (bf16), CUDA-core FMA (f32); TMA and wgmma
-// are left for later.
+// 1408 = 142 GFLOP on ~539 MB (x's and dy's real rows read once, dw's 369
+// MB written once): 0.143 ms of bf16 tensor-core work against 0.161 ms of
+// bytes, so both limits are near and the kernel has to keep the tensor
+// cores fed and the writes streaming at once.
+//
+//  * bfloat16 that TMA can describe (d and f multiples of 8, 16-byte
+//    aligned bases; gmm_dw_bf16_tma): K5's forward design turned over.
+//    The reduction runs over rows, so both operands are MN-major in shared
+//    memory: A = x^T from 64-row x 64-d-column boxes, B = dy from 64-row x
+//    64-f-column boxes, both 128-byte swizzled, wgmma m64n256k16 with both
+//    transpose immediates set.  A block owns a 128 (d) x 256 (f) tile of
+//    one group's dw (the operands cross L2 once per 128 x 256 outputs:
+//    ~1.7 GB at moonshot's call against ~2.2 GB for 128 x 128) and walks
+//    kDwFTiles f-tiles in turn: the producer fills the ring with the next
+//    f-tile's boxes while the consumers stage the last one's bf16 tile in
+//    shared memory, and TMA stores it while they run the next one's
+//    products (dw's writes are 68% of the bound's bytes).  One producer
+//    warp walks the group's tiles, testing 32 tile ids a step (a lane
+//    that walks from tile 0 spends ~ntiles dependent loads a block), and
+//    issues 64-row boxes while the box starts below the tile's count,
+//    telling the consumers each stage's real rows in a word beside the
+//    ring; two consumer warpgroups take 64 d-rows each.  A box that
+//    straddles the count still carries the rows past it (noise, or NaN),
+//    so the consumers zero those rows in all six boxes of the stage (zero
+//    both operands: 0 x NaN is NaN) before any wgmma reads it: a row of a
+//    64-column bf16 box is one 128-byte line (the swizzle only permutes
+//    its 16-byte chunks), then fence.proxy.async and a named barrier make
+//    the generic-proxy writes visible to wgmma; 16-row steps wholly past
+//    the count are skipped.  Blocks run d-tiles fastest, then groups, so
+//    the resident blocks cover a few groups, whose x and dy rows meet in
+//    L2.  TMA's zero fill covers the ragged d and f edges on the loads,
+//    and the stores clip there.  What is left between this kernel and
+//    its bound is not broken down (PERF.md).
+//  * other bfloat16 (gmm_dw_bf16): wmma 16x16x16 fragments from
+//    double-buffered shared-memory slices with element-wise masked loads.
+//  * float32 (gmm_dw_f32): CUDA-core FMA from 16-row slices.
 constexpr int kDEK = 32;  // rows of a bf16 dW slice
 constexpr int kDALd = kBM + 8;  // pitch of the x slice (d columns)
 constexpr int kDBLd = kBN + 8;  // of the dy slice (f columns)
@@ -647,15 +706,6 @@ __device__ __forceinline__ bool dw_next(const int* tile_gid,
   return t < ntiles;
 }
 
-// Eight consecutive bf16 of p of which the first `valid` are read; with
-// kVec (16-byte aligned rows) a whole group is one load.
-template <bool kVec>
-__device__ __forceinline__ uint4 load8v(const uint16_t* p, int valid) {
-  if (kVec && valid >= 8) return *reinterpret_cast<const uint4*>(p);
-  return load8(p, valid);
-}
-
-template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
     gmm_dw_bf16(const uint16_t* __restrict__ x, const uint16_t* __restrict__ dy,
                 const int* __restrict__ tile_gid,
@@ -689,8 +739,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int r = v / (kBM / 8), c = (v % (kBM / 8)) * 8;
       const bool real = kk0 + r < rtt;
       const size_t row = size_t(tt) * bt + kk0 + r;
-      ra[i] = load8v<kVec>(x + row * d + m0 + c, real ? d - (m0 + c) : 0);
-      rb[i] = load8v<kVec>(dy + row * f + n0 + c, real ? f - (n0 + c) : 0);
+      ra[i] = load8(x + row * d + m0 + c, real ? d - (m0 + c) : 0);
+      rb[i] = load8(dy + row * f + n0 + c, real ? f - (n0 + c) : 0);
     }
   };
   auto store = [&](int buf) {
@@ -769,6 +819,316 @@ __global__ void __launch_bounds__(kThreads, 2)
       __syncwarp();
     }
   }
+}
+
+// -------------------------------------------------- dW: TMA + wgmma
+constexpr int kDwBN = 256;     // f columns of a dW tile: one m64n256 wgmma
+constexpr int kDwStages = 3;   // ring depth: 144 KB of the SM's 227 KB
+constexpr int kDwFTiles = 6;   // f-tiles a block walks in turn
+constexpr int kDwStageBytes = (kConsumers + kDwBN / 64) * kXBox;  // 48 KB
+// The epilogue's bf16 tile, 64 KB: each warpgroup's 64 rows as four 64 x
+// 64 boxes, 128-byte swizzled, which TMA stores while the next f-tile's
+// products run.
+constexpr int kDwOutBytes = kConsumers * (kDwBN / 64) * kXBox;
+constexpr int kDwSmem = kDwStages * kDwStageBytes + kDwOutBytes + 1024 +
+                        2 * kDwStages * 8 + kDwStages * 4;
+// A stage's info word (written by the producer before its TMA, read by the
+// consumers once the stage is full): the real rows of its boxes, and
+// whether it is the last box of its f-tile and of the block.
+constexpr int kDwTileEnd = 1 << 8;
+constexpr int kDwLast = 1 << 9;
+
+// d (64 x 256, f32) += A (64 x 16, bf16) * B (16 x 256, bf16), both read
+// MN-major (transpose immediates set): the dW kernel's x^T and dy.
+__device__ __forceinline__ void wgmma_m64n256k16_tt(float (&d)[128],
+                                                    uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void acc_fence(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void st_shared_zero16(uint32_t addr) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};" ::"r"(addr), "r"(0)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The first tile at or after t whose id is g and which has a real row, or
+// ntiles: the whole warp tests 32 tiles a step (tile_gid is small and the
+// walk from tile 0 to a group's tiles would otherwise be ~ntiles
+// dependent loads).
+__device__ __forceinline__ int warp_next_tile(const int* tile_gid,
+                                              const int* tile_rows,
+                                              int ntiles, int g, int t,
+                                              int lane) {
+  for (; t < ntiles; t += 32) {
+    const int u = t + lane;
+    const bool hit = u < ntiles && tile_gid[u] == g &&
+                     (tile_rows == nullptr || tile_rows[u] > 0);
+    const unsigned m = __ballot_sync(0xffffffffu, hit);
+    if (m) return t + __ffs(m) - 1;
+  }
+  return ntiles;
+}
+
+// x^T (A, 64 d-rows x 16 rows deep) and dy (B, 16 rows deep x 256 f
+// columns) are both MN-major, as w is in the forward: each box row (one
+// row of x or dy) is 128 bytes, 8-row atoms 1 KB apart (SBO), dy's next
+// 64 columns one box on (LBO); a 16-row step is 2 KB.  A's M = 64 is one
+// box, so its LBO is never used.
+//
+// tmx: x as (T rows, d), tmdy: dy as (T rows, f), tmdw: dw as (G, d, f),
+// 64 x 64 boxes, 128-byte swizzled, zero fill past the edges (a store
+// clips there).  Grid (d-tiles of 128, groups, chunks of kDwFTiles f-tiles
+// of 256): a block computes its d-tile of one group's dw for each f-tile
+// of its chunk in turn, so the producer loads the next f-tile's boxes
+// while the consumers stage the last one, and TMA stores it while the
+// consumers run the next one's products.
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    gmm_dw_bf16_tma(const __grid_constant__ CUtensorMap tmx,
+                    const __grid_constant__ CUtensorMap tmdy,
+                    const __grid_constant__ CUtensorMap tmdw,
+                    const int* __restrict__ tile_gid,
+                    const int* __restrict__ tile_rows,
+                    __nv_bfloat16* __restrict__ dw, int d, int f, int ntiles,
+                    int bt) {
+  extern __shared__ uint8_t smem_raw[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int m0 = blockIdx.x * kBM;  // d rows of dw
+  const int g = blockIdx.y;
+  const int n_lo = blockIdx.z * kDwFTiles * kDwBN;  // the chunk's f columns
+  const int n_hi = min(n_lo + kDwFTiles * kDwBN, f);
+  __nv_bfloat16* out = dw + size_t(g) * d * f;
+
+  // Every warp finds the group's first tile with a real row itself.
+  const int first =
+      warp_next_tile(tile_gid, tile_rows, ntiles, g, 0, lane);
+  if (first >= ntiles) {
+    const int m1 = min(m0 + kBM, d), w8 = (n_hi - n_lo) / 8;
+    for (int e = tid; e < (m1 - m0) * w8; e += kTmaThreads)
+      *reinterpret_cast<uint4*>(out + size_t(m0 + e / w8) * f + n_lo +
+                                (e % w8) * 8) = make_uint4(0, 0, 0, 0);
+    return;
+  }
+
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t staging = ring + kDwStages * kDwStageBytes;
+  const uint32_t bars = staging + kDwOutBytes;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (kDwStages + s); };
+  volatile int* info = reinterpret_cast<volatile int*>(
+      smem_raw + (bars + 16 * kDwStages - raw));
+  // A stage: x's boxes (d columns m0, m0 + 64), then dy's (f columns n0 +
+  // 64 j), 8 KB each and adjoining.
+  auto box = [&](int s, int b) {
+    return ring + s * kDwStageBytes + b * kXBox;
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kDwStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  auto rows_of = [&](int t) {
+    return tile_rows == nullptr ? bt : min(max(tile_rows[t], 0), bt);
+  };
+  const int wg = tid / 128;
+  if (wg == kConsumers) {
+    // Producer warp: walks the group's real rows once for each f-tile, a
+    // 64-row box at a time; lane 0 issues the loads.
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(&tmx))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(&tmdy))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(&tmdw))
+                   : "memory");
+    }
+    int n0 = n_lo, t = first, k0 = 0, rt = rows_of(first);
+    for (int it = 0;; ++it) {
+      const int s = it % kDwStages;
+      const int valid = min(rt - k0, kBK);
+      int nt = t, nk0 = k0 + kBK;
+      if (nk0 >= rt) {
+        nt = warp_next_tile(tile_gid, tile_rows, ntiles, g, t + 1, lane);
+        nk0 = 0;
+      }
+      const bool tile_end = nt >= ntiles;
+      const bool last = tile_end && n0 + kDwBN >= n_hi;
+      if (lane == 0) {
+        mbar_wait(empty(s), ((it / kDwStages) & 1) ^ 1);
+        info[s] = valid | (tile_end ? kDwTileEnd : 0) | (last ? kDwLast : 0);
+        mbar_expect_tx(full(s), kDwStageBytes);
+        const int row = t * bt + k0;
+        for (int h = 0; h < kConsumers; ++h)
+          tma_load_2d(box(s, h), &tmx, m0 + 64 * h, row, full(s));
+        for (int j = 0; j < kDwBN / 64; ++j)
+          tma_load_2d(box(s, kConsumers + j), &tmdy, n0 + 64 * j, row,
+                      full(s));
+      }
+      __syncwarp();
+      if (last) break;
+      if (tile_end) {
+        n0 += kDwBN;
+        t = first;
+        k0 = 0;
+        rt = rows_of(first);
+      } else {
+        if (nt != t) rt = rows_of(nt);
+        t = nt;
+        k0 = nk0;
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup wg: dw rows [m0 + 64 wg, + 64) of the tile.
+  const int warp = (tid & 127) >> 5;
+  const bool leader = (tid & 127) == 0;  // issues the warpgroup's stores
+  const uint32_t out_wg = staging + wg * (kDwBN / 64) * kXBox;
+  float acc[128];
+  int it = 0, prev = -1;
+  for (int n0 = n_lo;; n0 += kDwBN) {
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    acc_fence(acc);
+    int flags;
+    do {
+      const int s = it % kDwStages;
+      mbar_wait(full(s), (it / kDwStages) & 1);
+      flags = info[s];
+      const int valid = flags & 0xFF;
+      const bool straddles = valid < kBK;
+      if (straddles) {
+        // Rows [valid, 64) of the stage's six boxes to +0: 8 16-byte
+        // chunks a row.
+        const int chunks = (kBK - valid) * 8;
+        constexpr int kBoxes = kConsumers + kDwBN / 64;
+        for (int e = tid; e < kBoxes * chunks; e += kConsumers * 128)
+          st_shared_zero16(box(s, e / chunks) + valid * 128 +
+                           (e % chunks) * 16);
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        asm volatile("bar.sync 1, %0;" ::"n"(kConsumers * 128) : "memory");
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        if (16 * kk < valid)
+          wgmma_m64n256k16_tt(
+              acc, gmma_desc(box(s, wg) + 2048 * kk, kBLbo, kBSbo),
+              gmma_desc(box(s, kConsumers) + 2048 * kk, kBLbo, kBSbo));
+      }
+      wgmma_commit();
+      acc_fence(acc);
+      // The previous stage's products are done: hand its buffers back.
+      wgmma_wait<1>();
+      acc_fence(acc);
+      if (prev >= 0 && leader) mbar_arrive(empty(prev));
+      prev = s;
+      ++it;
+    } while (!(flags & kDwTileEnd));
+    wgmma_wait<0>();
+    acc_fence(acc);
+    if (leader) mbar_arrive(empty(prev));
+    prev = -1;
+
+    // Epilogue: accumulator 4 i + {0, 1} of lane l holds the warpgroup's
+    // row 16 warp + l / 4, columns 8 i + 2 (l % 4) + {0, 1}; 4 i + {2, 3}
+    // the row 8 below.  Cast to bf16 once into the staging boxes (box i /
+    // 8, 16-byte chunk i % 8 of the row, swizzled by the row's index mod 8
+    // as TMA reads it back), once the previous f-tile's stores have read
+    // them; then one lane stores the boxes that lie below d and n_hi (TMA
+    // clips the ragged d and f edges).
+    if (leader) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * warp + (lane >> 2) + 8 * half;
+#pragma unroll
+      for (int i = 0; i < kDwBN / 8; ++i) {
+        const uint32_t addr = out_wg + (i / 8) * kXBox + r * 128 +
+                              (((i % 8) ^ (r & 7)) << 4) + 4 * (lane & 3);
+        asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr),
+                     "r"(pack2(acc[4 * i + 2 * half],
+                               acc[4 * i + 2 * half + 1]))
+                     : "memory");
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+    if (leader && m0 + 64 * wg < d) {
+      for (int j = 0; j < kDwBN / 64; ++j)
+        if (n0 + 64 * j < n_hi)
+          tma_store_3d(&tmdw, out_wg + j * kXBox, n0 + 64 * j, m0 + 64 * wg,
+                       g);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+    if (flags & kDwLast) break;
+  }
+  if (leader) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 constexpr int kDFK = 16;  // rows of an f32 dW slice
@@ -850,6 +1210,9 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The CUDA driver's result code for the last tensor map it refused.
+int g_refused = 0;
+
 // A bf16 tensor map of `rank` dims (innermost first) with 64-element
 // boxes in the two inner dims, 128-byte swizzle and zero fill.
 CUresult encode_bf16(EncodeTiled enc, CUtensorMap* map, const void* base,
@@ -857,11 +1220,45 @@ CUresult encode_bf16(EncodeTiled enc, CUtensorMap* map, const void* base,
                      const cuuint64_t* strides) {
   const cuuint32_t box[3] = {64, 64, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-             const_cast<void*>(base), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult res = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                           const_cast<void*>(base), dims, strides, box, elem,
+                           CU_TENSOR_MAP_INTERLEAVE_NONE,
+                           CU_TENSOR_MAP_SWIZZLE_128B,
+                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) g_refused = static_cast<int>(res);
+  return res;
+}
+
+// cuTensorMapEncodeTiled, a CUDA driver call, needs a context current on
+// the calling thread.  Autograd runs a backward on a thread of its own,
+// where the runtime may not have been touched yet (K5's dX, or a
+// recomputed forward, is then the thread's first CUDA call), so make the
+// device's primary context current there: once a thread and device.
+cudaError_t bind_context() {
+  thread_local int bound = -1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev == bound) return err;
+  err = cudaSetDevice(dev);
+  if (err == cudaSuccess) bound = dev;
+  return err;
+}
+
+// A 2-D bf16 tensor map of `rows` rows of `cols` contiguous elements.
+CUresult encode_rows(EncodeTiled enc, CUtensorMap* map, const void* base,
+                     int rows, int cols) {
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(cols) * 2};
+  return encode_bf16(enc, map, base, 2, dims, strides);
+}
+
+// Lets a TMA kernel take `bytes` of dynamic shared memory.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
 }
 
 // Codes the launch entry returns beside cudaGetLastError()'s.
@@ -877,32 +1274,39 @@ int grouped_matmul_row_tile(int dtype) { return dtype == 1 ? kBM : kFBM; }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w and y share it).  tma (bf16
 // only): d and f are multiples of 8 and x, w are 16-byte aligned, so the
-// TMA kernel runs; else the element-load one.  tile_rows may be null (every
-// row real).  T must be a positive multiple of bt, and bt of the row tile.
+// TMA kernel runs; else the element-load one.  w_kmajor (TMA only): w is
+// stored (G, f, d), the transpose of the (G, d, f) weights the call
+// multiplies by, and is read K-major through its tensor map (K5's dX on
+// the forward's w, with no copy); else w is (G, d, f).  tile_rows may be
+// null (every row real).  T must be a positive multiple of bt, and bt of
+// the row tile.
 int grouped_matmul_launch(const void* x, const int* tile_gid,
                           const int* tile_rows, const void* w, void* y, int T,
                           int d, int f, int G, int bt, int dtype, int tma,
-                          void* stream) {
+                          int w_kmajor, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && tma) {
     const EncodeTiled enc = encode_tiled();
     if (enc == nullptr) return kNoEncoder;
+    const cudaError_t ctx = bind_context();
+    if (ctx != cudaSuccess) return static_cast<int>(ctx);
     CUtensorMap tmx, tmw;
-    const cuuint64_t xdims[2] = {cuuint64_t(d), cuuint64_t(T)};
-    const cuuint64_t xstrides[1] = {cuuint64_t(d) * 2};
-    const cuuint64_t wdims[3] = {cuuint64_t(f), cuuint64_t(d), cuuint64_t(G)};
-    const cuuint64_t wstrides[2] = {cuuint64_t(f) * 2,
-                                    cuuint64_t(d) * cuuint64_t(f) * 2};
-    if (encode_bf16(enc, &tmx, x, 2, xdims, xstrides) != CUDA_SUCCESS ||
+    // w's inner dim is f (the forward) or d (stored transposed)
+    const cuuint64_t inner = w_kmajor ? d : f, outer = w_kmajor ? f : d;
+    const cuuint64_t wdims[3] = {inner, outer, cuuint64_t(G)};
+    const cuuint64_t wstrides[2] = {inner * 2, inner * outer * 2};
+    if (encode_rows(enc, &tmx, x, T, d) != CUDA_SUCCESS ||
         encode_bf16(enc, &tmw, w, 3, wdims, wstrides) != CUDA_SUCCESS)
       return kEncodeFailed;
-    const cudaError_t attr = cudaFuncSetAttribute(
-        gmm_bf16_tma, cudaFuncAttributeMaxDynamicSharedMemorySize, kTmaSmem);
+    const auto kernel = w_kmajor ? gmm_bf16_tma<true> : gmm_bf16_tma<false>;
+    const cudaError_t attr = allow_smem(kernel, kTmaSmem);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const dim3 grid((f + kBN - 1) / kBN, T / kBM);
-    gmm_bf16_tma<<<grid, kTmaThreads, kTmaSmem, st>>>(
+    kernel<<<grid, kTmaThreads, kTmaSmem, st>>>(
         tmx, tmw, tile_gid, tile_rows, static_cast<__nv_bfloat16*>(y), d, f,
         G, bt);
+  } else if (w_kmajor) {
+    return static_cast<int>(cudaErrorInvalidValue);
   } else if (dtype == 1) {
     const dim3 grid((f + kBN - 1) / kBN, T / kBM);
     gmm_bf16_elem<<<grid, kThreads, 0, st>>>(
@@ -920,27 +1324,41 @@ int grouped_matmul_launch(const void* x, const int* tile_gid,
 
 // dw (G, d, f) = the gradient of K5 with respect to w, from x (T, d) and
 // dy (T, f) of one dtype (0 = float32, 1 = bfloat16), over T / bt tiles.
-// vec (bf16 only): d and f are multiples of 8 and x, dy 16-byte aligned,
-// so eight elements load at once.  tile_rows may be null.
+// tma (bf16 only): d and f are multiples of 8 and x, dy 16-byte aligned,
+// so the TMA kernel runs; else the element-load one.  tile_rows may be
+// null.
 int grouped_matmul_dw_launch(const void* x, const void* dy,
                              const int* tile_gid, const int* tile_rows,
                              void* dw, int T, int d, int f, int G, int bt,
-                             int dtype, int vec, void* stream) {
+                             int dtype, int tma, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ntiles = T / bt;
-  if (dtype == 1) {
+  if (dtype == 1 && tma) {
+    const EncodeTiled enc = encode_tiled();
+    if (enc == nullptr) return kNoEncoder;
+    const cudaError_t ctx = bind_context();
+    if (ctx != cudaSuccess) return static_cast<int>(ctx);
+    CUtensorMap tmx, tmdy, tmdw;
+    const cuuint64_t wdims[3] = {cuuint64_t(f), cuuint64_t(d), cuuint64_t(G)};
+    const cuuint64_t wstrides[2] = {cuuint64_t(f) * 2,
+                                    cuuint64_t(f) * cuuint64_t(d) * 2};
+    if (encode_rows(enc, &tmx, x, T, d) != CUDA_SUCCESS ||
+        encode_rows(enc, &tmdy, dy, T, f) != CUDA_SUCCESS ||
+        encode_bf16(enc, &tmdw, dw, 3, wdims, wstrides) != CUDA_SUCCESS)
+      return kEncodeFailed;
+    const cudaError_t attr = allow_smem(gmm_dw_bf16_tma, kDwSmem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const int chunks = ((f + kDwBN - 1) / kDwBN + kDwFTiles - 1) / kDwFTiles;
+    const dim3 grid((d + kBM - 1) / kBM, G, chunks);
+    gmm_dw_bf16_tma<<<grid, kTmaThreads, kDwSmem, st>>>(
+        tmx, tmdy, tmdw, tile_gid, tile_rows,
+        static_cast<__nv_bfloat16*>(dw), d, f, ntiles, bt);
+  } else if (dtype == 1) {
     const dim3 grid((f + kBN - 1) / kBN, (d + kBM - 1) / kBM, G);
-    const auto* xs = static_cast<const uint16_t*>(x);
-    const auto* ys = static_cast<const uint16_t*>(dy);
-    auto* out = static_cast<__nv_bfloat16*>(dw);
-    if (vec)
-      gmm_dw_bf16<true><<<grid, kThreads, 0, st>>>(xs, ys, tile_gid,
-                                                   tile_rows, out, d, f,
-                                                   ntiles, bt);
-    else
-      gmm_dw_bf16<false><<<grid, kThreads, 0, st>>>(xs, ys, tile_gid,
-                                                    tile_rows, out, d, f,
-                                                    ntiles, bt);
+    gmm_dw_bf16<<<grid, kThreads, 0, st>>>(
+        static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(dy),
+        tile_gid, tile_rows, static_cast<__nv_bfloat16*>(dw), d, f, ntiles,
+        bt);
   } else {
     const dim3 grid((f + kFBN - 1) / kFBN, (d + kFBM - 1) / kFBM, G);
     gmm_dw_f32<<<grid, kFThreads, 0, st>>>(
@@ -953,8 +1371,13 @@ int grouped_matmul_dw_launch(const void* x, const void* dy,
 const char* grouped_matmul_error_string(int code) {
   if (code == kNoEncoder)
     return "the driver has no cuTensorMapEncodeTiled";
-  if (code == kEncodeFailed)
-    return "cuTensorMapEncodeTiled refused a tensor map";
+  if (code == kEncodeFailed) {
+    static char msg[96];
+    snprintf(msg, sizeof msg,
+             "cuTensorMapEncodeTiled refused a tensor map (CUresult %d)",
+             g_refused);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

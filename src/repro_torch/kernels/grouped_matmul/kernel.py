@@ -12,19 +12,22 @@ and a tile with none reads no weights.  At the MoE decode shapes K5 is
 bound by the bytes of the experts' weights; see the source's note.
 
 Training.  ``grouped_matmul_fn`` is K5 with a backward (an autograd
-Function): dX is K5 itself on each group's transposed weights, and dW the
-source's ``gmm_dw_*`` kernels (``grouped_matmul_dw_kernel``), which the
-reference has no counterpart of (XLA transposes its einsum).  With no
-input that requires grad it is the raw wrapper, so serving launches and
-copies nothing more.  The raw ``grouped_matmul_kernel`` raises when grad
-mode is on and a CUDA input requires grad: its output would carry no
-gradient.
+Function): dX is K5 itself on each group's transposed weights, which the
+TMA kernel reads through a tensor map over w as it is (``w_transposed``:
+no copy of w^T is made on that path), and dW the source's ``gmm_dw_*``
+kernels (``grouped_matmul_dw_kernel``; ``dw_kernel_path`` says which),
+which the reference has no counterpart of (XLA transposes its einsum).
+With no input that requires grad it is the raw wrapper, so serving
+launches and copies nothing more.  The raw ``grouped_matmul_kernel``
+raises when grad mode is on and a CUDA input requires grad: its output
+would carry no gradient.
 
 A wrapper given CPU tensors runs the plain PyTorch version from ``ref``;
 given CUDA tensors it launches the kernel on the current stream, or
 raises.  ``LAUNCHES`` counts kernel launches: ``grouped_matmul`` the
 forward's, ``grouped_matmul_dx`` the backward's K5 on the transposed
-weights, ``grouped_matmul_dw`` the weight gradient's.  The source is
+weights (the element-load and f32 kernels take a contiguous copy of w^T,
+off the main path), ``grouped_matmul_dw`` the weight gradient's.  The source is
 compiled at first use (``nvcc.CudaLibrary``); nothing is built when this
 module is imported.
 """
@@ -44,6 +47,7 @@ __all__ = [
     "reset_launches",
     "build",
     "build_info",
+    "dw_kernel_path",
     "grouped_matmul_dw_kernel",
     "grouped_matmul_fn",
     "grouped_matmul_kernel",
@@ -75,7 +79,7 @@ def _count(name: str) -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.grouped_matmul_launch.argtypes = [p, p, p, p, p] + [i] * 7 + [p]
+    lib.grouped_matmul_launch.argtypes = [p, p, p, p, p] + [i] * 8 + [p]
     lib.grouped_matmul_launch.restype = ctypes.c_int
     lib.grouped_matmul_dw_launch.argtypes = [p, p, p, p, p] + [i] * 7 + [p]
     lib.grouped_matmul_dw_launch.restype = ctypes.c_int
@@ -97,19 +101,34 @@ def build_info() -> dict:
     return LIBRARY.info()
 
 
+def _tma_path(a: torch.Tensor, b: torch.Tensor) -> str:
+    """"f32" for float32 operands; for bf16 "tma" where TMA can describe
+    both (inner widths multiples of 8, 16-byte aligned bases), else
+    "elem"."""
+    if a.dtype == torch.float32:
+        return "f32"
+    ok = all(t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0 for t in (a, b))
+    return "tma" if ok else "elem"
+
+
 def kernel_path(x: torch.Tensor, w: torch.Tensor) -> str:
     """The kernel a CUDA call on these operands takes, by dtype and shape:
     "tma" (``gmm_bf16_tma``: bf16 with d and f multiples of 8 and 16-byte
-    aligned bases, what TMA can describe), "elem" (``gmm_bf16_elem``, other
-    bf16) or "f32" (``gmm_f32``).  The wrapper launches by it."""
-    if x.dtype == torch.float32:
-        return "f32"
-    d, f = w.shape[1], w.shape[2]
-    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    return "tma" if d % 8 == 0 and f % 8 == 0 and aligned else "elem"
+    aligned bases, what TMA can describe; it also reads w transposed, for
+    K5's dX), "elem" (``gmm_bf16_elem``, other bf16) or "f32"
+    (``gmm_f32``).  The wrapper launches by it."""
+    return _tma_path(x, w)
 
 
-def _check(x, tile_gid, w, bt, tile_rows) -> None:
+def dw_kernel_path(x: torch.Tensor, dy: torch.Tensor) -> str:
+    """The kernel a CUDA ``grouped_matmul_dw_kernel`` call takes: "tma"
+    (``gmm_dw_bf16_tma``: bf16 with d and f multiples of 8 and 16-byte
+    aligned bases), "elem" (``gmm_dw_bf16``, other bf16) or "f32"
+    (``gmm_dw_f32``).  The wrapper launches by it."""
+    return _tma_path(x, dy)
+
+
+def _check(x, tile_gid, w, bt, tile_rows, w_transposed=False) -> None:
     named = [("tile_gid", tile_gid), ("w", w)]
     if tile_rows is not None:
         named.append(("tile_rows", tile_rows))
@@ -122,8 +141,10 @@ def _check(x, tile_gid, w, bt, tile_rows) -> None:
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
     if w.dtype != x.dtype:
         raise ValueError(f"x and w must share one dtype: {x.dtype}, {w.dtype}")
-    if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1]:
-        raise ValueError(f"expected x (T, d) and w (G, d, f); got "
+    depth = 2 if w_transposed else 1
+    if x.dim() != 2 or w.dim() != 3 or w.shape[depth] != x.shape[1]:
+        layout = "(G, f, d)" if w_transposed else "(G, d, f)"
+        raise ValueError(f"expected x (T, d) and w {layout}; got "
                          f"{tuple(x.shape)}, {tuple(w.shape)}")
     T = x.shape[0]
     tile = ROW_TILE[x.dtype]
@@ -139,8 +160,8 @@ def _check(x, tile_gid, w, bt, tile_rows) -> None:
                                   or tile_rows.shape != (T // bt,)):
         raise ValueError(f"tile_rows must be int32 ({T // bt},), got "
                          f"{tile_rows.dtype} {tuple(tile_rows.shape)}")
-    if T // tile > _MAX_GRID_Y or max(x.numel(), w.shape[0] * w.shape[1],
-                                      T * w.shape[2]) > _INT32_MAX:
+    if T // tile > _MAX_GRID_Y or max(x.numel(), w.shape[0] * w.shape[depth],
+                                      T * w.shape[3 - depth]) > _INT32_MAX:
         raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)}: too large "
                          f"for one launch")
     for name, t in [("x", x)] + named:
@@ -166,27 +187,36 @@ def grouped_matmul_kernel(
     return _k5(x, tile_gid, w, bt, tile_rows, "grouped_matmul")
 
 
-def _k5(x, tile_gid, w, bt, tile_rows, counter: str) -> torch.Tensor:
+def _k5(x, tile_gid, w, bt, tile_rows, counter: str,
+        w_transposed: bool = False) -> torch.Tensor:
     """K5 on CPU (the plain version) or CUDA tensors, the launch counted
-    under ``counter``."""
+    under ``counter``.  ``w_transposed``: w is (G, f, d) and the call
+    multiplies by each group's w^T (K5's dX on the forward's weights)."""
     if x.device.type == "cpu":
+        if w_transposed:
+            w = w.transpose(1, 2).contiguous()
         return grouped_matmul_tiles_ref(x, tile_gid, w, bt, tile_rows)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check(x, tile_gid, w, bt, tile_rows)
+    _check(x, tile_gid, w, bt, tile_rows, w_transposed)
+    path = kernel_path(x, w)
+    if w_transposed and path != "tma":
+        # The element-load and f32 kernels index w (G, d, f); only the TMA
+        # kernel reads it transposed, so the other paths copy it.
+        w, w_transposed = w.transpose(1, 2).contiguous(), False
     T, d = x.shape
-    G, _, f = w.shape
+    G, f = w.shape[0], w.shape[1 if w_transposed else 2]
     out = torch.empty((T, f), dtype=x.dtype, device=x.device)
     if T == 0 or f == 0:
         return out
-    path = kernel_path(x, w)
     lib = build()
     with torch.cuda.device(x.device):
         code = lib.grouped_matmul_launch(
             x.data_ptr(), tile_gid.data_ptr(),
             None if tile_rows is None else tile_rows.data_ptr(),
             w.data_ptr(), out.data_ptr(), T, d, f, G, bt, _DTYPES[x.dtype],
-            int(path == "tma"), torch.cuda.current_stream().cuda_stream,
+            int(path == "tma"), int(w_transposed),
+            torch.cuda.current_stream().cuda_stream,
         )
     LIBRARY.check(code, "grouped_matmul")
     _count(counter)
@@ -214,14 +244,13 @@ def grouped_matmul_dw_kernel(
     dw = torch.empty((n_groups, d, f), dtype=x.dtype, device=x.device)
     if dw.numel() == 0:
         return dw
-    vec = (d % 8 == 0 and f % 8 == 0 and x.data_ptr() % 16 == 0
-           and dy.data_ptr() % 16 == 0)
+    tma = dw_kernel_path(x, dy) == "tma"
     lib = build()
     with torch.cuda.device(x.device):
         code = lib.grouped_matmul_dw_launch(
             x.data_ptr(), dy.data_ptr(), tile_gid.data_ptr(),
             None if tile_rows is None else tile_rows.data_ptr(),
-            dw.data_ptr(), T, d, f, n_groups, bt, _DTYPES[x.dtype], int(vec),
+            dw.data_ptr(), T, d, f, n_groups, bt, _DTYPES[x.dtype], int(tma),
             torch.cuda.current_stream().cuda_stream,
         )
     LIBRARY.check(code, "grouped_matmul_dw")
@@ -261,7 +290,8 @@ def _check_dw(x, dy, tile_gid, n_groups, bt, tile_rows) -> None:
 
 
 class _GroupedMatmul(torch.autograd.Function):
-    """K5 with its backward: dx = K5(dy, w^T), dw = the dW kernel."""
+    """K5 with its backward: dx = K5(dy, w^T) on w as it is, dw = the dW
+    kernel."""
 
     @staticmethod
     def forward(ctx, x, tile_gid, w, bt, tile_rows):
@@ -275,10 +305,8 @@ class _GroupedMatmul(torch.autograd.Function):
         dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            # The copy of w^T (G x f x d) costs one read and one write of
-            # the weights a call; a transposed-operand kernel would not.
-            dx = _k5(dy, tile_gid, w.transpose(1, 2).contiguous(), ctx.bt,
-                     tile_rows, "grouped_matmul_dx")
+            dx = _k5(dy, tile_gid, w, ctx.bt, tile_rows, "grouped_matmul_dx",
+                     w_transposed=True)
         if ctx.needs_input_grad[2]:
             dw = grouped_matmul_dw_kernel(x, dy, tile_gid, w.shape[0],
                                           ctx.bt, tile_rows)

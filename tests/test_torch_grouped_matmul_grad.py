@@ -15,6 +15,8 @@ Tolerances, in float32:
 * against ``jax.grad`` of the einsum: 1e-5, the reference's f32
   tolerance for the grouped matmul (``tests/test_kernels.py:173``);
 * an empty group's dW and the dX of rows past ``tile_rows``: exactly +0;
+* dX read from w as it is (``w_transposed``) against the plain version on
+  a contiguous copy of w^T: bit for bit;
 * one MoE layer's value and gradients (router, experts, through dispatch
   and combine) against ``jax.value_and_grad``: 1e-5 of each leaf's
   largest value; measured up to 2.8e-7.
@@ -97,6 +99,43 @@ def test_fn_backward_equals_autograd_through_the_plain_version(dtype,
     assert torch.equal(y, y0)
     _close(dx, dx0, tol)
     _close(dw, dw0, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("with_rows", [True, False], ids=["rows", "dense"])
+def test_transposed_w_equals_the_plain_version_on_w_t(dtype, with_rows):
+    """``_k5`` with ``w_transposed`` (w as it is, read as each group's w^T:
+    K5's dX) equals the plain version on a contiguous copy of w^T bit for
+    bit, and the Function's dX is exactly that call."""
+    x, w, r, gid, rows, bt = _case(5, dtype=dtype)
+    rows = rows if with_rows else None
+    wt = w.transpose(1, 2).contiguous()
+    got = gkernel._k5(r, gid, w, bt, rows, "grouped_matmul_dx",
+                      w_transposed=True)
+    want = grouped_matmul_tiles_ref(r, gid, wt, bt, rows)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, want)
+    _, dx, _ = _grads(gkernel.grouped_matmul_fn, x, w, r, gid, bt, rows)
+    assert torch.equal(dx, want)
+
+
+@pytest.mark.parametrize("dtype,d,f,offset,path", [
+    (torch.bfloat16, 2048, 1408, 0, "tma"),
+    (torch.bfloat16, 192, 160, 0, "tma"),
+    (torch.bfloat16, 100, 37, 0, "elem"),
+    (torch.bfloat16, 64, 32, 1, "elem"),
+    (torch.float32, 192, 160, 0, "f32"),
+], ids=["moe", "ragged", "odd", "unaligned", "f32"])
+def test_dw_kernel_path_by_dtype_shape_and_alignment(dtype, d, f, offset,
+                                                     path):
+    """``dw_kernel_path`` names the dW kernel a call takes: the TMA one for
+    bf16 whose d and f are multiples of 8 on 16-byte aligned bases, the
+    element-load one for other bf16, the f32 one for float32."""
+    T = 256
+    x = torch.zeros(T * d + offset, dtype=dtype)[offset:].view(T, d)
+    dy = torch.zeros(T, f, dtype=dtype)
+    assert gkernel.dw_kernel_path(x, dy) == path
 
 
 def test_fn_matches_jax_grad_of_the_einsum():

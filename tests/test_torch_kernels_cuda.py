@@ -39,7 +39,11 @@ f = 14336, against the plain version on the card).  K5's backward (dX,
 K5 on the transposed weights; dW, its own kernel) is held to its plain
 versions on the CPU at 1e-2 (bf16) and 1e-5 (f32) of the largest value
 (the sums run over at most 256 rows here), and one MoE layer's backward
-on the card to the same layer's on the CPU at 1e-4 (f32).
+on the card to the same layer's on the CPU at 1e-4 (f32).  The TMA dW
+kernel loads whole 64-row boxes and zeroes the rows past each tile's
+count itself, so it is held with noise, and NaN in one tile, past the
+counts; dX read from w through its tensor map equals K5 on a contiguous
+copy of w^T bit for bit, and a backward makes no device-to-device copy.
 
 The tests here are marked ``cuda``: they run the CUDA kernels on a card
 against the plain versions on the CPU, and skip without one.  They import
@@ -950,6 +954,128 @@ def test_k5_backward_matches_plain(card, d, f, dtype, with_rows):
         past = (torch.arange(bt)[None, :] >= rows[:, None]).reshape(-1)
         dx = x_.grad.cpu()[past]
         assert bool((dx == 0).all()) and not torch.signbit(dx).any()
+
+
+# dW's ragged case: 4 groups of 4 tiles of 128 rows.  Counts that are not
+# multiples of 16 or 64, group 1 with no real row, tile 13's id outside
+# [0, G), and NaN in x and dy past tile 2's count (noise past the others').
+DW_BT = 128
+DW_ROWS = [1, 5, 63, 65, 0, 0, 0, 0, 77, 127, 128, 64, 128, 17, 32, 100]
+DW_NAN_TILE = 2
+
+
+def _dw_case(d, f, G=4):
+    rng = np.random.default_rng(d * f)
+    T = len(DW_ROWS) * DW_BT
+    x = torch.from_numpy(rng.normal(size=(T, d)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(T, f)).astype(np.float32))
+    rows = torch.tensor(DW_ROWS, dtype=torch.int32)
+    past = (torch.arange(DW_BT)[None, :] >= rows[:, None]).reshape(T)
+    nan = past.clone()
+    nan[: DW_NAN_TILE * DW_BT] = False
+    nan[(DW_NAN_TILE + 1) * DW_BT:] = False
+    x[nan], dy[nan] = float("nan"), float("nan")
+    gid = torch.arange(len(DW_ROWS), dtype=torch.int32) // (len(DW_ROWS) // G)
+    gid[13] = G + 5
+    return x.to(torch.bfloat16), dy.to(torch.bfloat16), gid, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f,path", [
+    (192, 160, "tma"),  # d, f not multiples of 64 or 128
+    (256, 176, "tma"),
+    (2048, 1408, "tma"),  # moonshot's gate/up widths
+    (100, 37, "elem"),  # not multiples of 8: element loads
+], ids=["192x160", "256x176", "moe", "odd"])
+def test_k5_dw_kernel_masks_rows_past_the_counts(card, d, f, path):
+    """The dW kernel against ``grouped_matmul_dw_ref`` (1e-2 of the largest
+    value, bf16) with counts of 1, 5, 63, 65, 77 and 127 rows, noise past
+    every count and NaN past one, an empty group and a tile id outside
+    [0, G): the kernel ``dw_kernel_path`` names ran once, its output is
+    finite, and the empty group's dW is +0 (no negative zero)."""
+    x, dy, gid, rows = _dw_case(d, f)
+    want = gkernel.grouped_matmul_dw_kernel(x, dy, gid, 4, DW_BT, rows)
+    x_, dy_ = x.to(card), dy.to(card)
+    assert gkernel.dw_kernel_path(x_, dy_) == path
+    before = gkernel.LAUNCHES["grouped_matmul_dw"]
+    got = gkernel.grouped_matmul_dw_kernel(x_, dy_, gid.to(card), 4, DW_BT,
+                                           rows.to(card))
+    torch.cuda.synchronize()
+    assert gkernel.LAUNCHES["grouped_matmul_dw"] == before + 1
+    got = got.cpu()
+    assert bool(torch.isfinite(got).all())
+    _close_to_max(got, want, 1e-2)
+    assert bool((got[1] == 0).all()) and not torch.signbit(got[1]).any()
+    assert (got[0] != 0).any() and (got[3] != 0).any()
+
+
+@pytest.mark.cuda
+def test_k5_dw_same_bits_every_run(card):
+    """dW sums each output element in one block in row order: two calls
+    give the same bits."""
+    x, dy, gid, rows = [t.to(card) for t in _dw_case(256, 176)]
+    a = gkernel.grouped_matmul_dw_kernel(x, dy, gid, 4, DW_BT, rows)
+    b = gkernel.grouped_matmul_dw_kernel(x, dy, gid, 4, DW_BT, rows)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f,with_rows", [
+    (176, 200, True),  # ragged output columns and depth
+    (2048, 1408, True),  # moonshot's dX of the gate/up product
+    (1408, 2048, False),
+], ids=["ragged", "moe_up", "moe_down_dense"])
+def test_k5_dx_reads_w_transposed_bit_for_bit(card, d, f, with_rows):
+    """K5's dX reads the forward's w (G, d, f) through its tensor map
+    (K-major): equal bit for bit to K5 on a contiguous copy of w^T, on the
+    TMA kernel both times."""
+    rng = np.random.default_rng(d + 3 * f)
+    G, bt = 4, 128
+    w = torch.from_numpy((rng.normal(size=(G, d, f)) * d ** -0.5)
+                         .astype(np.float32)).to(torch.bfloat16).to(card)
+    dy = torch.from_numpy(rng.normal(size=(G * 256, f)).astype(np.float32)
+                          ).to(torch.bfloat16).to(card)
+    gid = (torch.arange(G * 256 // bt, dtype=torch.int32) // 2).to(card)
+    rows = (torch.tensor([128, 77, 0, 0, 5, 128, 63, 65], dtype=torch.int32)
+            .to(card) if with_rows else None)
+    wt = w.transpose(1, 2).contiguous()
+    assert gkernel.kernel_path(dy, w) == gkernel.kernel_path(dy, wt) == "tma"
+    got = gkernel._k5(dy, gid, w, bt, rows, "grouped_matmul_dx",
+                      w_transposed=True)
+    want = gkernel._k5(dy, gid, wt, bt, rows, "grouped_matmul_dx")
+    torch.cuda.synchronize()
+    assert got.shape == (G * 256, d)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_k5_backward_copies_nothing(card):
+    """One ``grouped_matmul_fn`` backward at bf16 TMA shapes runs K5's dX
+    and the dW kernel and no device-to-device copy (torch.profiler's
+    device events): w^T is read through its tensor map."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, _, w = _gmm_case(np.random.default_rng(4), [256] * 4, 256, 192,
+                        torch.bfloat16)
+    x_ = x.to(card).requires_grad_()
+    w_ = w.to(card).requires_grad_()
+    gid = (torch.arange(8, dtype=torch.int32) // 2).to(card)
+    rows = torch.tensor([128, 77, 0, 0, 5, 128, 63, 65], dtype=torch.int32,
+                        device=card)
+    y = gkernel.grouped_matmul_fn(x_, gid, w_, 128, rows)
+    dy = torch.randn(y.shape, device=card).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dx, dw = torch.autograd.grad(y, (x_, w_), dy)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert sum("gmm_" in n for n in names) == 2, names
+    assert not [n for n in names if "copy" in n.lower()
+                or "memcpy" in n.lower()], names
+    assert dx.shape == x.shape and dw.shape == w.shape
 
 
 @pytest.mark.cuda
