@@ -5,7 +5,8 @@ of the MoE moonshot-v1-16b-a3b (K4 and the grouped matmul K5), the
 durable service daemon over both (a kill -9 drill on the cross-match),
 the paper's drivers and gates, the rest of the model zoo (the SSM,
 the Jamba hybrid, the encoder-decoder and the VLM), served and
-prefilled, and the MoE train step with K5's backward.
+prefilled, the MoE train step with K5's backward, and the trainer with
+its checkpoint and resume.
 
     python3 chip_smoke.py
 
@@ -233,14 +234,42 @@ Phases; any failure exits non-zero before the last line is printed:
               against the CPU within ``TRAIN_LOSS_TOL`` (relative) and
               ``TRAIN_GRAD_TOL`` (of each leaf's largest value), each MoE
               layer's routing compared and a flip printed.
+13. trainer -- ``training/trainer.py`` on ``cuda``.  (a) moonshot-v1-16b-a3b
+              at its published widths cut in depth to ``TRAINER_LAYERS``
+              (1) of 48 layers (1.24 G parameters; its checkpoint, bf16
+              weights and AdamW's f32 moments, ~12.4 GB: the cut is forced
+              by checkpoint bytes and the run's time limit), bf16, AdamW,
+              remat, batches of 8 x 512 from ``TokenPipeline(seed=0)``: two
+              uninterrupted ``Trainer``s of ``TRAINER_STEPS`` (6) steps
+              (the card's run-to-run spread of the loss), then trainer A,
+              3 steps with a checkpoint at step 3 into
+              ``build/trainer_ckpt/``, then trainer B on that directory to
+              step 6.  B must start at step 3 with every leaf of its
+              parameters and optimizer state equal to A's (bf16
+              included), the manifest must hold bfloat16 leaves, B's
+              losses at steps 4-6 must lie within ``TRAINER_LOSS_TOL`` of
+              the first uninterrupted run's, every loss finite, and every
+              run's K5 forward / dX / dW launches 6 / 3 / 3 a layer a step.
+              Printed: free disk (below twice the checkpoint's bytes the
+              phase fails), checkpoint bytes and files, the ms ``save``
+              blocked the loop, the s ``wait`` blocked, the restore s, the
+              median step.  (b) ``Trainer`` at the f32 smoke configs of
+              codeqwen1.5-7b and moonshot-v1-16b-a3b (K5's f32 kernels)
+              for ``TRAINER_SMOKE_STEPS`` (20) steps from weights made on
+              the CPU: every loss within ``TRAINER_SMOKE_TOL`` (relative)
+              of the CPU run's.  (c) ``launch.train`` (codeqwen1.5-7b, 20
+              steps) prints a finite final loss and ``examples.train_lm
+              --big --steps 100`` prints ``improved``.
 
 The last two lines are the kernels' JSON record and the device record.
 Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import math
 import os
@@ -292,7 +321,11 @@ from repro_torch.models.common import pad_vocab  # noqa: E402
 from repro_torch.training import make_optimizer, make_train_step  # noqa: E402
 from repro_torch.training.optimizer import tree_leaves, tree_map  # noqa: E402
 from repro_torch.training.train_step import make_prefill_step  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.examples import train_lm  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.training import trainer as trainer_mod  # noqa: E402
+from repro_torch.training.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.obs import Observability  # noqa: E402
 from repro_torch.serving import ServiceDaemon, ServingHost  # noqa: E402
 
@@ -439,6 +472,27 @@ TRAIN_DW_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 # H100 80GB HBM3 at 700.00 W, as PERF.md records it: printed beside this
 # run's time, not measured here (the kernel is gone).
 DW_EARLIER_MS = {"a": 2.8397, "a'": 2.7099}
+# Phase 13: the trainer at moonshot's full width cut to TRAINER_LAYERS of
+# 48 layers (the cut forced by checkpoint bytes: 12.4 GB a save at one
+# layer, 29.5 GB at four, and two saves and a restore a run).
+# TRAINER_LOSS_TOL: B's resumed losses against the first uninterrupted
+# run's, relative.  The card's own run-to-run spread is printed beside it
+# (the MoE dispatch's index_add_ and the embedding's backward may sum in
+# no fixed order): an H100 at 700 W measured 0 for both, so the tolerance
+# only leaves room for such sums (an f32 ulp of a loss of 12 is 8e-8
+# relative), while a batch out of place moves a loss by ~1e-3.
+# TRAINER_SMOKE_TOL: the f32 smoke configs' 20 losses on the card against
+# the CPU's, relative (measured 5.4e-5 and 3.6e-5: the products sum in
+# other orders, and 20 AdamW steps carry the differences on).
+TRAINER_LAYERS = 1
+TRAINER_STEPS = 6
+TRAINER_SAVE_AT = 3
+TRAINER_LOSS_TOL = 1e-5
+TRAINER_SMOKE_ARCHS = (SERVE_ARCH, MOE_ARCH)
+TRAINER_SMOKE_STEPS = 20
+TRAINER_SMOKE_TOL = 1e-3
+TRAINER_DIR = pathlib.Path(ROOT) / "build" / "trainer_ckpt"
+TRAIN_LM_DIR = pathlib.Path(ROOT) / "build" / "train_lm_ckpt"
 
 
 def main() -> int:
@@ -559,6 +613,11 @@ def main() -> int:
     by_run["train"], backward = run_train_phase(smi, dw_fault)
     records.extend(backward)
     print(f"[train] phase 12 in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # -- 13. the trainer: checkpoint and resume at full width ----------------
+    t0 = time.perf_counter()
+    by_run["trainer"] = run_trainer_phase(smi)
+    print(f"[trainer] phase 13 in {time.perf_counter() - t0:.1f}s", flush=True)
 
     for rec in records:
         rec["launches_by_run"] = {
@@ -2792,6 +2851,235 @@ def run_train_phase(smi, dw_fault=None) -> tuple:
     train_cpu_check(cfg, tag)
     torch.cuda.empty_cache()
     return launches, [dx_rec, dw_rec]
+
+
+# ---------------------------------------------------------------- phase 13
+def timed(fn, out: list, sync: bool = False):
+    """``fn`` that appends each call's host seconds to ``out``."""
+    def wrapper(*args, **kw):
+        t0 = time.perf_counter()
+        result = fn(*args, **kw)
+        if sync:
+            torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+        return result
+    return wrapper
+
+
+def make_trainer(cfg, tag, steps, ckpt_dir) -> Trainer:
+    """A ``Trainer`` on the card to ``steps``, checkpointing into
+    ``ckpt_dir`` (or not) every ``TRAINER_SAVE_AT`` steps."""
+    tcfg = TrainerConfig(steps=steps, checkpoint_every=TRAINER_SAVE_AT,
+                         checkpoint_dir=None if ckpt_dir is None
+                         else str(ckpt_dir), log_every=1, seed=0,
+                         global_batch=TRAIN_B, seq_len=TRAIN_S)
+    return Trainer(cfg, tcfg, log_fn=lambda s: print(f"[{tag}] {s}",
+                                                     flush=True),
+                   device=DEVICE)
+
+
+def run_counted(t, launches, tag) -> list:
+    """``t.run()``'s history; its kernel launches added to ``launches``,
+    K5's checked against 6 / 3 / 3 a layer a step (phase 12's rule with
+    remat), every loss finite."""
+    reset_all_launches()
+    hist = t.run()
+    torch.cuda.synchronize()
+    got = all_launches()
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    n, L = len(hist), t.cfg.n_layers
+    want = {"grouped_matmul": 3 * L * (2 if t.cfg.remat else 1) * n,
+            "grouped_matmul_dx": 3 * L * n, "grouped_matmul_dw": 3 * L * n}
+    if {k: got.get(k, 0) for k in want} != want:
+        raise SystemExit(f"[{tag}] K5 launches {got} for {n} steps of "
+                         f"{L} layers; expected {want}")
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"[{tag}] a loss is not finite: {losses}")
+    return hist
+
+
+def resume_check(cfg, smi, launches) -> None:
+    """Phase 13 (a): two uninterrupted runs, then A (to the checkpoint) and
+    B (resumed from it) at full width."""
+    tag = "trainer"
+    full = get_config(MOE_ARCH).n_layers
+    meta = models.init_params(cfg, device="meta")
+    n_params = sum(t.numel() for t in iter_leaves(meta))
+    # the weights, AdamW's f32 m and v, and its int32 step
+    ckpt_bytes = sum(t.numel() * t.element_size() for t in iter_leaves(meta)
+                     ) + 2 * 4 * n_params + 4
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    TRAINER_DIR.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(TRAINER_DIR.parent).free
+    print(f"[{tag}] {MOE_ARCH} at full width, {cfg.n_layers} of {full} "
+          f"layers, {n_params:,} parameters in {cfg.dtype}, {cfg.optimizer}, "
+          f"remat={cfg.remat}, {TRAIN_B} x {TRAIN_S} tokens a step; "
+          f"checkpoint {ckpt_bytes / 1e9:.3f} GB; free disk "
+          f"{free / 1e9:.3f} GB under {TRAINER_DIR.parent}", flush=True)
+    if free < 2 * ckpt_bytes:
+        raise SystemExit(f"[{tag}] {free / 1e9:.3f} GB free under "
+                         f"{TRAINER_DIR.parent}: two checkpoints need "
+                         f"{2 * ckpt_bytes / 1e9:.3f} GB")
+
+    # two uninterrupted runs: the card's own spread
+    runs = []
+    for i in range(2):
+        t = make_trainer(cfg, f"{tag} run {i + 1}", TRAINER_STEPS, None)
+        hist = run_counted(t, launches, tag)
+        runs.append(hist)
+        del t
+        torch.cuda.empty_cache()
+    u1 = [h["loss"] for h in runs[0]]
+    u2 = [h["loss"] for h in runs[1]]
+    spread = max(abs(a - b) / abs(a) for a, b in zip(u1, u2))
+
+    # A: to the checkpoint
+    a = make_trainer(cfg, f"{tag} A", TRAINER_SAVE_AT, TRAINER_DIR)
+    saves, waits = [], []
+    a.ckpt.save = timed(a.ckpt.save, saves)
+    a.ckpt.wait = timed(a.ckpt.wait, waits)
+    hist_a = run_counted(a, launches, tag)
+    step_dir = TRAINER_DIR / f"step_{TRAINER_SAVE_AT:08d}"
+    files = sorted(step_dir.iterdir())
+    on_disk = sum(f.stat().st_size for f in files)
+    manifest = json.loads((step_dir / "manifest.json").read_text())
+    dtypes = sorted({leaf["dtype"] for leaf in manifest["leaves"]})
+    print(f"[{tag}] A: {len(hist_a)} steps, checkpoint at step "
+          f"{TRAINER_SAVE_AT}: {on_disk:,} bytes in {len(files)} files "
+          f"({len(manifest['leaves'])} leaves, dtypes {dtypes}); save() "
+          f"blocked the loop {saves[0] * 1e3:.3f} ms (the host snapshot), "
+          f"wait() blocked {waits[-1]:.3f} s (the write)", flush=True)
+    if "bfloat16" not in dtypes:
+        raise SystemExit(f"[{tag}] the manifest holds no bfloat16 leaf")
+
+    # B: resumed from A's checkpoint
+    restores = []
+    inner = trainer_mod.restore_checkpoint
+    trainer_mod.restore_checkpoint = timed(inner, restores, sync=True)
+    try:
+        b = make_trainer(cfg, f"{tag} B", TRAINER_STEPS, TRAINER_DIR)
+    finally:
+        trainer_mod.restore_checkpoint = inner
+    if b.start_step != TRAINER_SAVE_AT or len(restores) != 1:
+        raise SystemExit(f"[{tag}] B started at step {b.start_step}, "
+                         f"expected {TRAINER_SAVE_AT}")
+    n_leaves = 0
+    for mine, theirs in ((b.params, a.params), (b.opt_state, a.opt_state)):
+        la, lb = list(iter_leaves(theirs)), list(iter_leaves(mine))
+        if len(la) != len(lb) or not all(
+                x.dtype == y.dtype and x.device == y.device
+                and torch.equal(x, y) for x, y in zip(la, lb)):
+            raise SystemExit(f"[{tag}] B's restored state differs from A's")
+        n_leaves += len(la)
+    del a
+    torch.cuda.empty_cache()
+    print(f"[{tag}] B: restored step {b.start_step} in {restores[0]:.3f} s; "
+          f"{n_leaves} leaves of parameters and optimizer state equal to "
+          f"A's (torch.equal, bf16 included)", flush=True)
+    bsaves, bwaits = [], []
+    b.ckpt.save = timed(b.ckpt.save, bsaves)
+    b.ckpt.wait = timed(b.ckpt.wait, bwaits)
+    hist_b = run_counted(b, launches, tag)
+    del b
+    torch.cuda.empty_cache()
+    got = [h["loss"] for h in hist_b]
+    want = u1[TRAINER_SAVE_AT:]
+    worst = max(abs(x - y) / abs(y) for x, y in zip(got, want))
+    steps_ms = sorted(h["sec"] * 1e3 for h in runs[0][1:] + runs[1][1:])
+    la = [h["loss"] for h in hist_a]
+    print(f"[{tag}] losses: run 1 {u1}; run 2 {u2}; A {la}; B (steps "
+          f"{TRAINER_SAVE_AT + 1}-{TRAINER_STEPS}) {got}", flush=True)
+    print(f"[{tag}] B against run 1: largest |diff| / |loss| {worst:.3e} "
+          f"(tolerance {TRAINER_LOSS_TOL}); the card's spread, run 1 against "
+          f"run 2: {spread:.3e}; B's save at step {TRAINER_STEPS} blocked "
+          f"{bsaves[0] * 1e3:.3f} ms and its wait {bwaits[-1]:.3f} s; step "
+          f"{steps_ms[len(steps_ms) // 2]:.3f} ms median of the runs' steps "
+          f"2-{TRAINER_STEPS} ({steps_ms[0]:.3f}-{steps_ms[-1]:.3f}; host "
+          f"clock around the step and its loss read back) ({smi})",
+          flush=True)
+    shutil.rmtree(TRAINER_DIR)
+    if worst > TRAINER_LOSS_TOL:
+        raise SystemExit(f"[{tag}] B's losses differ from the uninterrupted "
+                         f"run's by {worst:.3e}")
+
+
+def smoke_cpu_check(arch, launches) -> None:
+    """Phase 13 (b): the f32 smoke config's ``Trainer`` on the card from
+    the CPU trainer's initial weights, loss for loss against the CPU."""
+    tag = "trainer"
+    cfg = smoke_config(arch)
+    tcfg = TrainerConfig(steps=TRAINER_SMOKE_STEPS, seed=0)
+    quiet = dict(log_fn=lambda s: None)
+    cpu = Trainer(cfg, tcfg, device="cpu", **quiet)
+    card = Trainer(cfg, tcfg, device=DEVICE, **quiet)
+    card.params = tree_map(lambda p: p.to(DEVICE, copy=True), cpu.params)
+    card.opt_state = card.opt.init(card.params)
+    t0 = time.perf_counter()
+    want = [h["loss"] for h in cpu.run()]
+    t_cpu = time.perf_counter() - t0
+    reset_all_launches()
+    t0 = time.perf_counter()
+    got = [h["loss"] for h in card.run()]
+    t_card = time.perf_counter() - t0
+    for k, v in all_launches().items():
+        launches[k] = launches.get(k, 0) + v
+    worst = max(abs(x - y) / abs(y) for x, y in zip(got, want))
+    print(f"[{tag}] {arch} smoke config (f32, {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}{', %d experts' % cfg.n_experts if cfg.n_experts else ''}): "
+          f"{TRAINER_SMOKE_STEPS} steps of {tcfg.global_batch} x "
+          f"{tcfg.seq_len} on the card ({t_card:.2f} s) against the cpu "
+          f"({t_cpu:.2f} s): loss {want[0]:.6f} -> {want[-1]:.6f}, largest "
+          f"|diff| / |loss| {worst:.3e} (tolerance {TRAINER_SMOKE_TOL})",
+          flush=True)
+    if not (worst <= TRAINER_SMOKE_TOL
+            and all(math.isfinite(v) for v in got)):
+        raise SystemExit(f"[{tag}] {arch}: the card's losses differ from "
+                         f"the cpu's")
+
+
+def captured(fn, *args) -> str:
+    """``fn(*args)``'s standard output, echoed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(*args)
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    return out
+
+
+def run_trainer_phase(smi) -> dict:
+    """Phase 13: the trainer on the card.  Returns the phase's kernel
+    launches."""
+    launches: dict = {}
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=TRAINER_LAYERS)
+    resume_check(cfg, smi, launches)
+    for arch in TRAINER_SMOKE_ARCHS:
+        smoke_cpu_check(arch, launches)
+
+    # (c) the entry points
+    reset_all_launches()
+    t0 = time.perf_counter()
+    out = captured(train_launcher.main, ["--arch", SERVE_ARCH, "--steps",
+                                         "20", "--device", DEVICE])
+    last = out.strip().splitlines()[-1]
+    if not (last.startswith("[train] final loss ")
+            and math.isfinite(float(last.split()[3]))):
+        raise SystemExit(f"[trainer] launch.train printed {last!r}")
+    t_launch = time.perf_counter() - t0
+    shutil.rmtree(TRAIN_LM_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    out = captured(train_lm.main, ["--big", "--steps", "100", "--device",
+                                   DEVICE, "--ckpt-dir", str(TRAIN_LM_DIR)])
+    shutil.rmtree(TRAIN_LM_DIR, ignore_errors=True)
+    if "(improved)" not in out:
+        raise SystemExit("[trainer] train_lm --big did not print improved")
+    for k, v in all_launches().items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"[trainer] launch.train {t_launch:.2f} s, train_lm --big 100 "
+          f"steps {time.perf_counter() - t0:.2f} s on the card", flush=True)
+    return launches
 
 
 if __name__ == "__main__":

@@ -1,8 +1,7 @@
 """Driver harness -- one section per paper table/figure + system benches.
 
-The port of ``benchmarks/run.py``, without ``ft_bench`` (it needs the
-training substrate's ``dist/ft.py``) and ``roofline_table`` (it reads the
-dry-run's artifacts): both wait for their modules.  Prints
+The port of ``benchmarks/run.py``, without ``roofline_table`` (it reads
+the dry-run's artifacts, which come with the mesh tools).  Prints
 ``name,us_per_call,derived`` CSV lines (one per benchmark) between
 human-readable sections; each section writes its ``BENCH_torch_*.json``
 report into ``--out-dir``.  A failed section is reported and the harness
@@ -37,6 +36,7 @@ def main(argv=None) -> int:
         fig6_workload_cdf,
         fig7_schedulers,
         fig8_tradeoff,
+        ft_bench,
         kernel_bench,
         serving_bench,
     )
@@ -55,6 +55,7 @@ def main(argv=None) -> int:
         ("Observability: obs-on/off overhead + snapshot/Perfetto artifacts", bench_obs),
         ("Serving: multi-tenant LifeRaft engine", serving_bench),
         ("Kernels: micro-benchmarks", kernel_bench),
+        ("Fault tolerance: goodput under failures", ft_bench),
     ]
     out_dir = pathlib.Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -1,3 +1,4 @@
 """The reference's examples on the port: ``python -m
 repro_torch.examples.<name>`` (``crossmatch_skyquery``, ``quickstart``,
-``serve_multitenant``); each takes ``--device`` (``cuda`` by default)."""
+``serve_multitenant``, ``train_lm``); each takes ``--device`` (``cuda`` by
+default)."""

@@ -49,6 +49,7 @@ from repro_torch.benchmarks import fig5_bucket_reuse as t_fig5  # noqa: E402
 from repro_torch.benchmarks import fig6_workload_cdf as t_fig6  # noqa: E402
 from repro_torch.benchmarks import fig7_schedulers as t_fig7  # noqa: E402
 from repro_torch.benchmarks import fig8_tradeoff as t_fig8  # noqa: E402
+from repro_torch.benchmarks import ft_bench as t_ft  # noqa: E402
 from repro_torch.benchmarks import run as t_run  # noqa: E402
 from repro_torch.benchmarks import serving_bench as t_serving  # noqa: E402
 from repro_torch.examples import quickstart as t_quick  # noqa: E402
@@ -184,7 +185,7 @@ def test_harness_runs_every_section_and_fails_if_one_fails(monkeypatch,
     assert calls[5][1][1] == str(tmp_path / "BENCH_torch_scheduler.json")
     out = capsys.readouterr().out
     assert "BENCH-ERROR" in out and "failures=1" in out
-    assert "ft_bench" not in out and "roofline" not in out.lower()
+    assert "Fault tolerance" in out and "roofline" not in out.lower()
 
 
 def _harness_sections():
@@ -192,4 +193,4 @@ def _harness_sections():
         bench_scheduler, bench_sharedplan, kernel_bench, fig2_hybrid_join)
     return [fig2_hybrid_join, t_fig5, t_fig6, t_fig7, t_fig8, bench_scheduler,
             t_adaptive, t_prefetch, bench_sharedplan, t_shard, t_obs,
-            t_serving, kernel_bench]
+            t_serving, kernel_bench, t_ft]

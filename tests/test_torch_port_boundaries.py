@@ -140,7 +140,7 @@ DRIVERS = ["benchmarks." + n for n in (
     "fig2_hybrid_join", "fig5_bucket_reuse", "fig6_workload_cdf",
     "fig7_schedulers", "fig8_tradeoff", "bench_scheduler", "bench_sharedplan",
     "bench_shard", "bench_obs", "bench_adaptive", "bench_prefetch",
-    "serving_bench", "kernel_bench")] + ["examples." + n for n in (
+    "serving_bench", "kernel_bench", "ft_bench")] + ["examples." + n for n in (
         "crossmatch_skyquery", "quickstart", "serve_multitenant")]
 
 
@@ -174,7 +174,7 @@ def test_a_driver_run_as_a_script_without_a_card_fails():
                              cwd=ROOT)
         assert out.returncode != 0
         assert "no CUDA" in out.stderr + out.stdout
-    assert "failures=13" in out.stdout
+    assert "failures=14" in out.stdout
 
 
 @pytest.mark.parametrize("module", [tkernel, pkernel, gkernel],
