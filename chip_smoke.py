@@ -259,7 +259,24 @@ Phases; any failure exits non-zero before the last line is printed:
               the CPU: every loss within ``TRAINER_SMOKE_TOL`` (relative)
               of the CPU run's.  (c) ``launch.train`` (codeqwen1.5-7b, 20
               steps) prints a finite final loss and ``examples.train_lm
-              --big --steps 100`` prints ``improved``.
+              --big --steps 100`` prints ``improved``.  The checkpoint
+              directory stays until phase 14 ends.
+  14. mesh    The mesh tools.  (a) ``python -m repro_torch.launch.dryrun``
+              in subprocesses of their own (each on a ``fake`` process
+              group of 256 or 512 ranks, shapes only), started together
+              while (b) runs: moonshot-v1-16b-a3b train_4k --zero1 on
+              16x16 and, with --multi-pod, on 2x16x16, and
+              codeqwen1.5-7b decode_32k on 16x16 (its 32 KV heads take
+              the sequence-parallel K4 merge under DECODE_RULES).  Each
+              must exit 0; its OK line and the argument bytes a rank
+              holds are printed beside the card's memory.  (b) an NCCL
+              process group of one rank and a (1, 1) ("data", "model")
+              mesh on the card; ``elastic_restore`` of phase 13's step-3
+              checkpoint with zero1: every leaf a DTensor on cuda:0; from
+              their local tensors, two train steps on the batches
+              trainer B took must give B's step-4 and step-5 losses bit
+              for bit.  Printed: the restore's seconds beside phase 13's
+              plain restore, and the phase's seconds.
 
 The last two lines are the kernels' JSON record and the device record.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -269,6 +286,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import importlib.util
 import io
 import json
 import math
@@ -326,6 +344,8 @@ from repro_torch.examples import train_lm  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.training import trainer as trainer_mod  # noqa: E402
 from repro_torch.training.trainer import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.checkpoint import elastic_restore  # noqa: E402
+from repro_torch.sharding import DEFAULT_RULES, ShardingRules  # noqa: E402
 from repro_torch.obs import Observability  # noqa: E402
 from repro_torch.serving import ServiceDaemon, ServingHost  # noqa: E402
 
@@ -493,6 +513,16 @@ TRAINER_SMOKE_STEPS = 20
 TRAINER_SMOKE_TOL = 1e-3
 TRAINER_DIR = pathlib.Path(ROOT) / "build" / "trainer_ckpt"
 TRAIN_LM_DIR = pathlib.Path(ROOT) / "build" / "train_lm_ckpt"
+# Phase 14 (a): the dry-run's cells, each a subprocess, and their output.
+MESH_CELLS = (
+    ("--arch", MOE_ARCH, "--shape", "train_4k", "--zero1"),
+    ("--arch", MOE_ARCH, "--shape", "train_4k", "--zero1", "--multi-pod"),
+    ("--arch", SERVE_ARCH, "--shape", "decode_32k"),
+)
+MESH_DIR = pathlib.Path(ROOT) / "build" / "dryrun_smoke"
+MESH_TIMEOUT = 600
+# Phase 14 (b): the steps after the checkpoint that are replayed.
+MESH_STEPS = 2
 
 
 def main() -> int:
@@ -616,8 +646,14 @@ def main() -> int:
 
     # -- 13. the trainer: checkpoint and resume at full width ----------------
     t0 = time.perf_counter()
-    by_run["trainer"] = run_trainer_phase(smi)
+    by_run["trainer"], resumed = run_trainer_phase(smi)
     print(f"[trainer] phase 13 in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # -- 14. the mesh tools: the dry-run and the elastic restore -------------
+    t0 = time.perf_counter()
+    by_run["mesh"] = run_mesh_phase(smi, resumed)
+    shutil.rmtree(TRAINER_DIR)
+    print(f"[mesh] phase 14 in {time.perf_counter() - t0:.1f}s", flush=True)
 
     for rec in records:
         rec["launches_by_run"] = {
@@ -2900,9 +2936,10 @@ def run_counted(t, launches, tag) -> list:
     return hist
 
 
-def resume_check(cfg, smi, launches) -> None:
+def resume_check(cfg, smi, launches) -> dict:
     """Phase 13 (a): two uninterrupted runs, then A (to the checkpoint) and
-    B (resumed from it) at full width."""
+    B (resumed from it) at full width.  Returns B's losses and the plain
+    restore's seconds; the checkpoint stays for phase 14."""
     tag = "trainer"
     full = get_config(MOE_ARCH).n_layers
     meta = models.init_params(cfg, device="meta")
@@ -2999,10 +3036,10 @@ def resume_check(cfg, smi, launches) -> None:
           f"2-{TRAINER_STEPS} ({steps_ms[0]:.3f}-{steps_ms[-1]:.3f}; host "
           f"clock around the step and its loss read back) ({smi})",
           flush=True)
-    shutil.rmtree(TRAINER_DIR)
     if worst > TRAINER_LOSS_TOL:
         raise SystemExit(f"[{tag}] B's losses differ from the uninterrupted "
                          f"run's by {worst:.3e}")
+    return {"b_losses": got, "restore_s": restores[0]}
 
 
 def smoke_cpu_check(arch, launches) -> None:
@@ -3049,12 +3086,12 @@ def captured(fn, *args) -> str:
     return out
 
 
-def run_trainer_phase(smi) -> dict:
+def run_trainer_phase(smi):
     """Phase 13: the trainer on the card.  Returns the phase's kernel
-    launches."""
+    launches and ``resume_check``'s record."""
     launches: dict = {}
     cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=TRAINER_LAYERS)
-    resume_check(cfg, smi, launches)
+    resumed = resume_check(cfg, smi, launches)
     for arch in TRAINER_SMOKE_ARCHS:
         smoke_cpu_check(arch, launches)
 
@@ -3079,6 +3116,146 @@ def run_trainer_phase(smi) -> dict:
         launches[k] = launches.get(k, 0) + v
     print(f"[trainer] launch.train {t_launch:.2f} s, train_lm --big 100 "
           f"steps {time.perf_counter() - t0:.2f} s on the card", flush=True)
+    return launches, resumed
+
+
+# ---------------------------------------------------------------- phase 14
+def start_dryruns() -> list:
+    """Phase 14 (a): one ``launch.dryrun`` subprocess a cell, started
+    together; returns (cell, process) pairs."""
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for cell in MESH_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *cell,
+               "--out", str(MESH_DIR)]
+        procs.append((cell, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=ROOT)))
+    return procs
+
+
+def finish_dryruns(procs, smi) -> None:
+    """Phase 14 (a): wait for each cell; it must exit 0.  Prints its OK
+    line and the argument bytes a rank holds beside the card's memory."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    failed = []
+    for cell, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=MESH_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        ok = [ln for ln in out.splitlines() if ln.startswith("OK")]
+        if proc.returncode != 0 or not ok:
+            failed.append(cell)
+            print(f"[mesh] dryrun {' '.join(cell)} exited {proc.returncode}:"
+                  f"\n{out[-2000:]}\n{err[-4000:]}", flush=True)
+            continue
+        mesh = "2x16x16" if "--multi-pod" in cell else "16x16"
+        rec = json.loads((MESH_DIR / f"{cell[1]}__{cell[3]}__{mesh}.json")
+                         .read_text())
+        args = rec["memory_analysis"]["argument_bytes"]
+        print(f"[mesh] {ok[0].strip()}", flush=True)
+        print(f"[mesh]   {rec['chips']} ranks, trace {rec['trace_s']:.2f} s "
+              f"(cell {rec['cell_s']:.2f} s with its scan lengths); "
+              f"arguments {args / 1e9:.3f} GB a rank against this card's "
+              f"{total / 1e9:.3f} GB ({smi}); kernels {rec['kernels']}",
+              flush=True)
+    if failed:
+        raise SystemExit(f"[mesh] dry-run cells failed: {failed}")
+
+
+def elastic_check(smi, resumed, launches) -> None:
+    """Phase 14 (b): phase 13's checkpoint restored onto a (1, 1) mesh of
+    the card, and B's next steps replayed from the local tensors."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=TRAINER_LAYERS)
+    tcfg = TrainerConfig(seed=0, global_batch=TRAIN_B, seq_len=TRAIN_S)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rules = ShardingRules(mesh, dict(DEFAULT_RULES))
+        opt = make_optimizer(cfg.optimizer, lr=tcfg.lr)
+        meta = models.init_params(cfg, device="meta")
+        like = {"params": meta, "opt": opt.init(meta)}
+        paxes = models.param_axes(cfg)
+        axes = {"params": paxes, "opt": opt.state_axes(paxes)}
+        t0 = time.perf_counter()
+        tree, step = elastic_restore(TRAINER_DIR, TRAINER_SAVE_AT, like, axes,
+                                     rules, zero1=True)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        leaves = list(iter_leaves(tree))
+        where = {str(t.device) for t in leaves}
+        if step != TRAINER_SAVE_AT or not all(
+                isinstance(t, DTensor) for t in leaves) or where != {"cuda:0"}:
+            raise SystemExit(f"[mesh] elastic restore gave step {step}, "
+                             f"devices {where}, "
+                             f"{sum(isinstance(t, DTensor) for t in leaves)} "
+                             f"DTensors of {len(leaves)} leaves")
+        print(f"[mesh] elastic restore of step {step} onto a (1, 1) mesh: "
+              f"{len(leaves)} leaves, every one a DTensor on cuda:0, in "
+              f"{t_restore:.3f} s (phase 13's plain restore "
+              f"{resumed['restore_s']:.3f} s) ({smi})", flush=True)
+        local = tree_map(lambda t: t.to_local(), tree)
+        del tree, leaves
+        params, state = local["params"], local["opt"]
+        data = TokenPipeline.restore(
+            DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=tcfg.seed),
+            {"step": step, "seed": tcfg.seed})
+        step_fn = make_train_step(cfg, opt)
+        reset_all_launches()
+        got = []
+        for _ in range(MESH_STEPS):
+            batch = {k: torch.from_numpy(v).to(DEVICE)
+                     for k, v in data.next_batch().items()}
+            params, state, metrics = step_fn(params, state, batch)
+            got.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        for k, v in all_launches().items():
+            launches[k] = launches.get(k, 0) + v
+        want = resumed["b_losses"][:MESH_STEPS]
+        print(f"[mesh] steps {step + 1}-{step + MESH_STEPS} from the elastic "
+              f"restore: losses {got}; trainer B's {want}; K5 launches "
+              f"{ {k: v for k, v in all_launches().items() if v} }",
+              flush=True)
+        if got != want:
+            raise SystemExit("[mesh] the elastic restore's losses differ from "
+                             "trainer B's")
+        del params, state, local
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    """A free localhost port (closed again before the group binds it)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_mesh_phase(smi, resumed) -> dict:
+    """Phase 14: the mesh tools.  Returns the phase's kernel launches."""
+    launches: dict = {}
+    has_fake = importlib.util.find_spec(
+        "torch.testing._internal.distributed.fake_pg") is not None
+    print(f"[mesh] torch {torch.__version__}: "
+          f"torch.testing._internal.distributed.fake_pg "
+          f"{'present' if has_fake else 'missing'}", flush=True)
+    procs = start_dryruns()
+    try:
+        elastic_check(smi, resumed, launches)
+    finally:
+        finish_dryruns(procs, smi)
     return launches
 
 

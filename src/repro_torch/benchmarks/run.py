@@ -1,10 +1,10 @@
 """Driver harness -- one section per paper table/figure + system benches.
 
-The port of ``benchmarks/run.py``, without ``roofline_table`` (it reads
-the dry-run's artifacts, which come with the mesh tools).  Prints
-``name,us_per_call,derived`` CSV lines (one per benchmark) between
-human-readable sections; each section writes its ``BENCH_torch_*.json``
-report into ``--out-dir``.  A failed section is reported and the harness
+The port of ``benchmarks/run.py``.  Prints ``name,us_per_call,derived``
+CSV lines (one per benchmark) between human-readable sections; each
+section writes its ``BENCH_torch_*.json`` report into ``--out-dir``.
+Roofline tables come from ``launch/dryrun.py`` artifacts (``build/dryrun``)
+and are summarized by ``roofline_table``.  A failed section is reported and the harness
 carries on; it exits non-zero if any failed.
 
     python -m repro_torch.benchmarks.run [--device cpu] [--out-dir DIR]
@@ -38,6 +38,7 @@ def main(argv=None) -> int:
         fig8_tradeoff,
         ft_bench,
         kernel_bench,
+        roofline_table,
         serving_bench,
     )
 
@@ -56,6 +57,7 @@ def main(argv=None) -> int:
         ("Serving: multi-tenant LifeRaft engine", serving_bench),
         ("Kernels: micro-benchmarks", kernel_bench),
         ("Fault tolerance: goodput under failures", ft_bench),
+        ("Roofline: dry-run artifact summary", roofline_table),
     ]
     out_dir = pathlib.Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -24,8 +24,11 @@ copies the tree to the host before ``save`` returns (the optimizer then
 overwrites the parameters and moments in place), writes the files on a
 thread and blocks the *next* save until the previous one lands (bounded
 staleness of one).  Restore places each leaf, as a fresh tensor, on the
-device of the matching leaf of ``like``.  Sharded placement (``shardings``,
-``elastic_restore``) belongs to the mesh tools and is not ported yet.
+device of the matching leaf of ``like``; with ``shardings`` (a matching
+tree of ``NamedSharding``, as ``elastic_restore`` builds), each leaf
+becomes a DTensor on its sharding's mesh: every rank reads the leaf and
+keeps its own block (``DTensor.from_local``, no scatter), on the mesh's
+device type (the current CUDA device for ``cuda``).
 """
 from __future__ import annotations
 
@@ -122,29 +125,54 @@ def latest_step(directory: str | os.PathLike) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _leaf(a: np.ndarray, entry: dict, like: torch.Tensor) -> torch.Tensor:
-    """A stored array as a tensor of ``like``'s shape, dtype and device;
-    ``AssertionError`` (the reference's) on a mismatch."""
+def _leaf(a: np.ndarray, entry: dict, like: torch.Tensor,
+          sharding=None) -> torch.Tensor:
+    """A stored array as a tensor of ``like``'s shape, dtype and device, or
+    with ``sharding`` as a DTensor of this rank's block; ``AssertionError``
+    (the reference's) on a mismatch."""
     path = entry["path"]
     if tuple(a.shape) != tuple(like.shape):
         raise AssertionError((path, a.shape, like.shape))
+    if sharding is not None and a.ndim:
+        a = a[sharding.local_slices(a.shape)]
     if entry["dtype"] == "bfloat16" and a.dtype.itemsize == 2:
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
     if t.dtype != like.dtype:
         raise AssertionError((path, t.dtype, like.dtype))
-    return t.to(like.device)
+    if sharding is None:
+        return t.to(like.device)
+    from torch.distributed.tensor import DTensor
+
+    mesh = sharding.mesh
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+    local = t.to(dev, copy=True).contiguous()
+    return DTensor.from_local(local, mesh, sharding.placements,
+                              run_check=False, shape=tuple(like.shape),
+                              stride=_contiguous_strides(like.shape))
+
+
+def _contiguous_strides(shape) -> tuple:
+    strides, n = [], 1
+    for s in reversed(tuple(shape)):
+        strides.append(n)
+        n *= s
+    return tuple(reversed(strides))
 
 
 def restore_checkpoint(
     directory: str | os.PathLike,
     step: Optional[int],
     like: Any,
+    shardings: Any = None,
 ):
     """Restore into the structure of ``like`` (its keys in its own order);
     returns ``(tree, step)``.  Each leaf must have ``like``'s shape and
-    dtype (``AssertionError`` otherwise)."""
+    dtype (``AssertionError`` otherwise).  ``shardings``: a matching tree
+    of ``NamedSharding`` (None leaves stay plain), each leaf then a
+    DTensor of this rank's block (elastic restore)."""
     directory = pathlib.Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -156,13 +184,15 @@ def restore_checkpoint(
     with contextlib.ExitStack() as stack:
         files = [stack.enter_context(np.load(d / f)) for f in manifest["files"]]
 
-        def build(node, prefix):
+        def build(node, prefix, sh):
             if isinstance(node, dict):
-                return {k: build(v, _child(prefix, k)) for k, v in node.items()}
+                return {k: build(v, _child(prefix, k),
+                                 None if sh is None else sh[k])
+                        for k, v in node.items()}
             entry = by_path[prefix]
-            return _leaf(files[entry["file"]][entry["key"]], entry, node)
+            return _leaf(files[entry["file"]][entry["key"]], entry, node, sh)
 
-        tree = build(like, "")
+        tree = build(like, "", shardings)
     return tree, manifest["step"]
 
 

@@ -9,4 +9,7 @@
                     products (tensor cores in bf16), ``csrc/grouped_matmul.cu``
   nvcc            — the build (nvcc into ``build/kernels/``) and ctypes
                     loading every kernel module uses
+  shapes          — what K4 and K5 report when given ``meta`` tensors
+                    (the multi-pod dry-run's shards): their output shape,
+                    flops and bytes, nothing run
 """

@@ -24,7 +24,9 @@ would carry no gradient.
 
 A wrapper given CPU tensors runs the plain PyTorch version from ``ref``;
 given CUDA tensors it launches the kernel on the current stream, or
-raises.  ``LAUNCHES`` counts kernel launches: ``grouped_matmul`` the
+raises; given ``meta`` tensors (the multi-pod dry-run) it returns the
+output's shape and reports the kernel's flops and bytes to
+``kernels.shapes`` (every row counted: a meta tensor holds no counts).  ``LAUNCHES`` counts kernel launches: ``grouped_matmul`` the
 forward's, ``grouped_matmul_dx`` the backward's K5 on the transposed
 weights (the element-load and f32 kernels take a contiguous copy of w^T,
 off the main path), ``grouped_matmul_dw`` the weight gradient's.  The source is
@@ -38,6 +40,7 @@ import threading
 
 import torch
 
+from .. import shapes
 from ..nvcc import CudaLibrary
 from .ref import grouped_matmul_dw_ref, grouped_matmul_tiles_ref
 
@@ -196,6 +199,12 @@ def _k5(x, tile_gid, w, bt, tile_rows, counter: str,
         if w_transposed:
             w = w.transpose(1, 2).contiguous()
         return grouped_matmul_tiles_ref(x, tile_gid, w, bt, tile_rows)
+    if x.device.type == "meta":
+        T, d = x.shape
+        out = shapes.meta_empty((T, w.shape[1 if w_transposed else 2]), x)
+        shapes.record(counter, 2.0 * T * d * out.shape[1],
+                      shapes.nbytes(x, tile_gid, w, tile_rows, out))
+        return out
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check(x, tile_gid, w, bt, tile_rows, w_transposed)
@@ -236,6 +245,12 @@ def grouped_matmul_dw_kernel(
     group with none."""
     if x.device.type == "cpu":
         return grouped_matmul_dw_ref(x, dy, tile_gid, n_groups, bt, tile_rows)
+    if x.device.type == "meta":
+        T, d = x.shape
+        dw = shapes.meta_empty((n_groups, d, dy.shape[1]), x)
+        shapes.record("grouped_matmul_dw", 2.0 * T * d * dy.shape[1],
+                      shapes.nbytes(x, dy, tile_gid, tile_rows, dw))
+        return dw
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check_dw(x, dy, tile_gid, n_groups, bt, tile_rows)

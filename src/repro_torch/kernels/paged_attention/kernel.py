@@ -11,7 +11,10 @@ order; K and V come in 16-byte copies where the row allows it
 
 A wrapper given CPU tensors runs the plain PyTorch version from ``ref``;
 given CUDA tensors it launches the kernel on the current stream, or
-raises.  ``LAUNCHES["paged_attention"]`` counts kernel launches (one a
+raises; given ``meta`` tensors (the multi-pod dry-run) it returns the
+output's shape and reports the kernel's flops and bytes to
+``kernels.shapes``, every slot of the table counted (a meta tensor holds
+no lengths).  ``LAUNCHES["paged_attention"]`` counts kernel launches (one a
 call, the merge included).  The source is compiled at first use
 (``nvcc.CudaLibrary``); nothing is built when this module is imported.
 """
@@ -24,6 +27,7 @@ import threading
 
 import torch
 
+from .. import shapes
 from ..nvcc import CudaLibrary
 from .ref import paged_attention_ref
 
@@ -193,6 +197,20 @@ def _split_scratch(device: torch.device, stream: int, floats: int,
     return ws, cnt
 
 
+def _meta_call(q, k_pages, page_table, seq_lens) -> torch.Tensor:
+    """K4 on meta tensors: the output's shape; the flops of QK^T and PV and
+    the bytes of q, the table's K/V slots, the table, the lengths and the
+    output, reported to ``kernels.shapes``."""
+    B, H, D = q.shape
+    _, page, KV, _ = k_pages.shape
+    T = page_table.shape[1] * page
+    out = shapes.meta_empty(q.shape, q)
+    kv_bytes = 2 * B * T * KV * D * k_pages.element_size()
+    shapes.record("paged_attention", 4.0 * B * H * T * D,
+                  kv_bytes + shapes.nbytes(q, page_table, seq_lens, out))
+    return out
+
+
 def paged_attention_kernel(
     q: torch.Tensor,  # (B, H, D) f32 or bf16
     k_pages: torch.Tensor,  # (N, page, KV, D), q's dtype
@@ -203,6 +221,8 @@ def paged_attention_kernel(
     """Decode attention over paged KV (K4): (B, H, D) in q's dtype."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens)
+    if q.device.type == "meta":
+        return _meta_call(q, k_pages, page_table, seq_lens)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k_pages, v_pages, page_table, seq_lens)

@@ -21,7 +21,8 @@ import math
 
 import torch
 
-__all__ = ["paged_attention_ref", "paged_attention_splits_ref"]
+__all__ = ["paged_attention_ref", "paged_attention_splits_ref",
+           "paged_attention_partials_ref"]
 
 _NEG_INF = -1e30
 
@@ -101,3 +102,35 @@ def paged_attention_splits_ref(
         acc_all = acc_all + c[..., None] * acc_s
     out = acc_all / torch.clamp(l_all, min=1e-30)[..., None]
     return out.reshape(B, H, D).to(q.dtype)
+
+
+def paged_attention_partials_ref(
+    q: torch.Tensor,  # (B, H, D)
+    k_pages: torch.Tensor,  # (N_pages, page, KV, D)
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # (B, P) int
+    seq_lens: torch.Tensor,  # (B,) int
+):
+    """(out, m, l): the attention over the valid slots as one split of
+    ``paged_attention_splits_ref`` takes it -- ``out`` = acc / max(l,
+    1e-30) in q's type, m (B, H) the max score (-1e30 where no slot is
+    valid), l (B, H) the sum of exp(s - m), both f32.  Shards of a
+    sequence merge as the splits do: m = max m_s, c_s = exp(m_s - m),
+    out = sum c_s l_s out_s / sum c_s l_s."""
+    B, H, D = q.shape
+    KV = k_pages.shape[2]
+    G = H // KV
+    k, v = _gather(q, k_pages, v_pages, page_table)
+    T = k.shape[1]
+    qg = q.reshape(B, KV, G, D).float()
+    t = torch.arange(T, device=q.device)
+    ok = (t[None, :] < seq_lens.to(q.device)[:, None])[:, None, None, :]
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k.float()) / math.sqrt(D)
+    s = s.masked_fill(~ok, _NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None]) * ok
+    acc = torch.einsum("bkgt,btkd->bkgd", p.to(v.dtype).float(), v.float())
+    l_ = p.sum(dim=-1)
+    out = acc / torch.clamp(l_, min=1e-30)[..., None]
+    return (out.reshape(B, H, D).to(q.dtype), m.reshape(B, H),
+            l_.reshape(B, H))

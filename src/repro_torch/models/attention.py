@@ -14,6 +14,15 @@ decode-attention kernel (K4) over a page view of the cache (or of the
 static cross K/V), which copies nothing; its page table and lengths come
 from tables made once per (batch, slots, device), so a step launches
 nothing for them.
+
+The activations carry the reference's ``shard_hint``s (no-ops off the
+dry-run).  Under active sharding rules on DTensors (the multi-pod
+dry-run), K4's call site runs in ``local_map`` on each rank's shards
+(``_decode_sharded``): the cache's placements come from its logical axes
+("batch", "cache_seq", "cache_kv_heads", "head_dim"), and where
+``cache_seq`` is sharded (``DECODE_RULES``: over ``model``) each shard's
+partial softmax (max, sum, output) is merged across that axis with
+all-reduces, as K4 merges its splits within a card.
 """
 from __future__ import annotations
 
@@ -25,7 +34,9 @@ import numpy as np
 import torch
 
 from ..kernels.paged_attention import ops
-from .common import ParamFactory, apply_rope, make_rope
+from ..sharding.logical import (NamedSharding, PartitionSpec, current_rules,
+                                shard_hint, shard_index, sharded)
+from .common import ParamFactory, apply_rope, einsum, make_rope
 
 __all__ = [
     "DECODE_PAGE",
@@ -65,13 +76,16 @@ def init_attention(cfg, f: ParamFactory, layers: int | None = None) -> dict:
 
 
 def _qkv(cfg, p, x):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    k = einsum("bsd,dhk->bshk", x, p["wk"])
+    v = einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
+    q = shard_hint(q, ("batch", "seq", "heads", "head_dim"))
+    k = shard_hint(k, ("batch", "seq", "kv_heads", "head_dim"))
+    v = shard_hint(v, ("batch", "seq", "kv_heads", "head_dim"))
     return q, k, v
 
 
@@ -83,18 +97,24 @@ def _scale(head_dim: int) -> float:
 
 def _gqa_scores(q, k, scale):
     """q (B,S,H,D), k (B,T,KV,D) -> scores (B,KV,G,S,T) in f32."""
+    if sharded(q) and q.placements != k.placements:
+        # q's heads split into k's KV groups only where they shard alike.
+        q = q.redistribute(q.device_mesh, k.placements)
     B, S, H, D = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, S, KV, H // KV, D)
-    s = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
+    s = einsum("bskgd,btkd->bkgst", qg.float(), k.float())
     return s * scale
 
 
 def _attend(probs, v):
     """probs (B,KV,G,S,T) f32, v (B,T,KV,D) -> (B,S,H,D)."""
     B, KV, G, S, T = probs.shape
-    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
-    return out.reshape(B, S, KV * G, -1)
+    out = einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+    # q's hint, so that on DTensors the gradient comes back through an
+    # explicit redistribution, in the layout the (KV, G) split needs.
+    return shard_hint(out.reshape(B, S, KV * G, -1),
+                      ("batch", "seq", "heads", "head_dim"))
 
 
 def attn_full(
@@ -127,7 +147,8 @@ def attn_full(
     scores = torch.where(mask, scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = _attend(probs, v)
-    return torch.einsum("bshd,hdm->bsm", out, p["wo"])
+    out = einsum("bshd,hdm->bsm", out, p["wo"])
+    return shard_hint(out, ("batch", "seq", "embed"))
 
 
 class DecodeCacheLayout(NamedTuple):
@@ -189,18 +210,92 @@ def attn_decode(
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    slot = pos % layout.seq
-    k_cache[:, slot] = k[:, 0]
-    v_cache[:, slot] = v[:, 0]
+    if sharded(k_cache):
+        out, k_cache, v_cache = _decode_sharded(q, k, v, k_cache, v_cache,
+                                                pos, layout)
+    else:
+        slot = pos % layout.seq
+        k_cache[:, slot] = k[:, 0]
+        v_cache[:, slot] = v[:, 0]
 
-    page = math.gcd(layout.seq, DECODE_PAGE)
-    B, S, KV, D = k_cache.shape
-    k_pages = k_cache.view(B * S // page, page, KV, D)
-    v_pages = v_cache.view(B * S // page, page, KV, D)
-    page_table, seq_lens = _decode_tables(B, layout, pos, x.device)
-    out = ops.paged_attention(q[:, 0], k_pages, v_pages, page_table, seq_lens)
-    out = torch.einsum("bshd,hdm->bsm", out[:, None], p["wo"])
-    return out, k_cache, v_cache
+        page = math.gcd(layout.seq, DECODE_PAGE)
+        B, S, KV, D = k_cache.shape
+        k_pages = k_cache.view(B * S // page, page, KV, D)
+        v_pages = v_cache.view(B * S // page, page, KV, D)
+        page_table, seq_lens = _decode_tables(B, layout, pos, x.device)
+        out = ops.paged_attention(q[:, 0], k_pages, v_pages, page_table,
+                                  seq_lens)
+    out = einsum("bshd,hdm->bsm", out[:, None], p["wo"])
+    return shard_hint(out, ("batch", "seq", "embed")), k_cache, v_cache
+
+
+_CACHE_AXES = ("batch", "cache_seq", "cache_kv_heads", "head_dim")
+
+
+def _local_decode(q, k, v, kc, vc, *, mesh, cache_pl, n_valid, slot):
+    """K4 on one rank's shards: q (B_l, H_l, D); k, v (B_l, 1, KV_l, D) or
+    None (the static cross K/V); kc, vc (B_l, S_l, KV_l, D), the rank's
+    slots [lo, lo + S_l) of the sequence.  Writes this step's K/V where
+    ``slot`` falls in the shard; where ``cache_pl`` shards the sequence,
+    the shards' partials are merged across those mesh dims."""
+    import torch.distributed._functional_collectives as funcol
+
+    B, S_l, KV, D = kc.shape
+    lo = shard_index(mesh, cache_pl, 1) * S_l
+    if k is not None and lo <= slot < lo + S_l:
+        kc[:, slot - lo] = k[:, 0]
+        vc[:, slot - lo] = v[:, 0]
+    page = math.gcd(S_l, DECODE_PAGE)
+    table = torch.arange(B * (S_l // page), dtype=torch.int32,
+                         device=q.device).view(B, S_l // page)
+    lens = torch.full((B,), min(max(n_valid - lo, 0), S_l),
+                      dtype=torch.int32, device=q.device)
+    kp = kc.view(B * S_l // page, page, KV, D)
+    vp = vc.view(B * S_l // page, page, KV, D)
+    groups = [(mesh, i) for i, p in enumerate(cache_pl) if p.is_shard(1)]
+    if not groups:
+        return ops.paged_attention(q, kp, vp, table, lens)
+    out, m, l_ = ops.paged_attention_partials(q, kp, vp, table, lens)
+    m_all = m
+    for g in groups:
+        m_all = funcol.all_reduce(m_all, "max", g)
+    w = torch.exp(m - m_all) * l_
+    num = w[..., None] * out.float()
+    for g in groups:
+        w = funcol.all_reduce(w, "sum", g)
+        num = funcol.all_reduce(num, "sum", g)
+    return (num / torch.clamp(w, min=1e-30)[..., None]).to(q.dtype)
+
+
+def _decode_sharded(q, k, v, k_cache, v_cache, pos, layout,
+                    valid: Optional[int] = None):
+    """K4's call site on DTensors: q (B, 1, H, D); k, v (B, 1, KV, D) or
+    None; the caches (B, S_alloc, KV, D).  Returns (out (B, H, D), the
+    caches)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    rules = current_rules()
+    mesh = k_cache.device_mesh
+    k_cache = shard_hint(k_cache, _CACHE_AXES)
+    v_cache = shard_hint(v_cache, _CACHE_AXES)
+    spec = rules.spec_for(_CACHE_AXES, k_cache.shape)
+    cache_pl = NamedSharding(mesh, spec).placements
+    q_pl = NamedSharding(mesh, PartitionSpec(spec[0], spec[2], spec[3])).placements
+    kv_pl = NamedSharding(mesh, PartitionSpec(spec[0], None, spec[2],
+                                              spec[3])).placements
+    q1 = q[:, 0].redistribute(mesh, q_pl)
+    if k is not None:
+        k, v = k.redistribute(mesh, kv_pl), v.redistribute(mesh, kv_pl)
+    n_valid = min(pos + 1, layout.seq) if valid is None else valid
+    fn = local_map(
+        functools.partial(_local_decode, mesh=mesh, cache_pl=cache_pl,
+                          n_valid=n_valid, slot=pos % layout.seq),
+        out_placements=list(q_pl),
+        in_placements=(q_pl, None if k is None else kv_pl,
+                       None if k is None else kv_pl, cache_pl, cache_pl),
+        device_mesh=mesh,
+    )
+    return fn(q1, k, v, k_cache, v_cache), k_cache, v_cache
 
 
 # ---------------------------------------------------------------- cross-attention
@@ -209,8 +304,8 @@ def init_cross_attention(cfg, f: ParamFactory, layers: int | None = None) -> dic
 
 
 def _cross_kv(cfg, p, memory):
-    k = torch.einsum("btd,dhk->bthk", memory, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", memory, p["wv"])
+    k = einsum("btd,dhk->bthk", memory, p["wk"])
+    v = einsum("btd,dhk->bthk", memory, p["wv"])
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
     return k, v
@@ -219,13 +314,14 @@ def _cross_kv(cfg, p, memory):
 def cross_attn_full(cfg, p: dict, x: torch.Tensor,
                     memory: torch.Tensor) -> torch.Tensor:
     """Decoder attends to encoder ``memory`` (B, T, d). No RoPE, no mask."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
     k, v = _cross_kv(cfg, p, memory)
     probs = torch.softmax(_gqa_scores(q, k, _scale(cfg.head_dim)), dim=-1)
     out = _attend(probs, v)
-    return torch.einsum("bshd,hdm->bsm", out, p["wo"])
+    out = einsum("bshd,hdm->bsm", out, p["wo"])
+    return shard_hint(out, ("batch", "seq", "embed"))
 
 
 def precompute_cross_kv(cfg, p: dict, memory: torch.Tensor):
@@ -240,13 +336,19 @@ def cross_attn_decode(cfg, p: dict, x: torch.Tensor, ck: torch.Tensor,
     """One decoder token against the static cross K/V (B, enc_len, KV, D),
     contiguous: K4 over their page view, pages of gcd(enc_len,
     DECODE_PAGE) slots, every sequence ``enc_len`` long."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
     B, T, KV, D = ck.shape
-    page = math.gcd(T, DECODE_PAGE)
-    table, lens = _cached_tables(B, T, page, torch.device(x.device))
-    out = ops.paged_attention(q[:, 0], ck.view(B * T // page, page, KV, D),
-                              cv.view(B * T // page, page, KV, D), table,
-                              lens[T - 1])
-    return torch.einsum("bshd,hdm->bsm", out[:, None], p["wo"])
+    if sharded(ck):
+        out, _, _ = _decode_sharded(q, None, None, ck, cv, T - 1,
+                                    DecodeCacheLayout(T, False), valid=T)
+    else:
+        page = math.gcd(T, DECODE_PAGE)
+        table, lens = _cached_tables(B, T, page, torch.device(x.device))
+        out = ops.paged_attention(q[:, 0],
+                                  ck.view(B * T // page, page, KV, D),
+                                  cv.view(B * T // page, page, KV, D), table,
+                                  lens[T - 1])
+    out = einsum("bshd,hdm->bsm", out[:, None], p["wo"])
+    return shard_hint(out, ("batch", "seq", "embed"))

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..sharding.logical import shard_hint
 from .attention import (
     attn_decode,
     attn_full,
@@ -23,7 +24,8 @@ from .attention import (
     init_cross_attention,
     precompute_cross_kv,
 )
-from .common import ParamFactory, pad_vocab, rms_norm
+from .common import (ParamFactory, einsum, pad_vocab, rms_norm, take_rows,
+                     unembed)
 from .mlp import init_mlp, mlp_apply
 from .transformer import _layer, cross_entropy, remat
 
@@ -69,8 +71,9 @@ def init_encdec(cfg, f: ParamFactory) -> dict:
 
 def encdec_encode(cfg, params: dict, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, S_enc, d) stub embeddings -> encoder memory (B, S_enc, d)."""
-    x = torch.einsum("bsd,de->bse", frames.to(cfg.activation_dtype),
+    x = einsum("bsd,de->bse", frames.to(cfg.activation_dtype),
                      params["frontend_proj"])
+    x = shard_hint(x, ("batch", "seq", "embed"))
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
 
     def body(x, lp):
@@ -89,7 +92,8 @@ def encdec_forward(cfg, params: dict, frames: torch.Tensor,
     """Teacher-forced logits (B, S_dec, V); with ``return_hidden``, the
     final-normed decoder state."""
     memory = encdec_encode(cfg, params, frames)
-    x = params["embed"][dec_tokens.long()].to(cfg.activation_dtype)
+    x = take_rows(params["embed"], dec_tokens).to(cfg.activation_dtype)
+    x = shard_hint(x, ("batch", "seq", "embed"))
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
 
     def body(x, memory, lp):
@@ -105,7 +109,7 @@ def encdec_forward(cfg, params: dict, frames: torch.Tensor,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x
-    return torch.einsum("bsd,vd->bsv", x, params["unembed"])
+    return unembed(x, params["unembed"])
 
 
 def encdec_loss(cfg, params, frames, dec_tokens, labels):
@@ -128,7 +132,7 @@ def make_encdec_cache(cfg, f: ParamFactory, batch: int, max_seq: int,
         "v": f.param(kv, lax_, zero=True),
         "cross_k": f.param(ckv, lax_, zero=True),
         "cross_v": f.param(ckv, lax_, zero=True),
-        "pos": 0,
+        "pos": f.position(),
     }
 
 
@@ -146,7 +150,8 @@ def encdec_decode_step(cfg, params: dict, token: torch.Tensor, cache: dict,
                        max_seq: int):
     """One decoder step against the cache's cross K/V; returns (logits
     (B,1,V), cache), the self-attention K/V written in place."""
-    x = params["embed"][token.long()].to(cfg.activation_dtype)
+    x = take_rows(params["embed"], token).to(cfg.activation_dtype)
+    x = shard_hint(x, ("batch", "seq", "embed"))
     pos = int(cache["pos"])
     layout = cache_layout(cfg, max_seq)
     for i in range(cfg.n_layers):
@@ -161,5 +166,4 @@ def encdec_decode_step(cfg, params: dict, token: torch.Tensor, cache: dict,
         h = rms_norm(x, lp["ln3"], cfg.norm_eps)
         x = x + mlp_apply(cfg, lp["mlp"], h)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bsd,vd->bsv", x, params["unembed"])
-    return logits, dict(cache, pos=pos + 1)
+    return unembed(x, params["unembed"]), dict(cache, pos=pos + 1)

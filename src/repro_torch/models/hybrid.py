@@ -16,8 +16,9 @@ from __future__ import annotations
 
 import torch
 
+from ..sharding.logical import shard_hint
 from .attention import attn_decode, attn_full, cache_layout, init_attention
-from .common import ParamFactory, pad_vocab, rms_norm
+from .common import ParamFactory, pad_vocab, rms_norm, take_rows, unembed
 from .mlp import init_mlp, mlp_apply
 from .moe import init_moe, moe_apply_with_aux
 from .ssm import init_mamba, mamba_decode, mamba_full, mamba_state_shapes
@@ -76,7 +77,8 @@ def hybrid_forward(cfg, params: dict, tokens: torch.Tensor,
                    return_hidden: bool = False):
     """(logits (B, S, V), aux loss); with ``return_hidden``, the
     final-normed hidden state in place of the logits."""
-    x = params["embed"][tokens.long()].to(cfg.activation_dtype)
+    x = take_rows(params["embed"], tokens).to(cfg.activation_dtype)
+    x = shard_hint(x, ("batch", "seq", "embed"))
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -101,7 +103,7 @@ def hybrid_forward(cfg, params: dict, tokens: torch.Tensor,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x, aux
-    return torch.einsum("bsd,vd->bsv", x, params["unembed"]), aux
+    return unembed(x, params["unembed"]), aux
 
 
 def hybrid_loss(cfg, params, tokens, labels, aux_weight: float = 0.01):
@@ -129,7 +131,7 @@ def make_hybrid_cache(cfg, f: ParamFactory, batch: int, max_seq: int) -> dict:
         "h": f.param((P, n_mamba, *hs),
                      ("layers", None, "batch", "inner", "state"), zero=True,
                      dtype=torch.float32),
-        "pos": 0,
+        "pos": f.position(),
     }
 
 
@@ -137,7 +139,8 @@ def hybrid_decode_step(cfg, params: dict, token: torch.Tensor, cache: dict,
                        max_seq: int):
     """One decode step; returns (logits (B,1,V), cache), the cache's
     tensors written in place and ``pos + 1``."""
-    x = params["embed"][token.long()].to(cfg.activation_dtype)
+    x = take_rows(params["embed"], token).to(cfg.activation_dtype)
+    x = shard_hint(x, ("batch", "seq", "embed"))
     pos = int(cache["pos"])
     layout = cache_layout(cfg, max_seq)
     for p in range(_n_periods(cfg)):
@@ -157,5 +160,4 @@ def hybrid_decode_step(cfg, params: dict, token: torch.Tensor, cache: dict,
             m, _ = _ffn(cfg, lp, x)
             x = x + m
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bsd,vd->bsv", x, params["unembed"])
-    return logits, dict(cache, pos=pos + 1)
+    return unembed(x, params["unembed"]), dict(cache, pos=pos + 1)

@@ -1,14 +1,16 @@
 """Feed-forward blocks: SwiGLU / GeGLU (gated) and squared-ReLU / GELU.
 
 The port of ``repro.models.mlp``.  The products stay ``torch.einsum``
-(cuBLAS on the card), as the reference leaves them to XLA.
+(cuBLAS on the card), as the reference leaves them to XLA; the
+activations carry the reference's ``shard_hint``s.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .common import ParamFactory
+from ..sharding.logical import shard_hint
+from .common import ParamFactory, einsum
 
 __all__ = ["init_mlp", "mlp_apply", "is_gated", "act_fn"]
 
@@ -44,10 +46,13 @@ def init_mlp(cfg, f: ParamFactory, d_ff: int, layers: int | None = None) -> dict
 
 def mlp_apply(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     act = act_fn(cfg.activation)
-    up = torch.einsum("bsd,df->bsf", x, p["wu"])
+    up = einsum("bsd,df->bsf", x, p["wu"])
+    up = shard_hint(up, ("batch", "seq", "ff"))
     if is_gated(cfg.activation):
-        gate = torch.einsum("bsd,df->bsf", x, p["wg"])
+        gate = einsum("bsd,df->bsf", x, p["wg"])
+        gate = shard_hint(gate, ("batch", "seq", "ff"))
         h = act(gate) * up
     else:
         h = act(up)
-    return torch.einsum("bsf,fd->bsd", h, p["wd"])
+    out = einsum("bsf,fd->bsd", h, p["wd"])
+    return shard_hint(out, ("batch", "seq", "embed"))

@@ -24,14 +24,28 @@ reference relies on JAX's semantics the port spells them out:
 * The scatter with ``mode="drop"`` discards rank == C; the port's buffer
   has one spare row past the E*C expert rows, where every dropped token
   lands, and hands K5 only the E*C rows before it (a view, no copy).
+
+Under active sharding rules on DTensors (the multi-pod dry-run) the layer
+runs in three ``local_map`` regions (``_moe_sharded``): the routing and
+the dispatch on the gathered tokens (replicated, as the reference's
+(experts, expert_cap, embed) buffer is over ``data`` unless the
+``expert_cap`` rule shards it); each expert product, K5 on each rank's
+(experts, capacity, depth) shard, its placements derived from the
+weight's and from the reference's hints (``("experts", "expert_cap",
+"embed" | "expert_ff")``; a sharded depth leaves partial sums, which the
+next hint reduces); and the combine.
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels.grouped_matmul.kernel import grouped_matmul_fn
 from ..kernels.grouped_matmul.ops import tile_groups
+from ..sharding.logical import shard_hint, shard_index, sharded
 from .common import ParamFactory
 from .mlp import act_fn, is_gated
 
@@ -130,17 +144,13 @@ def _dispatch_sort(top_idx: torch.Tensor, E: int, C: int):
     return dest, within
 
 
-def moe_apply_with_aux(cfg, p: dict, x: torch.Tensor):
-    """x: (B, S, d) -> ((B, S, d), load-balance aux loss (f32 scalar))."""
-    B, S, d = x.shape
+def _route_dispatch(cfg, xf: torch.Tensor, router: torch.Tensor, C: int):
+    """Gates, top-k, aux loss and the scatter of ``xf`` (T, d) into the
+    (E*C + 1, d) buffer: (buf, dest, within, top_vals, top_idx, aux)."""
+    d = xf.shape[1]
     E, k = cfg.n_experts, cfg.top_k
-    T = B * S
-    C = moe_capacity(cfg, T)
-    act = act_fn(cfg.activation)
-
-    xf = x.reshape(T, d)
     # bf16 inputs, f32 products and sums (preferred_element_type=f32).
-    gates = torch.softmax(xf.float() @ p["router"].float(), dim=-1)  # (T, E)
+    gates = torch.softmax(xf.float() @ router.float(), dim=-1)  # (T, E)
     top_vals, top_idx = torch.sort(gates, dim=-1, descending=True, stable=True)
     top_vals, top_idx = top_vals[:, :k], top_idx[:, :k]
     top_vals = top_vals / torch.sum(top_vals, dim=-1, keepdim=True)
@@ -156,8 +166,34 @@ def moe_apply_with_aux(cfg, p: dict, x: torch.Tensor):
         dest, within = _dispatch_onehot(top_idx, E, C)
 
     # Scatter; row E*C takes every dropped choice and is cut off below.
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((E * C + 1, d), dtype=xf.dtype, device=xf.device)
     buf.index_add_(0, dest, xf.repeat_interleave(k, dim=0))
+    return buf, dest, within, top_vals, top_idx, aux_loss
+
+
+def _combine(ye: torch.Tensor, dest, within, top_vals, k: int):
+    """Gather each token's k expert rows of ``ye`` (E*C, d) and sum them
+    weighted by the gates: (T, d)."""
+    EC, d = ye.shape
+    # A dropped choice reads row E*C - 1 (the reference's clamped rank)
+    # with weight 0.
+    y_rep = ye[dest.clamp(max=EC - 1)]  # (T*k, d)
+    w = (top_vals.reshape(-1) * within).to(ye.dtype)[:, None]
+    return (y_rep * w).reshape(-1, k, d).sum(dim=1)
+
+
+def moe_apply_with_aux(cfg, p: dict, x: torch.Tensor):
+    """x: (B, S, d) -> ((B, S, d), load-balance aux loss (f32 scalar))."""
+    if sharded(x):
+        return _moe_sharded(cfg, p, x)
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    C = moe_capacity(cfg, T)
+    act = act_fn(cfg.activation)
+
+    buf, dest, within, top_vals, top_idx, aux_loss = _route_dispatch(
+        cfg, x.reshape(T, d), p["router"], C)
     xe = buf[: E * C]  # (E*C, d): E groups of C rows
 
     # Grouped expert FFN -- a batched pass per expert bucket (K5) over the
@@ -173,10 +209,102 @@ def moe_apply_with_aux(cfg, p: dict, x: torch.Tensor):
     else:
         h = act(up)
     ye = experts(h, p["wd"])  # (E*C, d)
-
-    # Gather back; a dropped choice reads row E*C - 1 (the reference's
-    # clamped rank) with weight 0.
-    y_rep = ye[dest.clamp(max=E * C - 1)]  # (T*k, d)
-    w = (top_vals.reshape(-1) * within).to(x.dtype)[:, None]
-    y = (y_rep * w).reshape(T, k, d).sum(dim=1)
+    y = _combine(ye, dest, within, top_vals, k)
     return y.reshape(B, S, d), aux_loss
+
+
+# ------------------------------------------------------------ dry-run path
+def _expert_product(h_l, w_l, counts, *, mesh, h_pl):
+    """K5 on one rank's shards: h_l (E_l, C_l, din_l), w_l (E_l, din_l,
+    f_l) -> (E_l, C_l, f_l); each tile's real rows from the routed
+    ``counts`` (E,) at the shard's expert and capacity offsets."""
+    E_l, C_l, din = h_l.shape
+    e0 = shard_index(mesh, h_pl, 0) * E_l
+    c0 = shard_index(mesh, h_pl, 1) * C_l
+    bt = math.gcd(C_l, EXPERT_BT)
+    dev = h_l.device
+    sizes = torch.full((E_l,), C_l, dtype=torch.int32, device=dev)
+    tile_gid = tile_groups(sizes, E_l * C_l, bt, E_l)
+    starts = c0 + torch.arange(0, C_l, bt, dtype=torch.int32, device=dev)
+    rows = (counts[e0:e0 + E_l, None] - starts).clamp_(0, bt).reshape(-1)
+    y = grouped_matmul_fn(h_l.reshape(E_l * C_l, din), tile_gid, w_l, bt,
+                          rows)
+    return y.view(E_l, C_l, -1)
+
+
+def _experts_sharded(h, w, counts):
+    """h (E, C, din) @ w (E, din, f) per expert, on DTensors: h takes the
+    placements w's admit, K5 runs on each rank's shards (``local_map``);
+    a depth sharded over a mesh dim leaves the output partial there."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = h.device_mesh
+    h_pl, out_pl = [], []
+    for hp, wp in zip(h.placements, w.placements):
+        if wp.is_shard(0):
+            h_pl.append(Shard(0))
+            out_pl.append(Shard(0))
+        elif wp.is_shard(1):
+            h_pl.append(Shard(2))
+            out_pl.append(Partial())
+        elif wp.is_shard(2):
+            h_pl.append(Replicate())
+            out_pl.append(Shard(2))
+        else:
+            keep = hp if hp.is_shard(1) else Replicate()
+            h_pl.append(keep)
+            out_pl.append(keep)
+    h = h.redistribute(mesh, h_pl)
+    fn = local_map(
+        functools.partial(_expert_product, mesh=mesh, h_pl=tuple(h_pl)),
+        out_placements=out_pl,
+        in_placements=(tuple(h_pl), tuple(w.placements), counts.placements),
+        device_mesh=mesh,
+    )
+    return fn(h, w, counts)
+
+
+def _route_dispatch_local(xf, router, *, cfg, C):
+    buf, dest, within, top_vals, top_idx, aux = _route_dispatch(
+        cfg, xf, router, C)
+    counts = torch.zeros(cfg.n_experts, dtype=torch.int32, device=xf.device)
+    flat = top_idx.reshape(-1)
+    counts.scatter_add_(0, flat, torch.ones(flat.shape, dtype=torch.int32,
+                                            device=xf.device))
+    return buf, dest, within, top_vals, counts, aux
+
+
+def _moe_sharded(cfg, p: dict, x):
+    """The layer on DTensors; the routing and the combine on the gathered
+    tokens, the experts' products on their shards."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    C = moe_capacity(cfg, T)
+    act = act_fn(cfg.activation)
+    route = local_map(functools.partial(_route_dispatch_local, cfg=cfg, C=C),
+                      out_placements=(rep,) * 6, in_placements=(rep, rep),
+                      device_mesh=mesh)
+    buf, dest, within, top_vals, counts, aux = route(
+        x.reshape(T, d).redistribute(mesh, rep),
+        p["router"].redistribute(mesh, rep))
+    cap = ("experts", "expert_cap")
+    xe = shard_hint(buf[: E * C].view(E, C, d), cap + ("embed",))
+    up = shard_hint(_experts_sharded(xe, p["wu"], counts), cap + ("expert_ff",))
+    if is_gated(cfg.activation):
+        h = act(_experts_sharded(xe, p["wg"], counts)) * up
+    else:
+        h = act(up)
+    ye = shard_hint(_experts_sharded(h, p["wd"], counts), cap + ("embed",))
+    combine = local_map(functools.partial(_combine, k=k),
+                        out_placements=list(rep), in_placements=(rep,) * 4,
+                        device_mesh=mesh)
+    y = combine(ye.reshape(E * C, d).redistribute(mesh, rep), dest, within,
+                top_vals)
+    return shard_hint(y.reshape(B, S, d), ("batch", "seq", "embed")), aux

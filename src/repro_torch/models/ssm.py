@@ -9,15 +9,41 @@ state per layer, a (conv-1)-sample convolution tail and the (d_inner, N)
 f32 SSM state, and writes both IN PLACE: where the reference returns new
 state arrays, the port writes into the ones it was given and returns them.
 The reference's scan is plain ``jnp`` (no Pallas kernel), and so is this.
+
+Within ``scan_steps(n)`` (the multi-pod dry-run) the selective scan runs
+its first n time steps only and the later outputs repeat the last (a
+view, cat into place): the dry-run traces two such lengths and
+extrapolates its counts affinely to the full sequence, since a trace of
+every step at 32k tokens would take hours.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from .common import ParamFactory
+from ..sharding.logical import shard_hint
+from .common import ParamFactory, einsum
 
-__all__ = ["init_mamba", "mamba_full", "mamba_decode", "mamba_state_shapes"]
+__all__ = ["init_mamba", "mamba_full", "mamba_decode", "mamba_state_shapes",
+           "scan_steps"]
+
+_SCAN = threading.local()
+
+
+@contextlib.contextmanager
+def scan_steps(n: Optional[int]):
+    """Within: ``mamba_full``'s selective scan runs at most ``n`` time
+    steps (None: all)."""
+    prev = getattr(_SCAN, "steps", None)
+    _SCAN.steps = n
+    try:
+        yield n
+    finally:
+        _SCAN.steps = prev
 
 
 def init_mamba(cfg, f: ParamFactory, layers: int | None = None) -> dict:
@@ -58,10 +84,10 @@ def _conv_full(p, xs):
 def _ssm_params(cfg, p, xc):
     """Project to (delta, B, C) and discretize. xc: (B, S, di)."""
     dr, ns = cfg.dt_rank_actual, cfg.ssm_state
-    dbc = torch.einsum("bsi,ir->bsr", xc, p["x_proj"])
+    dbc = einsum("bsi,ir->bsr", xc, p["x_proj"])
     dt, B_, C_ = torch.split(dbc, [dr, ns, ns], dim=-1)
     delta = _softplus(
-        torch.einsum("bsr,ri->bsi", dt, p["dt_proj"]).float() + p["dt_bias"]
+        einsum("bsr,ri->bsi", dt, p["dt_proj"]).float() + p["dt_bias"]
     )  # (B, S, di) f32
     A = -torch.exp(p["A_log"].float())  # (di, ns)
     return delta, B_.float(), C_.float(), A
@@ -70,7 +96,8 @@ def _ssm_params(cfg, p, xc):
 def mamba_full(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d)."""
     B, S, d = x.shape
-    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    xz = einsum("bsd,de->bse", x, p["in_proj"])
+    xz = shard_hint(xz, ("batch", "seq", "inner"))
     xp, z = torch.chunk(xz, 2, dim=-1)
     xc = F.silu(_conv_full(p, xp))
 
@@ -78,16 +105,20 @@ def mamba_full(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     dA = torch.exp(delta[..., None] * A)  # (B, S, di, ns)
     dBx = delta[..., None] * B_[:, :, None, :] * xc.float()[..., None]
 
-    h = torch.zeros((B, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
-                    device=x.device)
+    h = torch.zeros_like(dBx[:, 0])  # (B, di, ns) f32
     ys = []
-    for t in range(S):
+    steps = getattr(_SCAN, "steps", None)
+    steps = S if steps is None else min(S, steps)
+    for t in range(steps):
         h = h * dA[:, t] + dBx[:, t]  # (B, di, ns)
-        ys.append(torch.einsum("bin,bn->bi", h, C_[:, t]))
+        ys.append(einsum("bin,bn->bi", h, C_[:, t]))
     y = torch.stack(ys, dim=1)  # (B, S, di)
+    if steps < S:
+        y = torch.cat([y, y[:, -1:].expand(B, S - steps, y.shape[2])], dim=1)
     y = y + xc.float() * p["D"]
     y = y.to(x.dtype) * F.silu(z)
-    return torch.einsum("bsi,id->bsd", y, p["out_proj"])
+    out = einsum("bsi,id->bsd", y, p["out_proj"])
+    return shard_hint(out, ("batch", "seq", "embed"))
 
 
 def mamba_state_shapes(cfg, batch: int):
@@ -102,12 +133,12 @@ def mamba_decode(cfg, p: dict, x: torch.Tensor, conv_state: torch.Tensor,
                  h: torch.Tensor):
     """One token. x: (B, 1, d); returns (out, conv_state, h), the states
     being the tensors passed in, written in place."""
-    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])[:, 0]  # (B, 2di)
+    xz = einsum("bsd,de->bse", x, p["in_proj"])[:, 0]  # (B, 2di)
     xp, z = torch.chunk(xz, 2, dim=-1)
 
     # conv ring: the state holds the last (cw-1) inputs.
     hist = torch.cat([conv_state, xp[:, None, :]], dim=1)  # (B, cw, di)
-    xc = torch.einsum("bci,ci->bi", hist, p["conv_w"]) + p["conv_b"]
+    xc = einsum("bci,ci->bi", hist, p["conv_w"]) + p["conv_b"]
     xc = F.silu(xc)
     conv_state.copy_(hist[:, 1:, :])
 
@@ -116,7 +147,7 @@ def mamba_decode(cfg, p: dict, x: torch.Tensor, conv_state: torch.Tensor,
     dA = torch.exp(delta[..., None] * A)  # (B, di, ns)
     h.copy_(h * dA
             + delta[..., None] * B_[:, None, :] * xc.float()[..., None])
-    y = torch.einsum("bin,bn->bi", h, C_) + xc.float() * p["D"]
+    y = einsum("bin,bn->bi", h, C_) + xc.float() * p["D"]
     y = y.to(x.dtype) * F.silu(z)
-    out = torch.einsum("bi,id->bd", y, p["out_proj"])[:, None, :]
-    return out, conv_state, h
+    out = einsum("bi,id->bd", y, p["out_proj"])[:, None, :]
+    return shard_hint(out, ("batch", "seq", "embed")), conv_state, h

@@ -16,8 +16,10 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..sharding.logical import current_rules, shard_hint
 from .attention import attn_decode, attn_full, cache_layout, init_attention
-from .common import ParamFactory, pad_vocab, rms_norm
+from .common import (ParamFactory, einsum, pad_vocab, rms_norm, take_rows,
+                     unembed)
 from .mlp import init_mlp, mlp_apply
 from .moe import init_moe, moe_apply_with_aux
 from .ssm import init_mamba, mamba_decode, mamba_full, mamba_state_shapes
@@ -90,7 +92,7 @@ def remat(cfg, fn, *args):
 
 def _unembed(cfg, params, x):
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return torch.einsum("bsd,vd->bsv", x, table)
+    return unembed(x, table)
 
 
 # ------------------------------------------------------------------ blocks
@@ -113,15 +115,15 @@ def _block_full(cfg, lp: dict, x, positions, prefix_len: int):
 
 # ------------------------------------------------------------------ forward
 def _embed_inputs(cfg, params, tokens, prefix_embeds):
-    x = params["embed"][tokens.long()].to(cfg.activation_dtype)
+    x = take_rows(params["embed"], tokens).to(cfg.activation_dtype)
     if cfg.family == "vlm":
         if prefix_embeds is None:
             raise ValueError(f"{cfg.name}: the VLM needs prefix_embeds")
-        pe = torch.einsum("bpd,de->bpe",
+        pe = einsum("bpd,de->bpe",
                           prefix_embeds.to(cfg.activation_dtype),
                           params["vision_proj"])
         x = torch.cat([pe, x], dim=1)
-    return x
+    return shard_hint(x, ("batch", "seq", "embed"))
 
 
 def lm_forward(
@@ -166,11 +168,14 @@ def cross_entropy(cfg, hidden: torch.Tensor, table: torch.Tensor,
     vmask = torch.arange(V, device=hidden.device) < cfg.vocab_size
 
     def chunk_nll(xc, lc):
-        logits = torch.einsum("bsd,vd->bsv", xc, table)
+        logits = unembed(xc, table)
         logits = torch.where(vmask, logits.float(), -1e30)
         lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
-        return torch.sum(lse - ll)
+        ll = torch.gather(logits, -1, lc.long()[..., None])
+        if current_rules() is not None:
+            # A vocab-sharded gather is reduced before its last dim goes.
+            return torch.sum(lse[..., None] - ll)
+        return torch.sum(lse - ll[..., 0])
 
     c = cfg.loss_chunk
     if not c or c >= S:
@@ -208,7 +213,7 @@ def make_decode_cache(cfg, f: ParamFactory, batch: int, max_seq: int) -> dict:
                             zero=True),
             "h": f.param((L, *hs), ("layers", "batch", "inner", "state"),
                          zero=True, dtype=torch.float32),
-            "pos": 0,
+            "pos": f.position(),
         }
     layout = cache_layout(cfg, max_seq)
     kv = (L, batch, layout.seq, cfg.n_kv_heads, cfg.head_dim)
@@ -216,7 +221,7 @@ def make_decode_cache(cfg, f: ParamFactory, batch: int, max_seq: int) -> dict:
     return {
         "k": f.param(kv, lax_, zero=True),
         "v": f.param(kv, lax_, zero=True),
-        "pos": 0,
+        "pos": f.position(),
     }
 
 
@@ -226,7 +231,8 @@ def lm_decode_step(cfg, params: dict, token: torch.Tensor, cache: dict,
 
     The returned cache holds the same state tensors, written in place, and
     ``pos + 1``."""
-    x = params["embed"][token.long()].to(cfg.activation_dtype)
+    x = take_rows(params["embed"], token).to(cfg.activation_dtype)
+    x = shard_hint(x, ("batch", "seq", "embed"))
     pos = int(cache["pos"])
     if cfg.family == "ssm":
         for i in range(cfg.n_layers):

@@ -6,6 +6,7 @@ tree, so that a state compares to the reference's leaf for leaf:
     opt = make_optimizer(name, lr=..., ...)
     state = opt.init(params)        # {"mu": per-leaf dicts, "step": int32}
     params, state, metrics = opt.update(grads, state, params)
+    axes = opt.state_axes(param_axes)  # the state's logical axes
 
 ``params`` is a nested dict of tensors.  The per-leaf state keys are the
 reference's: ``m``/``v`` (f32, the parameter's shape) for AdamW;
@@ -28,8 +29,16 @@ formula, so they agree wherever the moments do; a moment that differs in
 its last bit from the reference's (the products' sums run in another
 order) can move a code by one at a rounding boundary.  The clip scale is
 f32 (the reference's ``x * scale`` promotes a bf16 gradient to f32), and
-so is every moment and update.  ``state_axes`` belongs to the mesh tools
-and is not ported yet.
+so is every moment and update.
+
+Under the dry-run the leaves are DTensors (``repro_torch.launch.dryrun``).
+The elementwise AdamW and 8-bit updates then run on each leaf's local
+shard (``_local``): the moments are sharded like their parameter, and
+the 8-bit state's (blocks, 256) codes only on dim 0, over ``data``
+(zero1) or not at all.  The clip's global norm still reduces over the
+mesh, and Adafactor's row and column means go through DTensor ops, since
+they reduce over dims that may be sharded.  Plain tensors take the same
+code as before, value for value.
 """
 from __future__ import annotations
 
@@ -38,6 +47,8 @@ import math
 from typing import Any, Callable
 
 import torch
+
+from ..sharding.logical import is_dtensor, shard_index
 
 __all__ = [
     "Optimizer",
@@ -75,8 +86,15 @@ def _chunks(n: int):
         yield lo, min(lo + _CHUNK, n)
 
 
+def _full(x):
+    """A DTensor scalar's value as a plain tensor; anything else as is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
 # ---------------------------------------------------------------- norms
 def _sum_squares(x: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(x):  # reduced over the mesh where x is sharded
+        return torch.sum(torch.square(x.float()))
     flat = x.reshape(-1)
     parts = [torch.sum(torch.square(flat[lo:hi].float()))
              for lo, hi in _chunks(flat.numel())]
@@ -86,6 +104,11 @@ def _sum_squares(x: torch.Tensor) -> torch.Tensor:
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32."""
     leaves = [_sum_squares(x) for x in tree_leaves(tree)]
+    if is_dtensor(leaves[0]):
+        total = leaves[0]
+        for leaf in leaves[1:]:
+            total = total + leaf
+        return torch.sqrt(total)
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
@@ -138,6 +161,7 @@ class Optimizer:
     name: str
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], tuple]
+    state_axes: Callable[[Any], Any]
 
 
 def make_optimizer(
@@ -198,6 +222,69 @@ def _adamw(lr_fn, b1, b2, eps, wd, clip_norm, bits8: bool) -> Optimizer:
 
         return {"mu": tree_map(per_leaf, params), "step": _step_of(params)}
 
+    def span(pf, gf, s, base, n, scale, lr, bc1, bc2):
+        """Elements [base, base + n) of the flat leaf ``pf`` (gradient
+        ``gf``) updated in place; the moments ``s`` start at ``base``."""
+        for lo, hi in _chunks(n):
+            gc = gf[base + lo:base + hi].float() * scale
+            if bits8:
+                blk = slice(lo // _QBLOCK, -(-hi // _QBLOCK))
+                m = _dequantize(s["m_q"][blk], s["m_s"][blk], hi - lo)
+                v = _dequantize(s["v_q"][blk], s["v_s"][blk], hi - lo)
+            else:
+                m = s["m"].view(-1)[lo:hi]
+                v = s["v"].view(-1)[lo:hi]
+            m_new = b1 * m + (1 - b1) * gc
+            v_new = b2 * v + (1 - b2) * gc * gc
+            upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+            pc = pf[base + lo:base + hi].float()
+            upd = upd + wd * pc
+            pf[base + lo:base + hi] = (pc - lr * upd).to(pf.dtype)
+            if bits8:
+                for key, val in (("m", m_new), ("v", v_new)):
+                    q, sc = _quantize(val)
+                    s[f"{key}_q"][blk] = q
+                    s[f"{key}_s"][blk] = sc
+            else:
+                m.copy_(m_new)
+                v.copy_(v_new)
+
+    def sharded(p, g, s, *hyper):
+        """One DTensor leaf, the update on local shards.  AdamW: p and g
+        in the moments' layout (zero1 may shard dim 0 over ``data``).
+        8-bit: the full flat leaf's span of this rank's code blocks, the
+        updated span gathered back over the blocks' axes."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        mesh = p.device_mesh
+        if not bits8:
+            pl = s["m"].placements
+            ps = p if p.placements == pl else p.redistribute(mesh, pl)
+            pf = ps.to_local().view(-1)
+            local = {k: t.to_local() for k, t in s.items()}
+            span(pf, g.redistribute(mesh, pl).to_local().reshape(-1), local,
+                 0, pf.numel(), *hyper)
+            if ps is not p:
+                p.copy_(ps.redistribute(mesh, p.placements))
+            return
+        rep = (Replicate(),) * mesh.ndim
+        n = p.numel()
+        pf = p.redistribute(mesh, rep).to_local().reshape(-1)
+        gf = g.redistribute(mesh, rep).to_local().reshape(-1)
+        local = {k: t.to_local() for k, t in s.items()}
+        nb = local["m_q"].shape[0]
+        base = shard_index(mesh, s["m_q"].placements, 0) * nb * _QBLOCK
+        count = max(0, min(nb * _QBLOCK, n - base))
+        span(pf, gf, local, base, count, *hyper)
+        piece = torch.nn.functional.pad(pf[base:base + count],
+                                        (0, nb * _QBLOCK - count))
+        blocks = tuple(Shard(0) if pl.is_shard(0) else Replicate()
+                       for pl in s["m_q"].placements)
+        full = DTensor.from_local(piece, mesh, blocks, run_check=False)
+        full = full.redistribute(mesh, rep).to_local()[:n].view(p.shape)
+        new = DTensor.from_local(full, mesh, rep, run_check=False)
+        p.to_local().copy_(new.redistribute(mesh, p.placements).to_local())
+
     @torch.no_grad()
     def update(grads, state, params):
         step = state["step"] + 1
@@ -207,36 +294,32 @@ def _adamw(lr_fn, b1, b2, eps, wd, clip_norm, bits8: bool) -> Optimizer:
         stepf = step.to(torch.float32)
         bc1 = 1.0 - b1 ** stepf
         bc2 = 1.0 - b2 ** stepf
+        hyper = tuple(_full(x) for x in (scale, lr, bc1, bc2))
 
         for p, g, s in _flat_triples(grads, state, params):
-            pf, gf = p.view(-1), g.reshape(-1)
-            for lo, hi in _chunks(pf.numel()):
-                gc = gf[lo:hi].float() * scale
-                if bits8:
-                    blk = slice(lo // _QBLOCK, -(-hi // _QBLOCK))
-                    m = _dequantize(s["m_q"][blk], s["m_s"][blk], hi - lo)
-                    v = _dequantize(s["v_q"][blk], s["v_s"][blk], hi - lo)
-                else:
-                    m = s["m"].view(-1)[lo:hi]
-                    v = s["v"].view(-1)[lo:hi]
-                m_new = b1 * m + (1 - b1) * gc
-                v_new = b2 * v + (1 - b2) * gc * gc
-                upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
-                pc = pf[lo:hi].float()
-                upd = upd + wd * pc
-                pf[lo:hi] = (pc - lr * upd).to(p.dtype)
-                if bits8:
-                    for key, val in (("m", m_new), ("v", v_new)):
-                        q, sc = _quantize(val)
-                        s[f"{key}_q"][blk] = q
-                        s[f"{key}_s"][blk] = sc
-                else:
-                    m.copy_(m_new)
-                    v.copy_(v_new)
+            if is_dtensor(p):
+                sharded(p, g, s, *hyper)
+            else:
+                pf = p.view(-1)
+                span(pf, g.reshape(-1), s, 0, pf.numel(), *hyper)
         state["step"] = step
         return params, state, {"grad_norm": gnorm, "lr": lr}
 
-    return Optimizer("adamw8bit" if bits8 else "adamw", init, update)
+    def state_axes(param_axes):
+        def per_leaf(ax):
+            if bits8:
+                return {
+                    "m_q": ("opt", None),
+                    "m_s": ("opt", None),
+                    "v_q": ("opt", None),
+                    "v_s": ("opt", None),
+                }
+            return {"m": ax, "v": ax}
+
+        return {"mu": tree_map(per_leaf, param_axes), "step": ()}
+
+    return Optimizer("adamw8bit" if bits8 else "adamw", init, update,
+                     state_axes)
 
 
 # ---------------------------------------------------------------- Adafactor
@@ -285,4 +368,12 @@ def _adafactor(lr_fn, wd, clip_norm) -> Optimizer:
         state["step"] = step
         return params, state, {"grad_norm": gnorm, "lr": lr}
 
-    return Optimizer("adafactor", init, update)
+    def state_axes(param_axes):
+        def per_leaf(ax):
+            if len(ax) >= 2:
+                return {"vr": tuple(ax[:-1]), "vc": tuple(ax[:-2]) + (ax[-1],)}
+            return {"v": tuple(ax)}
+
+        return {"mu": tree_map(per_leaf, param_axes), "step": ()}
+
+    return Optimizer("adafactor", init, update, state_axes)

@@ -185,12 +185,13 @@ def test_harness_runs_every_section_and_fails_if_one_fails(monkeypatch,
     assert calls[5][1][1] == str(tmp_path / "BENCH_torch_scheduler.json")
     out = capsys.readouterr().out
     assert "BENCH-ERROR" in out and "failures=1" in out
-    assert "Fault tolerance" in out and "roofline" not in out.lower()
+    assert "Fault tolerance" in out and "Roofline" in out
 
 
 def _harness_sections():
     from repro_torch.benchmarks import (
-        bench_scheduler, bench_sharedplan, kernel_bench, fig2_hybrid_join)
+        bench_scheduler, bench_sharedplan, kernel_bench, fig2_hybrid_join,
+        roofline_table)
     return [fig2_hybrid_join, t_fig5, t_fig6, t_fig7, t_fig8, bench_scheduler,
             t_adaptive, t_prefetch, bench_sharedplan, t_shard, t_obs,
-            t_serving, kernel_bench, t_ft]
+            t_serving, kernel_bench, t_ft, roofline_table]

@@ -218,8 +218,18 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     got = tkernel.grouped_matmul_kernel(x, gid, w, 128)
     torch.testing.assert_close(got, grouped_matmul_tiles_ref(x, gid, w, 128))
     assert tkernel.LAUNCHES["grouped_matmul"] == before
-    with pytest.raises(ValueError):
-        tkernel.grouped_matmul_kernel(x.to("meta"), gid, w, 128)
+    # meta tensors (the dry-run's shards): the output's shape, no launch,
+    # the kernel's flops and bytes reported to kernels.shapes
+    from repro_torch.kernels import shapes
+
+    seen = []
+    with shapes.recording(lambda *rec: seen.append(rec)):
+        out = tkernel.grouped_matmul_kernel(x.to("meta"), gid.to("meta"),
+                                            w.to("meta"), 128)
+    assert out.device.type == "meta" and tuple(out.shape) == (256, 32)
+    assert tkernel.LAUNCHES["grouped_matmul"] == before
+    assert seen == [("grouped_matmul", 2.0 * 256 * 64 * 32,
+                     4 * (256 * 64 + 2 * 64 * 32 + 256 * 32) + 4 * 2)]
 
 
 TILE_ROWS = {  # real leading rows of each of the 8 tiles of 128 rows

@@ -335,7 +335,21 @@ def test_plain_version_is_the_cpu_path():
     np.testing.assert_array_equal(
         tkernel.paged_attention_kernel(q, kp, vp, pt, lens).numpy(),
         t_ref(q, kp, vp, pt, lens).numpy())
-    with pytest.raises(ValueError, match="unsupported device"):
-        tkernel.paged_attention_kernel(q.to("meta"), kp.to("meta"),
-                                       vp.to("meta"), pt.to("meta"),
-                                       lens.to("meta"))
+    # meta tensors (the dry-run's shards): the output's shape, no launch,
+    # the kernel's flops and bytes over the table's slots reported
+    from repro_torch.kernels import shapes
+
+    before = tkernel.LAUNCHES["paged_attention"]
+    seen = []
+    with shapes.recording(lambda *rec: seen.append(rec)):
+        out = tkernel.paged_attention_kernel(q.to("meta"), kp.to("meta"),
+                                             vp.to("meta"), pt.to("meta"),
+                                             lens.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert tkernel.LAUNCHES["paged_attention"] == before
+    B, H, D = q.shape
+    _, page, KV, _ = kp.shape
+    T = pt.shape[1] * page
+    moved = (2 * B * T * KV * D * 4 + 2 * q.numel() * 4
+             + pt.numel() * pt.element_size() + lens.numel() * 4)
+    assert seen == [("paged_attention", 4.0 * B * H * T * D, moved)]
