@@ -5,8 +5,9 @@ of the MoE moonshot-v1-16b-a3b (K4 and the grouped matmul K5), the
 durable service daemon over both (a kill -9 drill on the cross-match),
 the paper's drivers and gates, the rest of the model zoo (the SSM,
 the Jamba hybrid, the encoder-decoder and the VLM), served and
-prefilled, the MoE train step with K5's backward, and the trainer with
-its checkpoint and resume.
+prefilled, the MoE train step with K5's backward, the trainer with
+its checkpoint and resume, the mesh tools, and CodeQwen's
+sequence-parallel decode over two ranks of the card.
 
     python3 chip_smoke.py
 
@@ -83,6 +84,17 @@ Phases; any failure exits non-zero before the last line is printed:
               (f) paligemma's (B=8, H=8 on KV=1, D=256, as (a)'s pages),
               (g) seamless's self-attention (H=KV=16, D=64) and (h) its
               cross-attention (16 slots, one page, every sequence full).
+              (p) K4 with its partials (the max score m and softmax sum l
+              of each row, for a sequence-sharded cache) at a decode_32k
+              shard: B=8, H=KV=32, D=128, 16,384 slots (32 splits), timed
+              as the others; beforehand the partials at (a)'s shape (one
+              split) and at (p)'s against
+              ``paged_attention_partials_ref``: m within 1e-4, l within
+              2e-4 relative (``PARTIALS_M_TOL``, ``PARTIALS_L_TOL``), an
+              empty row exactly (out 0, m -1e30, l 0), a bad page in the
+              last split NaN in its row of out, m and l only; and (p)'s
+              two halves merged as ``attention._local_decode`` merges
+              shards against K4 on the whole.
               Tolerance: the reference's for this kernel, rtol = 5e-2 in
               bf16, and atol = 5e-2 times the largest |output| where that
               is below 1 (an average over thousands of slots is small; a
@@ -276,7 +288,25 @@ Phases; any failure exits non-zero before the last line is printed:
               their local tensors, two train steps on the batches
               trainer B took must give B's step-4 and step-5 losses bit
               for bit.  Printed: the restore's seconds beside phase 13's
-              plain restore, and the phase's seconds.
+              plain restore, and the phase's seconds.  (a) also traces
+              falcon-mamba-7b prefill_32k and jamba-v0.1-52b prefill_32k
+              on 16x16: the full-sequence SSM cells, whose causal conv
+              runs in ``local_map`` (torch 2.11 refuses ``F.pad`` of a
+              DTensor).
+  15. sharded The sequence-parallel decode on the card: a process of
+              its own (``--sharded-decode-rank``) with a one-rank NCCL
+              group and a (1, 1) ("data", "model") mesh under
+              ``DECODE_RULES`` (``SHARDED_RANKS`` says why not two),
+              the cache's sequence sharded over "model":
+              CodeQwen1.5-7B at full width cut to 8 of 32 layers in
+              float32, B=2, a 32,768-slot cache holding seeded K/V below
+              position 16,380, 8 greedy ``make_serve_step`` steps.  K4
+              returns its partials and ``_local_decode`` merges them
+              through all-reduces.  Rank 0 first decodes the same 8 steps
+              unsharded; every rank's greedy tokens must equal those, the
+              cache must be sequence-sharded, and K4 must launch once a
+              layer a step in both runs.  Printed: the step times and K4
+              launches a step of both runs, the cache's placements.
 
 The last two lines are the kernels' JSON record and the device record.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -328,7 +358,9 @@ from repro_torch.kernels.grouped_matmul.ref import (  # noqa: E402
     grouped_matmul_dw_ref, grouped_matmul_tiles_ref,
 )
 from repro_torch.kernels.paged_attention import kernel as PK  # noqa: E402
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
+    paged_attention_partials_ref, paged_attention_ref,
+)
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -411,7 +443,18 @@ PAGED_SHAPES = {
           serve_launcher.ENC_LEN),
 }
 PAGED_FULL = {"h"}  # shapes whose every sequence is max_len long
+# Phase 5 (p): K4 with its partials (max and sum) at a decode_32k shard:
+# the 32,768-slot cache of CodeQwen's heads cut in two by a (1, 2) mesh's
+# "model" axis, 8 sequences (decode_32k's 128 over a data axis of 16).
+PARTIALS_SHAPE = (8, 32, 32, 128, math.gcd(16384, attn_mod.DECODE_PAGE),
+                  16384 // math.gcd(16384, attn_mod.DECODE_PAGE), 16384)
+# m: the kernel's base-2 max times ln 2, absolute (an f32 dot of D = 128
+# unit normals is good to 128 * 2**-24 * sum|q k| / sqrt(D), ~6e-5); l:
+# relative (exp of that).
+PARTIALS_M_TOL = 1e-4
+PARTIALS_L_TOL = 2e-4
 MANY = 20  # launches between one pair of CUDA events
+PROFILE_GAP_S = 0.05  # host seconds between profiled ranges (profiled_runs)
 SERVE_ARCH = "codeqwen1.5-7b"
 MOE_ARCH = "moonshot-v1-16b-a3b"
 CPU_LAYERS = 2  # the CPU comparison's cut in depth
@@ -518,11 +561,38 @@ MESH_CELLS = (
     ("--arch", MOE_ARCH, "--shape", "train_4k", "--zero1"),
     ("--arch", MOE_ARCH, "--shape", "train_4k", "--zero1", "--multi-pod"),
     ("--arch", SERVE_ARCH, "--shape", "decode_32k"),
+    ("--arch", "falcon-mamba-7b", "--shape", "prefill_32k"),
+    ("--arch", "jamba-v0.1-52b", "--shape", "prefill_32k"),
 )
 MESH_DIR = pathlib.Path(ROOT) / "build" / "dryrun_smoke"
 MESH_TIMEOUT = 600
 # Phase 14 (b): the steps after the checkpoint that are replayed.
 MESH_STEPS = 2
+# Phase 15: CodeQwen's sequence-parallel decode on a (1, SHARDED_RANKS)
+# ("data", "model") mesh of one card, its ranks processes over
+# SHARDED_BACKEND.  Two ranks of one card would need gloo (NCCL takes one
+# rank a device), and the card machine's gloo (torch 2.11) crashes on
+# all_gather_into_tensor of CUDA tensors (all-reduce works), which the
+# decode's DTensors need (q's heads, the vocab); so one rank over NCCL,
+# whose "model" axis of size 1 still shards the cache's sequence: K4
+# returns its partials and they go through _local_decode's all-reduces.
+# The merge of two shards by value is held on the CPU
+# (tests/test_torch_sharded_decode.py) and of two halves on the card
+# (phase 5).  Full width, cut to SHARDED_LAYERS of 32 layers and in
+# float32: the sharded run's partial sums and merge round in another
+# order than the unsharded one, which in bf16 may move a greedy
+# near-tie; in f32 the weights, decode_32k's 32,768-slot cache of
+# SHARDED_B sequences and the unsharded run's copy of it fit the card at
+# 8 layers.  The cache holds seeded K/V below SHARDED_POS, so with two
+# ranks the SHARDED_STEPS greedy steps cross into the second shard
+# halfway.
+SHARDED_RANKS = 1
+SHARDED_BACKEND = "nccl"
+SHARDED_LAYERS = 8
+SHARDED_B, SHARDED_SLOTS = 2, 32768
+SHARDED_STEPS = 8
+SHARDED_POS = SHARDED_SLOTS // 2 - SHARDED_STEPS // 2
+SHARDED_TIMEOUT = 600
 
 
 def main() -> int:
@@ -590,6 +660,8 @@ def main() -> int:
     # -- 5. K4 against its plain version -------------------------------------
     paged = {key: measure_paged(key, shape, dev)
              for key, shape in PAGED_SHAPES.items()}
+    check_paged_partials(dev)
+    paged["p"] = measure_paged("p", PARTIALS_SHAPE, dev, partials=True)
     # every shape's kernel in one profiler session (each session makes the
     # later ones of the process lose device events)
     traced = profiled_runs([r.pop("kernel_fn") for r in paged.values()],
@@ -654,6 +726,12 @@ def main() -> int:
     by_run["mesh"] = run_mesh_phase(smi, resumed)
     shutil.rmtree(TRAINER_DIR)
     print(f"[mesh] phase 14 in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # -- 15. the sequence-parallel decode ------------------------------------
+    t0 = time.perf_counter()
+    by_run["sharded"] = run_sharded_phase(smi)
+    print(f"[sharded] phase 15 in {time.perf_counter() - t0:.1f}s",
+          flush=True)
 
     for rec in records:
         rec["launches_by_run"] = {
@@ -742,7 +820,11 @@ def profiled_runs(fns, name: str, n: int = MANY) -> list:
     many of the ``n`` it holds.  The trace opens with ``n`` unattributed runs
     of the first fn, since a trace that starts with launches can miss the
     first of them; and every profiler session makes the later ones of the
-    process lose device events, so callers open few."""
+    process lose device events, so callers open few.  The ranges are
+    ``PROFILE_GAP_S`` apart and a kernel belongs to the range within half
+    a gap of its start: the device's timestamps can lag the host's by
+    more than a short range (on an H100, a whole range's kernels were
+    once counted to the next)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -754,10 +836,12 @@ def profiled_runs(fns, name: str, n: int = MANY) -> list:
             fns[0]()
         torch.cuda.synchronize()
         for i, fn in enumerate(fns):
+            time.sleep(PROFILE_GAP_S)
             with record_function(f"chip_smoke run {i}"):
                 for _ in range(n):
                     fn()
                 torch.cuda.synchronize()
+        time.sleep(PROFILE_GAP_S)
     events = prof.events()
     spans = {e.name: e.time_range for e in events
              if e.device_type == DeviceType.CPU
@@ -765,10 +849,11 @@ def profiled_runs(fns, name: str, n: int = MANY) -> list:
     kern = [e.time_range for e in events
             if e.device_type == DeviceType.CUDA and name in e.name]
     out = []
+    half = PROFILE_GAP_S * 1e6 / 2  # µs, as the time ranges
     for i in range(len(fns)):
         span = spans.get(f"chip_smoke run {i}")
         mine = [t for t in kern if span is not None
-                and span.start <= t.start <= span.end]
+                and span.start - half <= t.start < span.end + half]
         ms = (sum(t.elapsed_us() for t in mine) / len(mine) / 1e3
               if mine else None)
         out.append((ms, len(mine)))
@@ -1460,22 +1545,25 @@ def paged_inputs(B, H, KV, D, page, pages, max_len, dev, seed):
     return q, kp, vp, table.view(B, pages), lens
 
 
-def measure_paged(key, shape, dev) -> dict:
+def measure_paged(key, shape, dev, partials=False) -> dict:
     """Phase 5, one shape: K4 against its plain version on the same card
     inputs, then its times (the module docstring says how each is taken;
     ``kernel_fn``, the timed call, goes to the caller's one profiler
     session for ``profiled_ms``),
     the plain version's and one SDPA call's over the dense K/V (gathered
     once, outside the timing) with a length mask; the bound counts the
-    valid K/V slots' bytes."""
+    valid K/V slots' bytes.  ``partials``: K4 with its max and sum, held
+    to ``paged_attention_partials_ref``."""
     B, H, KV, D, page, pages, max_len = shape
     q, kp, vp, table, lens = paged_inputs(*shape, dev, seed=20 + ord(key))
     if key in PAGED_FULL:
         lens.fill_(max_len)
     args = (q, kp, vp, table, lens)
-    got = PK.paged_attention_kernel(*args)
-    want = paged_attention_ref(*args)
-    err = check_paged(f"K4 ({key})", got, want)
+    plain = paged_attention_partials_ref if partials else paged_attention_ref
+    got = PK.paged_attention_kernel(*args, partials=partials)
+    want = plain(*args)
+    err = (check_partials(f"K4 ({key})", got, want)[0] if partials
+           else check_paged(f"K4 ({key})", got, want))
     S = page * pages
     idx = table.long()
     kd = kp[idx].reshape(B, S, KV, D).transpose(1, 2).contiguous()
@@ -1489,25 +1577,29 @@ def measure_paged(key, shape, dev) -> dict:
         return sdpa(q4, kd, vd, attn_mask=mask, enable_gqa=H != KV)
 
     def kernel():
-        return PK.paged_attention_kernel(*args)
+        return PK.paged_attention_kernel(*args, partials=partials)
 
-    lib_err = float((library().view(B, H, D).float() - want.float()).abs().max())
+    want_out = want[0] if partials else want
+    lib_err = float((library().view(B, H, D).float()
+                     - want_out.float()).abs().max())
     k_ms = many_ms(kernel)
     w_ms = cuda_ms(kernel, REPS)
-    p_ms = many_ms(lambda: paged_attention_ref(*args))
+    p_ms = many_ms(lambda: plain(*args))
     l_ms = many_ms(library)
     lw_ms = cuda_ms(library, REPS)
     slots = int(lens.sum())
     esize = q.element_size()
     nbytes = (2 * slots * KV * D * esize + 2 * q.numel() * esize
-              + table.numel() * 4 + lens.numel() * 4)
+              + table.numel() * 4 + lens.numel() * 4
+              + (2 * B * H * 4 if partials else 0))  # m and l
     flops = 4.0 * slots * H * D  # QK and PV, one FMA each
     bound, bound_by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
     splits, chunk = PK.split_plan(S)
     ws = PK.workspace_bytes(B, H, KV, D, splits)
     path = PK.kernel_path(q, kp, vp)
     label = (f"({key}) B={B} H={H} KV={KV} D={D} page={page}x{pages} "
-             f"lens<= {max_len}, {slots} slots")
+             f"lens<= {max_len}, {slots} slots"
+             + (", with partials" if partials else ""))
     print(f"[paged] {label}: max |diff| {err:.3e} (SDPA {lib_err:.3e}); "
           f"splits {splits} x chunk {chunk}, workspace {ws} B, loads {path}; "
           f"kernel {k_ms:.4f} ms ({MANY} launches), wrapper {w_ms:.4f} ms "
@@ -1524,6 +1616,78 @@ def measure_paged(key, shape, dev) -> dict:
         shape=label,
     )
     return rec
+
+
+def check_partials(label, got, want) -> tuple:
+    """K4's (out, m, l) against the plain version's: out by
+    ``check_paged``, m within ``PARTIALS_M_TOL`` absolute and l within
+    ``PARTIALS_L_TOL`` relative (rows with no valid slot: m = -1e30 and l
+    = 0 exactly); exits if not.  Returns (out's, m's, l's max error)."""
+    err = check_paged(label, got[0], want[0])
+    m, l_ = got[1], got[2]
+    m_err = float((m - want[1]).abs().max())
+    l_err = float(((l_ - want[2]).abs() / want[2].clamp(min=1e-30)).max())
+    empty = want[2] == 0
+    if not (m_err <= PARTIALS_M_TOL and l_err <= PARTIALS_L_TOL
+            and bool((m[empty] == -1e30).all()) and bool((l_[empty] == 0).all())):
+        raise SystemExit(f"{label}: m or l differs from the plain version's "
+                         f"(max |m diff| {m_err}, max l rel. diff {l_err})")
+    return err, m_err, l_err
+
+
+def check_paged_partials(dev) -> None:
+    """Phase 5: K4's partials against the plain version at one split
+    ((a)'s shape, 64 slots) and at the decode_32k shard (splits > 1), on a
+    shard no slot of which is valid yet (seq_len 0) and with a bad page met
+    by the last split (NaN in out, m and l of that sequence only); and
+    the shard's two halves merged by ``attention._local_decode``'s formula
+    against K4 on the whole shard."""
+    for key, shape in (("a", PAGED_SHAPES["a"]), ("p", PARTIALS_SHAPE)):
+        B, H, KV, D, page, pages, max_len = shape
+        q, kp, vp, table, lens = paged_inputs(*shape, dev, seed=90 + ord(key))
+        lens[1] = 0
+        args = (q, kp, vp, table, lens)
+        got = PK.paged_attention_kernel(*args, partials=True)
+        errs = check_partials(f"K4 partials ({key})", got,
+                              paged_attention_partials_ref(*args))
+        if not (torch.count_nonzero(got[0][1]) == 0
+                and bool((got[1][1] == -1e30).all())
+                and bool((got[2][1] == 0).all())):
+            raise SystemExit(f"K4 partials ({key}): an empty row is not "
+                             f"(out 0, m -1e30, l 0)")
+        splits, chunk = PK.split_plan(page * pages)
+        bad = table.clone()
+        bad[0, (splits - 1) * chunk // page] = kp.shape[0]
+        out = PK.paged_attention_kernel(q, kp, vp, bad, lens, partials=True)
+        torch.cuda.synchronize()
+        for x in out:
+            if not (bool(torch.isnan(x[0]).all())
+                    and not bool(torch.isnan(x[1:]).any())):
+                raise SystemExit(f"K4 partials ({key}): a bad page gives no "
+                                 f"NaN, or NaN elsewhere")
+        print(f"[paged] partials ({key}) B={B} H={H} D={D} {page * pages} "
+              f"slots, {splits} splits: max |diff| out {errs[0]:.3e}, m "
+              f"{errs[1]:.3e} (tolerance {PARTIALS_M_TOL}), l relative "
+              f"{errs[2]:.3e} ({PARTIALS_L_TOL}); an empty row gives out 0, "
+              f"m -1e30, l 0; a bad page in the last split NaN in its row "
+              f"of out, m and l only", flush=True)
+    half = page * pages // 2
+    lens[:2] = torch.tensor([page * pages - 3, half - 100])  # one ends early
+    parts = []
+    for lo in (0, half):
+        part = table[:, lo // page:(lo + half) // page].contiguous()
+        shard = torch.clamp(lens - lo, 0, half).to(torch.int32)
+        parts.append(PK.paged_attention_kernel(q, kp, vp, part, shard,
+                                               partials=True))
+    m_all = torch.maximum(parts[0][1], parts[1][1])
+    w = [torch.exp(m_s - m_all) * l_s for _, m_s, l_s in parts]
+    num = sum(w_s[..., None] * o.float() for w_s, (o, _, _) in zip(w, parts))
+    merged = (num / torch.clamp(w[0] + w[1], min=1e-30)[..., None]).to(q.dtype)
+    err = check_paged("K4 partials, two halves merged", merged,
+                      PK.paged_attention_kernel(q, kp, vp, table, lens))
+    print(f"[paged] partials: the shard's two halves of {half} slots merged "
+          f"as _local_decode merges them = K4 on all {2 * half}: max |diff| "
+          f"{err:.3e}", flush=True)
 
 
 def check_paged(label, got, want) -> float:
@@ -3259,5 +3423,194 @@ def run_mesh_phase(smi, resumed) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 15
+def sharded_config():
+    return dataclasses.replace(get_config(SERVE_ARCH), n_layers=SHARDED_LAYERS,
+                               dtype="float32")
+
+
+def fill_prefix(k, v, lo: int) -> None:
+    """Seeded K/V in slots [0, SHARDED_POS) of every layer, written where
+    they fall in ``k``/``v`` (L, B, S_l, KV, D), slots [lo, lo + S_l):
+    each rank draws the same numbers and keeps its own."""
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    L, B, S_l, KV, D = k.shape
+    hi = min(SHARDED_POS, lo + S_l)
+    for i in range(L):
+        for t in (k, v):
+            draw = torch.randn((B, SHARDED_POS, KV, D), generator=gen,
+                               device=DEVICE, dtype=t.dtype)
+            if hi > lo:
+                t[i, :, :hi - lo] = draw[:, lo:hi]
+
+
+def timed_steps(step, params, cache, put, full) -> dict:
+    """SHARDED_STEPS greedy steps of ``step`` (``make_serve_step``) from
+    seeded tokens: the tokens, each step's ms (host clock to a
+    synchronize) and K4's launches."""
+    tok = torch.from_numpy(np.random.default_rng(15).integers(
+        0, sharded_config().vocab_size,
+        (SHARDED_B, 1)).astype(np.int32)).to(DEVICE)
+    reset_all_launches()
+    tokens, ms = [], []
+    for _ in range(SHARDED_STEPS):
+        t0 = time.perf_counter()
+        tok, cache = step(params, put(tok), cache)
+        tok = full(tok)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        tokens.append(tok[:, 0].tolist())
+    return {"tokens": tokens, "ms": ms,
+            "k4": PK.LAUNCHES["paged_attention"]}
+
+
+def sharded_decode_rank(rank: int, port: str) -> None:
+    """Phase 15, one rank (a process of its own): the unsharded decode on
+    rank 0, then the sequence-sharded one on every rank under
+    DECODE_RULES, the weights and cache placed as each rank's shards of
+    the same seeded tensors.  Prints its record as JSON."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.sharding import DECODE_RULES, activate
+    from repro_torch.training import make_serve_step, tree_shardings
+
+    torch.cuda.set_device(0)
+    PK.build()
+    dist.init_process_group(SHARDED_BACKEND,
+                            init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=SHARDED_RANKS)
+    cfg = sharded_config()
+    B, S = SHARDED_B, SHARDED_SLOTS
+    mesh = init_device_mesh(torch.device(DEVICE).type, (1, SHARDED_RANKS),
+                            mesh_dim_names=("data", "model"))
+    rules = ShardingRules(mesh, dict(DECODE_RULES))
+    step = make_serve_step(cfg, S)
+    rec = {"rank": rank, "backend": SHARDED_BACKEND}
+    t0 = time.perf_counter()
+    params = models.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(0))
+    meta = models.make_cache(cfg, B, S, device="meta")
+    csh = tree_shardings(rules, models.cache_axes(cfg, B, S), meta)
+    local = {k: torch.zeros(csh[k].shard_shape(meta[k].shape),
+                            dtype=meta[k].dtype, device=DEVICE)
+             for k in ("k", "v")}
+    lo = csh["k"].local_slices(meta["k"].shape)[2].start or 0
+    fill_prefix(local["k"], local["v"], lo)
+    torch.cuda.synchronize()
+    rec["setup_s"] = time.perf_counter() - t0
+    if rank == 0:
+        full = models.make_cache(cfg, B, S, device=DEVICE)
+        fill_prefix(full["k"], full["v"], 0)
+        full["pos"] = SHARDED_POS
+        rec["want"] = timed_steps(step, params, full, lambda t: t,
+                                  lambda t: t)
+        del full
+
+    def place(t, sh):
+        if sh is None:
+            return t
+        return DTensor.from_local(t[sh.local_slices(t.shape)].contiguous(),
+                                  mesh, sh.placements, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+
+    sharded = tree_map(place, params,
+                       tree_shardings(rules, models.param_axes(cfg), params))
+    del params
+    cache = {k: DTensor.from_local(local[k], mesh, csh[k].placements,
+                                   run_check=False, shape=meta[k].shape,
+                                   stride=meta[k].stride())
+             for k in ("k", "v")}
+    cache["pos"] = SHARDED_POS
+    torch.cuda.empty_cache()
+    tok_sh = rules.sharding_for(("batch", "seq"), (B, 1))
+    rec["cache_placements"] = [str(p) for p in cache["k"].placements]
+    rec["local_slots"] = [lo, lo + local["k"].shape[2]]
+    dist.barrier()
+    with activate(rules), implicit_replication():
+        rec["got"] = timed_steps(step, sharded, cache,
+                                 lambda t: place(t, tok_sh),
+                                 lambda t: t.full_tensor())
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    dist.destroy_process_group()
+    print(json.dumps(rec), flush=True)
+
+
+def run_sharded_phase(smi) -> dict:
+    """Phase 15: SHARDED_RANKS processes (``sharded_decode_rank``) on the
+    card.  The sharded greedy tokens must equal rank 0's unsharded ones at
+    every step, on every rank; K4 must launch once a layer a step in both
+    runs.  Returns the launches of both runs, every rank's."""
+    torch.cuda.empty_cache()
+    print(f"[sharded] this process holds {torch.cuda.memory_reserved() / 2**30:.3f} "
+          f"GiB of the card before the ranks start", flush=True)
+    port = str(free_port())
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-X", "faulthandler", os.path.abspath(__file__),
+         "--sharded-decode-rank",
+         str(r), port], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env, cwd=ROOT) for r in range(SHARDED_RANKS)]
+    deadline = time.monotonic() + SHARDED_TIMEOUT
+    outs = []
+    for proc in procs:
+        try:
+            outs.append(proc.communicate(
+                timeout=max(1.0, deadline - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            outs.append(proc.communicate())
+        if proc.returncode != 0:  # the others would wait for it forever
+            for p in procs:
+                p.kill()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        for r in failed:
+            print(f"[sharded] rank {r} exited {procs[r].returncode}:\n"
+                  f"{outs[r][0][-2000:]}\n{outs[r][1][-6000:]}", flush=True)
+        raise SystemExit(f"[sharded] ranks {failed} failed")
+    recs = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+    cfg = sharded_config()
+    want = recs[0]["want"]
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    print(f"[sharded] {SERVE_ARCH} at full width, {cfg.n_layers} of 32 "
+          f"layers in {cfg.dtype}; B={SHARDED_B}, a {SHARDED_SLOTS}-slot "
+          f"cache, {SHARDED_STEPS} greedy steps from position {SHARDED_POS} "
+          f"through make_serve_step; mesh (1, {SHARDED_RANKS}) over "
+          f"{SHARDED_BACKEND}, one card ({smi})", flush=True)
+    print(f"[sharded] unsharded: step {med(want['ms']):.3f} ms median "
+          f"({min(want['ms']):.3f}-{max(want['ms']):.3f}), K4 "
+          f"{want['k4'] / SHARDED_STEPS:.1f} launches a step; tokens "
+          f"{want['tokens']}", flush=True)
+    launches = {"paged_attention": want["k4"]}
+    for rec in recs:
+        got = rec["got"]
+        print(f"[sharded] rank {rec['rank']}: cache {rec['cache_placements']} "
+              f"(slots {rec['local_slots'][0]}-{rec['local_slots'][1]}), "
+              f"step {med(got['ms']):.3f} ms median ({min(got['ms']):.3f}-"
+              f"{max(got['ms']):.3f}), K4 {got['k4'] / SHARDED_STEPS:.1f} "
+              f"launches a step, set-up {rec['setup_s']:.2f} s, peak "
+              f"{rec['peak_gib']:.3f} GiB", flush=True)
+        if got["tokens"] != want["tokens"]:
+            raise SystemExit(f"[sharded] rank {rec['rank']}'s tokens "
+                             f"{got['tokens']} differ from the unsharded "
+                             f"{want['tokens']}")
+        if rec["cache_placements"][1] != "S(2)":
+            raise SystemExit("[sharded] the cache's sequence is not sharded")
+        if got["k4"] != cfg.n_layers * SHARDED_STEPS \
+                or want["k4"] != cfg.n_layers * SHARDED_STEPS:
+            raise SystemExit(f"[sharded] K4 launches {got['k4']} / "
+                             f"{want['k4']}, expected one a layer a step")
+        launches["paged_attention"] += got["k4"]
+    print(f"[sharded] the sequence-sharded decode's greedy tokens equal the "
+          f"unsharded decode's at all {SHARDED_STEPS} steps on every rank",
+          flush=True)
+    return launches
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-decode-rank"]:
+        sharded_decode_rank(int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
     sys.exit(main())

@@ -3,6 +3,7 @@
 Not part of the smoke run; run it when K4's chunk or its wrapper changes:
 
     python3 k4_tune.py
+    python3 k4_tune.py --against OTHER.cu  # only section 3
 
 1. chunk  -- K4's device time (``chip_smoke.many_ms``: 20 launches between
              one pair of CUDA events, over 20) at chip_smoke.py's phase-5
@@ -14,11 +15,23 @@ Not part of the smoke run; run it when K4's chunk or its wrapper changes:
              parts it no longer does (a ``torch.cuda.device`` context, the
              public ``current_stream``, the library's lock) and the two
              table builds ``attn_decode`` no longer makes a layer.
+3. source -- with ``--against OTHER.cu`` (an earlier
+             ``csrc/paged_attention.cu``, e.g. ``git show
+             <commit>:src/repro_torch/csrc/paged_attention.cu``): the
+             normal decode call (no partials) built from OTHER and from
+             this tree's source, at every phase-5 shape (a)-(h): the
+             outputs bit-compared, and each kernel's own duration in one
+             ``torch.profiler`` trace (``chip_smoke.profiled_runs``) and
+             its 20-launch CUDA-event time, in turns other, this, this,
+             other.  OTHER must take the same packed arguments (a source
+             from before the partials reads 20 of the 22 int64 this
+             wrapper packs and ignores the last two, their pointers).
 
 Exits 2 without a CUDA device.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import pathlib
 import subprocess
 import sys
 import time
@@ -96,6 +109,44 @@ def host_costs(dev) -> None:
             flush=True)
 
 
+def against(other: str, dev) -> None:
+    from repro_torch.kernels.nvcc import CudaLibrary
+
+    libs = {"this": PK.LIBRARY, "other": CudaLibrary("paged_attention",
+                                                    PK._bind)}
+    libs["other"].source = pathlib.Path(other).resolve()
+    launch = {k: lib.load().paged_attention_launch for k, lib in libs.items()}
+    order = ("other", "this", "this", "other")
+    fns, event = {}, {}
+    for key, shape in smoke.PAGED_SHAPES.items():
+        args = smoke.paged_inputs(*shape, dev, seed=20 + ord(key))
+        if key in smoke.PAGED_FULL:
+            args[4].fill_(shape[6])
+
+        def call(which, args=args):
+            PK._launch = launch[which]
+            return PK.paged_attention_kernel(*args)
+
+        if not torch.equal(call("this").view(torch.uint8),
+                           call("other").view(torch.uint8)):
+            raise SystemExit(f"K4 ({key}): this source's output differs "
+                             f"from {other}'s")
+        fns[key] = [lambda w=w, c=call: c(w) for w in order]
+        event[key] = [smoke.many_ms(fn) for fn in fns[key]]
+    # one profiler session (each makes the later ones lose device events)
+    prof = smoke.profiled_runs([f for key in fns for f in fns[key]],
+                               "paged_attention")
+    for i, key in enumerate(fns):
+        mine = prof[4 * i:4 * i + 4]
+        print(f"[source] ({key}) outputs bit-equal; profiled ms "
+              + ", ".join(f"{w} {smoke.fmt_ms(ms)}"
+                          for w, (ms, _) in zip(order, mine))
+              + f"; {smoke.MANY}-launch ms "
+              + ", ".join(f"{w} {ms:.4f}" for w, ms in zip(order, event[key])),
+              flush=True)
+    PK._launch = launch["this"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("k4_tune: no CUDA device; nothing was run", file=sys.stderr)
@@ -107,6 +158,9 @@ def main() -> int:
     print(f"card: {smi}", flush=True)
     dev = torch.device("cuda", torch.cuda.current_device())
     PK.build()
+    if sys.argv[1:2] == ["--against"]:
+        against(sys.argv[2], dev)
+        return 0
     sweep_chunks(dev)
     host_costs(dev)
     return 0

@@ -74,6 +74,16 @@
 // A page index outside [0, n_pages) met below seq_lens[b] makes the rows of
 // that (b, kv) NaN instead of a read out of bounds, whichever split meets
 // it: the flag travels through the merge.
+//
+// Partials (a sequence-sharded cache; the counterpart of the reference's
+// paged_attention_partials_ref, which the JAX package runs as jnp under
+// XLA's partitioner).  Given non-null m and l, (B, H) f32, the exit that
+// writes a row of out (the one-split write or the merge) also writes its
+// max score m and its sum l = sum exp(s - m) over the valid slots, so the
+// shards of a sequence can be merged by the caller: m in natural units
+// (the base-2 max times ln 2), -1e30 exactly where no slot is valid (l =
+// 0, out = 0 there), and NaN in all three where a bad page was met.  The
+// normal decode passes null pointers and writes only out.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -81,16 +91,17 @@
 #include <atomic>
 #include <cstddef>
 
-// One call's arguments, packed by the wrapper as 20 int64 in this order
+// One call's arguments, packed by the wrapper as 22 int64 in this order
 // (a ctypes call with one pointer argument costs the host a fraction of one
 // with twenty).  dtype: 0 = float32, 1 = bfloat16 (q, the pools and out
 // share it).  path: 0 = scalar loads, 1 = 16-byte cp.async ring.  ws: f32 workspace of B*KV*splits*(G*(D + 2) +
 // 1) floats and counters: B*KV ints that are 0, both used only when
-// splits > 1.
+// splits > 1.  m, l: the partials' outputs, or 0.
 struct PagedAttentionArgs {
   long long q, k_pages, v_pages, page_table, seq_lens, out, ws, counters;
   long long B, H, KV, D, page, P, n_pages, splits, chunk, dtype, path;
   long long stream;
+  long long m, l;  // optional (B, H) f32 partials, 0 for none
 };
 
 namespace {
@@ -100,6 +111,16 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 4;  // cp.async ring depth, in tiles
 constexpr int kPasses = 2;  // slots a lane group takes from each tile
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// A row's partials: the base-2 max ``mx`` in natural units (kNegInf kept
+// as it is where no slot was valid) and the sum ``ll``; NaN for a fault.
+__device__ __forceinline__ void write_partials(float* m_out, float* l_out,
+                                               size_t row, float mx, float ll,
+                                               bool ok) {
+  m_out[row] = ok ? (mx > kNegInf ? mx * kLn2 : kNegInf) : CUDART_NAN_F;
+  l_out[row] = ok ? ll : CUDART_NAN_F;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -364,7 +385,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ page_table, const int* __restrict__ seq_lens,
     T* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
-    int H, int KV, int D, int page, int P, int n_pages, int chunk) {
+    float* __restrict__ m_out, float* __restrict__ l_out, int H, int KV,
+    int D, int page, int P, int n_pages, int chunk) {
   using C = Cfg<T, VEC, LPS, PER, GR, ASYNC>;
   constexpr int kE = C::kElems;
   extern __shared__ float4 smem4[];
@@ -500,8 +522,10 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
           a = fmaf(sm_acc[(s * GR + g) * D + e], w, a);
         }
         if (splits == 1) {
-          out[(static_cast<size_t>(b) * H + kv * G + g0 + g) * D + e] =
+          const size_t row = static_cast<size_t>(b) * H + kv * G + g0 + g;
+          out[row * D + e] =
               from_f<T>(ok ? a / fmaxf(ll, 1e-30f) : CUDART_NAN_F);
+          if (m_out && e == 0) write_partials(m_out, l_out, row, mx, ll, ok);
         } else {
           const size_t row = (bkv * splits + split) * G + g0 + g;
           ws_acc[row * D + e] = a;
@@ -543,8 +567,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       ll = fmaf(__ldcg(ws_l + row), w, ll);
       a = fmaf(__ldcg(ws_acc + row * D + e), w, a);
     }
-    out[(static_cast<size_t>(b) * H + kv * G + g) * D + e] =
-        from_f<T>(ok ? a / fmaxf(ll, 1e-30f) : CUDART_NAN_F);
+    const size_t row = static_cast<size_t>(b) * H + kv * G + g;
+    out[row * D + e] = from_f<T>(ok ? a / fmaxf(ll, 1e-30f) : CUDART_NAN_F);
+    if (m_out && e == 0) write_partials(m_out, l_out, row, mx, ll, ok);
   }
   if (threadIdx.x == 0) counters[bkv] = 0;  // ready for the next call
 }
@@ -579,6 +604,7 @@ int launch_one(const PagedAttentionArgs& a) {
       reinterpret_cast<const int*>(a.page_table),
       reinterpret_cast<const int*>(a.seq_lens), reinterpret_cast<T*>(a.out),
       reinterpret_cast<float*>(a.ws), reinterpret_cast<int*>(a.counters),
+      reinterpret_cast<float*>(a.m), reinterpret_cast<float*>(a.l),
       static_cast<int>(a.H), static_cast<int>(a.KV), D,
       static_cast<int>(a.page), static_cast<int>(a.P),
       static_cast<int>(a.n_pages), static_cast<int>(a.chunk));
@@ -631,7 +657,7 @@ int paged_attention_launch(const PagedAttentionArgs* p) {
   const PagedAttentionArgs& a = *p;
   if (a.B <= 0 || a.B > 65535 || a.KV <= 0 || a.H % a.KV || a.D <= 0 ||
       a.D > 256 || a.splits <= 0 || a.splits > 65535 || a.chunk <= 0 ||
-      (a.splits > 1 && (!a.ws || !a.counters)))
+      (a.splits > 1 && (!a.ws || !a.counters)) || (!a.m != !a.l))
     return static_cast<int>(cudaErrorInvalidValue);
   return a.dtype == 1 ? launch<__nv_bfloat16>(a) : launch<float>(a);
 }

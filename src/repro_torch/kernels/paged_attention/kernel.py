@@ -14,8 +14,11 @@ given CUDA tensors it launches the kernel on the current stream, or
 raises; given ``meta`` tensors (the multi-pod dry-run) it returns the
 output's shape and reports the kernel's flops and bytes to
 ``kernels.shapes``, every slot of the table counted (a meta tensor holds
-no lengths).  ``LAUNCHES["paged_attention"]`` counts kernel launches (one a
-call, the merge included).  The source is compiled at first use
+no lengths).  With ``partials=True`` it returns (out, m, l), the row's
+max score and softmax sum beside the output, for a sequence-sharded
+cache: the same launch with two more (B, H) f32 outputs.
+``LAUNCHES["paged_attention"]`` counts kernel launches (one a call, the
+merge included).  The source is compiled at first use
 (``nvcc.CudaLibrary``); nothing is built when this module is imported.
 """
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 
 from .. import shapes
 from ..nvcc import CudaLibrary
-from .ref import paged_attention_ref
+from .ref import paged_attention_partials_ref, paged_attention_ref
 
 __all__ = [
     "CHUNK",
@@ -65,9 +68,9 @@ def reset_launches() -> None:
         LAUNCHES["paged_attention"] = 0
 
 
-# The launch entry's one argument: PagedAttentionArgs in the source, 20
+# The launch entry's one argument: PagedAttentionArgs in the source, 22
 # int64 (pointers as integers, 0 for none).
-_ARGS = struct.Struct("<20q")
+_ARGS = struct.Struct("<22q")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -197,18 +200,22 @@ def _split_scratch(device: torch.device, stream: int, floats: int,
     return ws, cnt
 
 
-def _meta_call(q, k_pages, page_table, seq_lens) -> torch.Tensor:
-    """K4 on meta tensors: the output's shape; the flops of QK^T and PV and
-    the bytes of q, the table's K/V slots, the table, the lengths and the
-    output, reported to ``kernels.shapes``."""
+def _meta_call(q, k_pages, page_table, seq_lens, partials: bool):
+    """K4 on meta tensors: the output's shape (and the partials' m and
+    l); the flops of QK^T and PV and the bytes of q, the table's K/V slots,
+    the table, the lengths and the outputs, reported to
+    ``kernels.shapes``."""
     B, H, D = q.shape
     _, page, KV, _ = k_pages.shape
     T = page_table.shape[1] * page
-    out = shapes.meta_empty(q.shape, q)
+    outs = (shapes.meta_empty(q.shape, q),)
+    if partials:
+        outs += tuple(torch.empty((B, H), dtype=torch.float32, device="meta")
+                      for _ in range(2))
     kv_bytes = 2 * B * T * KV * D * k_pages.element_size()
     shapes.record("paged_attention", 4.0 * B * H * T * D,
-                  kv_bytes + shapes.nbytes(q, page_table, seq_lens, out))
-    return out
+                  kv_bytes + shapes.nbytes(q, page_table, seq_lens, *outs))
+    return outs if partials else outs[0]
 
 
 def paged_attention_kernel(
@@ -217,12 +224,17 @@ def paged_attention_kernel(
     v_pages: torch.Tensor,
     page_table: torch.Tensor,  # (B, P) int32, entries in [0, N)
     seq_lens: torch.Tensor,  # (B,) int32
-) -> torch.Tensor:
-    """Decode attention over paged KV (K4): (B, H, D) in q's dtype."""
+    partials: bool = False,
+):
+    """Decode attention over paged KV (K4): (B, H, D) in q's dtype; with
+    ``partials``, (out, m, l), m and l (B, H) f32 (the source's note)."""
     if q.device.type == "cpu":
+        if partials:
+            return paged_attention_partials_ref(q, k_pages, v_pages,
+                                                page_table, seq_lens)
         return paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens)
     if q.device.type == "meta":
-        return _meta_call(q, k_pages, page_table, seq_lens)
+        return _meta_call(q, k_pages, page_table, seq_lens, partials)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k_pages, v_pages, page_table, seq_lens)
@@ -235,6 +247,9 @@ def paged_attention_kernel(
     if _launch is None:
         _launch = build().paged_attention_launch
     out = torch.empty_like(q)
+    m = l_ = None
+    if partials:
+        m, l_ = torch.empty((2, B, H), dtype=torch.float32, device=q.device)
     index = q.device.index
     with (_CURRENT_DEVICE if index == torch.cuda.current_device()
           else torch.cuda.device(index)):
@@ -251,8 +266,9 @@ def paged_attention_kernel(
             page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), ws_ptr,
             counters, B, H, KV, D, page, P, N, splits, chunk,
             _DTYPES[q.dtype], _PATHS[path], stream,
+            0 if m is None else m.data_ptr(), 0 if l_ is None else l_.data_ptr(),
         ))
     LIBRARY.check(code, "paged_attention")
     with _count_lock:
         LAUNCHES["paged_attention"] += 1
-    return out
+    return (out, m, l_) if partials else out

@@ -9,7 +9,6 @@ from __future__ import annotations
 import torch
 
 from .kernel import paged_attention_kernel
-from .ref import paged_attention_partials_ref
 
 __all__ = ["paged_attention", "paged_attention_partials", "dense_to_pages"]
 
@@ -25,23 +24,15 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens):
 
 def paged_attention_partials(q, k_pages, v_pages, page_table, seq_lens):
     """(out, m, l) of one shard of a sequence-sharded cache, to be merged
-    across the shards (``paged_attention_partials_ref``).  On meta tensors
-    K4's shapes-only call plus the (B, H) f32 m and l; on the CPU the
-    plain version.  K4 on the card returns no max or sum, so a CUDA call
-    raises: sequence-parallel decode runs in the dry-run only."""
-    if q.device.type == "meta":
-        out = paged_attention_kernel(q, k_pages, v_pages,
-                                     page_table.to(torch.int32),
-                                     seq_lens.to(torch.int32))
-        m, l_ = (torch.empty(q.shape[:2], dtype=torch.float32, device="meta")
-                 for _ in range(2))
-        return out, m, l_
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            "a sequence-sharded cache needs K4's max and sum, which the "
-            "CUDA kernel does not return")
-    return paged_attention_partials_ref(q, k_pages, v_pages, page_table,
-                                        seq_lens)
+    across the shards (``paged_attention_partials_ref``): K4 with its max
+    and sum, (B, H) f32, beside the output.  On the CPU the plain version;
+    on meta tensors K4's shapes-only call."""
+    if page_table.dtype != torch.int32:
+        page_table = page_table.to(torch.int32)
+    if seq_lens.dtype != torch.int32:
+        seq_lens = seq_lens.to(torch.int32)
+    return paged_attention_kernel(q, k_pages, v_pages, page_table, seq_lens,
+                                  partials=True)
 
 
 def dense_to_pages(k: torch.Tensor, v: torch.Tensor, page: int):

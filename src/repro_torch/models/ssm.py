@@ -25,8 +25,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..sharding.logical import shard_hint
-from .common import ParamFactory, einsum
+from ..sharding.logical import is_dtensor, shard_hint, sharded
+from .common import ParamFactory, _reduced, einsum
 
 __all__ = ["init_mamba", "mamba_full", "mamba_decode", "mamba_state_shapes",
            "scan_steps"]
@@ -71,14 +71,65 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _conv_full(p, xs):
-    """Causal depthwise conv over time. xs: (B, S, di)."""
-    cw = p["conv_w"].shape[0]
+    """Causal depthwise conv over time. xs: (B, S, di).  On DTensors under
+    active rules, each rank's conv on its shards (``_conv_sharded``)."""
+    if sharded(xs):
+        return _conv_sharded(p, xs)
+    return _conv_local(xs, p["conv_w"], p["conv_b"])
+
+
+def _conv_local(xs, conv_w, conv_b):
+    cw = conv_w.shape[0]
     S = xs.shape[1]
     pad = F.pad(xs, (0, 0, cw - 1, 0))
     out = torch.zeros_like(xs)
     for i in range(cw):  # tiny static loop (cw=4)
-        out = out + pad[:, i : i + S, :] * p["conv_w"][i]
-    return out + p["conv_b"]
+        out = out + pad[:, i : i + S, :] * conv_w[i]
+    return out + conv_b
+
+
+def _conv_sharded(p, xs):
+    """The causal conv in ``local_map`` (some torch versions refuse
+    ``F.pad`` of a DTensor): exact on each rank's shards while no mesh dim
+    shards the sequence, as under the rules' ``"seq": None``.  A sharded
+    sequence would need the previous rank's last cw - 1 steps, so it
+    raises.  On each mesh dim the channels are sharded where xs or the
+    weight shards them (the other takes its chunk, no collective), as
+    DTensor's own ops placed them; else the weight is taken whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    xs = _reduced(xs)
+    x_pl = tuple(xs.placements)
+    if any(pl.is_shard(1) for pl in x_pl):
+        raise NotImplementedError(
+            "the causal conv of a sequence-sharded input needs a halo of "
+            "the previous rank's last steps")
+    mesh = xs.device_mesh
+    w = p["conv_w"]
+    if not is_dtensor(w):
+        w = type(xs).from_local(w, mesh, [Replicate()] * mesh.ndim,
+                                run_check=False)
+    x_pl, w_pl, b_pl = list(x_pl), [], []
+    for i, wp in enumerate(w.placements):
+        if x_pl[i].is_shard(2) or (wp.is_shard(1) and not x_pl[i].is_shard()):
+            x_pl[i] = Shard(2)
+            w_pl.append(Shard(1))
+            b_pl.append(Shard(0))
+        else:
+            w_pl.append(Replicate())
+            b_pl.append(Replicate())
+
+    def placed(t, pl):
+        if not is_dtensor(t):
+            t = type(xs).from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+        t = _reduced(t)
+        return t if list(t.placements) == pl else t.redistribute(mesh, pl)
+
+    fn = local_map(_conv_local, out_placements=x_pl,
+                   in_placements=(x_pl, w_pl, b_pl), device_mesh=mesh)
+    return fn(placed(xs, x_pl), placed(w, w_pl), placed(p["conv_b"], b_pl))
 
 
 def _ssm_params(cfg, p, xc):

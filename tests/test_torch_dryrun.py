@@ -14,7 +14,8 @@ Each process-group run is a subprocess of its own, as
   Explicit axes make the reference's ``shard_hint`` raise in this JAX),
   for ``memory_analysis().argument_size_in_bytes`` per chip;
 * a 2-rank ``gloo`` run (mesh (1, 2), real values) of the ``SMALL``
-  codeqwen prefill's logits under the rules.
+  codeqwen prefill's logits under the rules, and of falcon-mamba's smoke
+  config (its causal conv on channel-sharded DTensors).
 
 Per-chip argument bytes must equal the reference's (on (2, 4): 4,691,588
 train, 2,262,912 prefill, 268,601,476 decode) less the int32 scalars the
@@ -267,7 +268,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import registry as R
 from repro_torch.sharding.logical import DEFAULT_RULES, ShardingRules, activate
 from repro_torch.training.optimizer import tree_map
@@ -276,7 +277,7 @@ from repro_torch.training.train_step import tree_shardings
 rank, port = int(sys.argv[1]), sys.argv[2]
 dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                         rank=rank, world_size=2)
-cfg = dataclasses.replace(get_config("codeqwen1.5-7b"), **%(small)s)
+cfg = %(cfg)s
 params = R.init_params(cfg, torch.Generator().manual_seed(0))
 tokens = torch.from_numpy(
     np.random.default_rng(0).integers(0, 512, (2, 16)).astype(np.int32))
@@ -296,12 +297,12 @@ batch = tree_map(place, batch,
                  tree_shardings(rules, {"tokens": ("batch", "seq")}, batch))
 with activate(rules), implicit_replication():
     got = R.forward_fn(cfg)(sharded, batch)
-n_sharded = sum(1 for t in sharded["layers"]["attn"].values()
+n_sharded = sum(1 for t in sharded["layers"][%(block)r].values()
                 if any(p.is_shard() for p in t.placements))
 got = got.full_tensor()
 if rank == 0:
     np.save(sys.argv[3], np.stack([got.numpy(), want.numpy()]))
-    print(json.dumps({"sharded_attn_leaves": n_sharded}))
+    print(json.dumps({"sharded_leaves": n_sharded}))
 dist.destroy_process_group()
 """
 
@@ -312,11 +313,24 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_gloo_two_rank_prefill_equals_unsharded(tmp_path):
+# arch -> (the config, the layer block whose leaves are counted, how many
+# of them shard over "model")
+GLOO_ARCHS = {
+    # wq wk wv wo and the biases bq bk bv, heads over "model"
+    "codeqwen1.5-7b": (f'dataclasses.replace(get_config("codeqwen1.5-7b"), '
+                       f'**{_SMALL})', "attn", 7),
+    # every Mamba leaf has the "inner" axis (d_inner = 128 over 2 ranks)
+    "falcon-mamba-7b": ('smoke_config("falcon-mamba-7b")', "mixer", 9),
+}
+
+
+@pytest.mark.parametrize("arch", list(GLOO_ARCHS))
+def test_gloo_two_rank_prefill_equals_unsharded(tmp_path, arch):
     import numpy as np
 
+    cfg, block, n_sharded = GLOO_ARCHS[arch]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    script = _GLOO % dict(small=_SMALL)
+    script = _GLOO % dict(cfg=cfg, block=block)
     port_ = str(_free_port())
     out = str(tmp_path / "logits.npy")
     procs = [subprocess.Popen([sys.executable, "-c", script, str(r), port_, out],
@@ -326,7 +340,65 @@ def test_gloo_two_rank_prefill_equals_unsharded(tmp_path):
     for p, (_, err) in zip(procs, results):
         assert p.returncode == 0, err[-3000:]
     info = json.loads(results[0][0].strip().splitlines()[-1])
-    # wq wk wv wo and the biases bq bk bv, heads over "model"
-    assert info["sharded_attn_leaves"] == 7
+    assert info["sharded_leaves"] == n_sharded
     got, want = np.load(out)
     np.testing.assert_allclose(got, want, rtol=LOGIT_TOL, atol=LOGIT_TOL)
+
+
+_CONV = r"""
+import json
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.models import ssm
+from repro_torch.sharding.logical import DEFAULT_RULES, ShardingRules, activate
+
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+mesh = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model"))
+g = torch.Generator().manual_seed(0)
+x, w, b = (torch.randn(s, generator=g) for s in ((2, 16, 8), (4, 8), (8,)))
+local = ssm._conv_local(x, w, b)
+out = {}
+with activate(ShardingRules(mesh, dict(DEFAULT_RULES))):
+    # channels over "model": each rank's conv of its channels, exactly
+    pl = [Replicate(), Shard(2)]
+    xs = DTensor.from_local(x[..., :4], mesh, pl, run_check=False,
+                            shape=x.shape, stride=x.stride())
+    ws = DTensor.from_local(w[:, :4], mesh, [Replicate(), Shard(1)],
+                            run_check=False, shape=w.shape, stride=w.stride())
+    bs = DTensor.from_local(b[:4], mesh, [Replicate(), Shard(0)],
+                            run_check=False, shape=b.shape, stride=b.stride())
+    got = ssm._conv_full({"conv_w": ws, "conv_b": bs}, xs)
+    out["channels"] = [str(p) for p in got.placements]
+    out["equal"] = bool(torch.equal(got.to_local(), local[..., :4]))
+    # a replicated input takes the sharded weight's channels
+    xr = DTensor.from_local(x, mesh, [Replicate(), Replicate()],
+                            run_check=False)
+    got = ssm._conv_full({"conv_w": ws, "conv_b": bs}, xr)
+    out["replicated"] = [str(p) for p in got.placements]
+    out["equal"] &= bool(torch.equal(got.to_local(), local[..., :4]))
+    # the sequence over "model": the conv would need a halo
+    xs = DTensor.from_local(x[:, :8], mesh, [Replicate(), Shard(1)],
+                            run_check=False, shape=x.shape, stride=x.stride())
+    try:
+        ssm._conv_full({"conv_w": w, "conv_b": b}, xs)
+        out["seq"] = "ran"
+    except NotImplementedError as e:
+        out["seq"] = str(e)
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def test_conv_on_dtensors_keeps_channel_shards_and_refuses_a_sharded_seq():
+    """``ssm._conv_full`` on DTensors (a fake 2-rank group): a channel-
+    sharded input, or a replicated one beside channel-sharded weights,
+    gives each rank its channels' conv, bit-equal and channel-sharded; a
+    sequence-sharded input raises, since each rank would need the
+    previous rank's last steps."""
+    out = _run(_CONV, timeout=120)
+    assert out["channels"] == out["replicated"] == ["R", "S(2)"]
+    assert out["equal"]
+    assert "halo" in out["seq"]

@@ -17,6 +17,17 @@ float32 (``tests/test_kernels.py:220``, ``:235``), at the serving path's
 shape and at ``benchmarks/kernel_bench.py``'s; where it splits a sequence
 across blocks it is held to ``paged_attention_splits_ref`` with the same
 chunk too, at the same tolerances, and two calls give the same bits.
+K4's partials (``ops.paged_attention_partials``: the row's max score m and
+softmax sum l beside the output, for a sequence-sharded cache) are held to
+``paged_attention_partials_ref`` on the card at one split (64 slots), at a
+decode_32k shard (16,384 slots, 32 splits), on an empty shard and with a
+bad page: ``out`` to K4's rule, and bit-equal to the call without
+partials; m within 1e-4 absolute (the kernel's base-2 max times ln 2; an
+f32 dot of D = 128 unit normals is good to 128 * 2**-24 * sum|q k| /
+sqrt(D), ~6e-5) and l within 2e-4 relative (exp of that); an empty row
+gives m = -1e30, l = 0 and out = 0 exactly, a bad page NaN in all three.
+Merging the two halves of a 32,768-slot cache with
+``attention._local_decode``'s formula equals K4 on the whole cache.
 
 The grouped matmul (K5) is held to its plain version at the reference's
 tolerances for it, rtol = atol = 5e-2 in bfloat16 and 1e-5 in float32
@@ -65,7 +76,9 @@ from repro_torch.kernels.crossmatch import ops as tops  # noqa: E402
 from repro_torch.kernels.crossmatch import ref as tref  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as pkernel  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pops  # noqa: E402
-from repro_torch.kernels.paged_attention.ref import paged_attention_splits_ref  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
+    paged_attention_partials_ref, paged_attention_splits_ref,
+)
 from repro_torch.kernels.grouped_matmul import kernel as gkernel  # noqa: E402
 from repro_torch.kernels.grouped_matmul import ops as gops  # noqa: E402
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref  # noqa: E402
@@ -666,6 +679,118 @@ def test_k4_scalar_instance(card, dtype):
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    pops.paged_attention(*args).float().numpy(),
                                    rtol=tol, atol=tol)
+
+
+# K4's partials: m (absolute, natural units) and l (relative); see the
+# module docstring.
+PARTIALS_M_TOL = 1e-4
+PARTIALS_L_TOL = 2e-4
+PARTIAL_SHAPES = {
+    # (B, H, KV, D, page, pages, max_len): CodeQwen's heads
+    "one_split": (8, 32, 32, 128, 16, 4, 64),  # the serving path's 64 slots
+    "decode_32k_shard": (2, 32, 32, 128, 16, 1024, 16384),  # 32 splits
+}
+
+
+def _partials_close(got, want, dtype):
+    (out, m, l_), (w_out, w_m, w_l) = got, want
+    tol = PAGED_TOL[dtype]
+    w_out = w_out.float()
+    np.testing.assert_allclose(
+        out.float().cpu().numpy(), w_out.cpu().numpy(), rtol=tol,
+        atol=tol * min(1.0, float(w_out.abs().max())))
+    np.testing.assert_allclose(m.cpu().numpy(), w_m.cpu().numpy(),
+                               rtol=0, atol=PARTIALS_M_TOL)
+    np.testing.assert_allclose(l_.cpu().numpy(), w_l.cpu().numpy(),
+                               rtol=PARTIALS_L_TOL, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", list(PARTIAL_SHAPES),
+                         ids=list(PARTIAL_SHAPES))
+def test_k4_partials_match_plain(card, shape, dtype):
+    """Both exits: the one-split write and the merge of 32 splits; one
+    launch a call, the output bit-equal to the call without partials."""
+    B, H, KV, D, page, pages, max_len = PARTIAL_SHAPES[shape]
+    args = [x.to(card) for x in _paged_case(
+        np.random.default_rng(B + pages), B, H, KV, D, page, pages, max_len,
+        dtype)]
+    splits, _ = _splits(args)
+    assert (splits == 1) == (shape == "one_split")
+    before = pkernel.LAUNCHES["paged_attention"]
+    got = pops.paged_attention_partials(*args)
+    torch.cuda.synchronize()
+    assert pkernel.LAUNCHES["paged_attention"] == before + 1
+    out, m, l_ = got
+    assert out.dtype == dtype and m.dtype == l_.dtype == torch.float32
+    assert m.shape == l_.shape == (B, H) and m.is_cuda and l_.is_cuda
+    _partials_close(got, paged_attention_partials_ref(*args), dtype)
+    assert torch.equal(out.view(torch.uint8),
+                       pops.paged_attention(*args).view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(PARTIAL_SHAPES),
+                         ids=list(PARTIAL_SHAPES))
+def test_k4_partials_empty_shard_and_bad_page(card, shape):
+    """A shard no slot of which is valid yet (seq_len 0: m = -1e30, l = 0,
+    out = 0, as the plain version gives), beside a sequence that holds
+    slots; then a bad page met by the last split makes that sequence's
+    out, m and l NaN and no other's."""
+    B, H, KV, D, page, pages, max_len = PARTIAL_SHAPES[shape]
+    args = [x.to(card) for x in _paged_case(
+        np.random.default_rng(7), B, H, KV, D, page, pages, max_len,
+        torch.bfloat16)]
+    q, kp, vp, pt, lens = args
+    lens[0] = 0
+    out, m, l_ = pops.paged_attention_partials(*args)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(out[0]).item() == 0
+    assert bool((m[0] == -1e30).all()) and bool((l_[0] == 0).all())
+    _partials_close((out, m, l_), paged_attention_partials_ref(*args),
+                    torch.bfloat16)
+    splits, chunk = _splits(args)
+    lens[1] = max_len
+    pt[1, (splits - 1) * chunk // page] = kp.shape[0]  # the last split's
+    out, m, l_ = pops.paged_attention_partials(*args)
+    torch.cuda.synchronize()
+    for x in (out, m, l_):
+        assert torch.isnan(x[1]).all() and not torch.isnan(x[0]).any()
+        assert not torch.isnan(x[2:]).any()
+
+
+@pytest.mark.cuda
+def test_k4_partials_of_two_halves_merge_to_the_whole(card):
+    """A 32,768-slot cache cut in two 16,384-slot shards, as a (1, 2) mesh
+    cuts decode_32k's: each half's partials merged by _local_decode's
+    formula (m = max m_s, w_s = exp(m_s - m) l_s, out = sum w_s out_s /
+    sum w_s) equal K4 on the whole cache, at K4's rule; one sequence
+    reaches past the half, one ends in the first (its second shard
+    empty)."""
+    B, H, KV, D, page, pages = 2, 32, 32, 128, 16, 2048
+    args = [x.to(card) for x in _paged_case(
+        np.random.default_rng(3), B, H, KV, D, page, pages, page * pages,
+        torch.bfloat16)]
+    q, kp, vp, pt, lens = args
+    half = page * pages // 2
+    lens[:] = torch.tensor([page * pages - 5, half - 1000])
+    parts = []
+    for lo in (0, half):
+        table = pt[:, lo // page:(lo + half) // page].contiguous()
+        shard = torch.clamp(lens - lo, 0, half).to(torch.int32)
+        parts.append(pops.paged_attention_partials(q, kp, vp, table, shard))
+    m_all = torch.maximum(parts[0][1], parts[1][1])
+    w = [torch.exp(m - m_all) * l_ for _, m, l_ in parts]
+    num = sum(w_s[..., None] * out.float() for w_s, (out, _, _) in zip(w, parts))
+    merged = (num / torch.clamp(w[0] + w[1], min=1e-30)[..., None]).to(q.dtype)
+    assert bool((parts[1][1][1] == -1e30).all())  # the empty second shard
+    want = pops.paged_attention(*args).float()
+    tol = PAGED_TOL[torch.bfloat16]
+    np.testing.assert_allclose(
+        merged.float().cpu().numpy(), want.cpu().numpy(), rtol=tol,
+        atol=tol * min(1.0, float(want.abs().max())))
 
 
 # ------------------------------------------------------------------ K5
