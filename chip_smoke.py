@@ -131,7 +131,13 @@ Phases; any failure exits non-zero before the last line is printed:
               tokens over the 64 experts, computed by the MoE layer's own
               ``expert_tiles``, and x zero past them; (j) and (j') the same
               at jamba's decode call: 8 tokens top-2 over 16 experts of C
-              = 256 rows, d = 4096 -> f = 14336 and back.  Tolerance: the
+              = 256 rows, d = 4096 -> f = 14336 and back; (e f32) (e) in
+              float32, the decode call of a full-width f32 cut; (b bf16
+              elem) (b) with f = 1020, which TMA cannot describe: the bf16
+              element-load kernels, forward and dW.  At (b f32) and (e
+              f32) the TMA-fed f32 kernel must equal the element-load one
+              (``gmm_f32``, on a misaligned copy of x) bit for bit; both
+              are timed.  Tolerance: the
               reference's, rtol = atol = 5e-2 in bf16 and 1e-5 in f32
               (``tests/test_kernels.py:173``).  Kernel, plain and library
               call (``torch.bmm`` on the (E, C, d) view at (a)/(a')/(e),
@@ -226,12 +232,16 @@ Phases; any failure exits non-zero before the last line is printed:
               experts of C = 512 rows (8 x 512 tokens top-6, routing from
               the model's first MoE layer on a real batch), gate/up (d =
               2048, f = 1408) and down (1408 -> 2048), plus a ragged f32
-              case with an empty expert and a partly filled tile: dX (K5 on
+              case (r) with an empty expert and a partly filled tile, and
+              (t f32) the f32 cut's call (2 x 16 tokens top-6 over the 64
+              experts at C = 256, d = 2048, f = 1408): dX (K5 on
               the transposed weights) and dW (its own kernel) within
               ``TRAIN_DW_TOL`` of the largest value, an empty expert's dW
-              and a padding row's dX +0; kernel, plain and ``torch.bmm``
-              CUDA-event medians beside the bound; the transposed-weight
-              copy's time.  (c) ``TRAIN_STEPS`` (10) steps of
+              and a padding row's dX +0; in f32 the TMA-fed kernels equal
+              the element-load ones bit for bit; kernel, element-load,
+              plain and ``torch.bmm`` CUDA-event medians beside the bound;
+              the transposed-weight copy's time.  (c) ``TRAIN_STEPS`` (10)
+              steps of
               ``make_train_step`` on ``TokenPipeline(seed=0)`` batches of 8
               x 512: each step's loss and grad norm (finite, the last loss
               below the first), the median CUDA-event step after step 1,
@@ -245,7 +255,10 @@ Phases; any failure exits non-zero before the last line is printed:
               loss and every gradient leaf for 2 x 16 tokens on the card
               against the CPU within ``TRAIN_LOSS_TOL`` (relative) and
               ``TRAIN_GRAD_TOL`` (of each leaf's largest value), each MoE
-              layer's routing compared and a flip printed.
+              layer's routing compared and a flip printed; the card's
+              backward is profiled (its device-to-device copies and K5
+              kernels printed) and K5 must have taken its float32 TMA
+              kernels (``GK.KERNEL_LAUNCHES``).
 13. trainer -- ``training/trainer.py`` on ``cuda``.  (a) moonshot-v1-16b-a3b
               at its published widths cut in depth to ``TRAINER_LAYERS``
               (1) of 48 layers (1.24 G parameters; its checkpoint, bf16
@@ -322,6 +335,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -341,7 +355,8 @@ from repro_torch.benchmarks import (  # noqa: E402
 )
 from repro_torch.benchmarks import common as bench_common  # noqa: E402
 from repro_torch.benchmarks.common import (  # noqa: E402
-    PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, bound as bound_ms,
+    PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, bound as bound_ms, misaligned,
+    profiled_runs, same_bits,
 )
 from repro_torch.examples import (  # noqa: E402
     crossmatch_skyquery, serve_multitenant,
@@ -454,7 +469,6 @@ PARTIALS_SHAPE = (8, 32, 32, 128, math.gcd(16384, attn_mod.DECODE_PAGE),
 PARTIALS_M_TOL = 1e-4
 PARTIALS_L_TOL = 2e-4
 MANY = 20  # launches between one pair of CUDA events
-PROFILE_GAP_S = 0.05  # host seconds between profiled ranges (profiled_runs)
 SERVE_ARCH = "codeqwen1.5-7b"
 MOE_ARCH = "moonshot-v1-16b-a3b"
 CPU_LAYERS = 2  # the CPU comparison's cut in depth
@@ -470,19 +484,32 @@ GMM_BT = 128
 # shape (e'), (j') as (routing, d, f).
 GMM_DECODE = dict(B=8, k=6, E=64, C=256)
 JAMBA_DECODE = dict(B=8, k=2, E=16, C=256)
-GMM_DECODE_SHAPES = {"e": (GMM_DECODE, 2048, 1408),
-                     "e'": (GMM_DECODE, 1408, 2048),
-                     "j": (JAMBA_DECODE, 4096, 14336),
-                     "j'": (JAMBA_DECODE, 14336, 4096)}
+# (e f32): (e) in float32, the decode call of a full-width f32 cut (phase
+# 11's cuts, phase 12 (b)).
+GMM_DECODE_SHAPES = {"e": (GMM_DECODE, 2048, 1408, torch.bfloat16),
+                     "e'": (GMM_DECODE, 1408, 2048, torch.bfloat16),
+                     "j": (JAMBA_DECODE, 4096, 14336, torch.bfloat16),
+                     "j'": (JAMBA_DECODE, 14336, 4096, torch.bfloat16),
+                     "e f32": (GMM_DECODE, 2048, 1408, torch.float32)}
 # Phase 7's shapes: (T, d, f, group sizes, dtype, weight scale).  The
 # weights of (a)/(a') are the model's init scale, 1/sqrt(d); (b) takes
-# kernel_bench's 0.02.
+# kernel_bench's 0.02.  (b bf16 elem) is (b) with f = 1020, which TMA
+# cannot describe (rows of 2040 bytes): the bf16 element-load kernels'
+# row, forward and dW (``GMM_DW_ELEM``).
 GMM_SHAPES = {
     "a": (16384, 2048, 1408, [256] * 64, torch.bfloat16, 2048 ** -0.5),
     "a'": (16384, 1408, 2048, [256] * 64, torch.bfloat16, 1408 ** -0.5),
     "b bf16": (4096, 1024, 1024, [512, 1024, 512, 2048], torch.bfloat16, 0.02),
     "b f32": (4096, 1024, 1024, [512, 1024, 512, 2048], torch.float32, 0.02),
+    "b bf16 elem": (4096, 1024, 1020, [512, 1024, 512, 2048],
+                    torch.bfloat16, 0.02),
 }
+GMM_DW_ELEM = "b bf16 elem"
+# K5's float32 kernels fed by TMA ("f32") are held bit for bit to the
+# element-load ones ("f32_elem") at every f32 shape of phases 7 and 12:
+# each output of both is one fmaf chain in the same order.  The element-
+# load call takes a copy of the same inputs whose base lies 4 bytes past
+# a 16-byte boundary (``misaligned``), which TMA cannot describe.
 # Step-1 logits, bf16, cpu vs card: four bf16 ulps at the largest logits
 # (|logit| in [4, 8), ulp 2^-5).  Both runs round every product's f32 sum
 # to bf16; a sum summed in another order lands on the other side of a
@@ -680,8 +707,9 @@ def main() -> int:
     # -- 7. K5 against its plain version -------------------------------------
     grouped = {key: measure_grouped(key, shape, dev)
                for key, shape in GMM_SHAPES.items()}
-    for key, (routing, d, f) in GMM_DECODE_SHAPES.items():
-        grouped[key] = measure_grouped_decode(key, routing, d, f, dev)
+    for key, (routing, d, f, dtype) in GMM_DECODE_SHAPES.items():
+        grouped[key] = measure_grouped_decode(key, routing, d, f, dtype, dev)
+    grouped_dw = measure_grouped_dw(GMM_DW_ELEM, GMM_SHAPES[GMM_DW_ELEM], dev)
     records.append(dict(grouped["a"], shapes={
         k: v for k, v in grouped.items() if k != "a"}))
 
@@ -713,6 +741,7 @@ def main() -> int:
     # -- 12. training: K5's backward and the train step at full width -------
     t0 = time.perf_counter()
     by_run["train"], backward = run_train_phase(smi, dw_fault)
+    backward[1]["shapes"][GMM_DW_ELEM] = grouped_dw
     records.extend(backward)
     print(f"[train] phase 12 in {time.perf_counter() - t0:.1f}s", flush=True)
 
@@ -809,55 +838,6 @@ def many_ms(fn, n: int = MANY) -> float:
 
 def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
-
-
-def profiled_runs(fns, name: str, n: int = MANY) -> list:
-    """(ms, traced) for each of ``fns``: the mean duration of the device
-    kernels whose name holds ``name`` in one ``torch.profiler`` trace of
-    ``n`` runs of each (each fn's in a ``record_function`` range that ends
-    in a synchronise), the kernel's own time even where its launch is
-    slower than it, or None where the trace holds none of them; and how
-    many of the ``n`` it holds.  The trace opens with ``n`` unattributed runs
-    of the first fn, since a trace that starts with launches can miss the
-    first of them; and every profiler session makes the later ones of the
-    process lose device events, so callers open few.  The ranges are
-    ``PROFILE_GAP_S`` apart and a kernel belongs to the range within half
-    a gap of its start: the device's timestamps can lag the host's by
-    more than a short range (on an H100, a whole range's kernels were
-    once counted to the next)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fns[0]()
-        torch.cuda.synchronize()
-        for i, fn in enumerate(fns):
-            time.sleep(PROFILE_GAP_S)
-            with record_function(f"chip_smoke run {i}"):
-                for _ in range(n):
-                    fn()
-                torch.cuda.synchronize()
-        time.sleep(PROFILE_GAP_S)
-    events = prof.events()
-    spans = {e.name: e.time_range for e in events
-             if e.device_type == DeviceType.CPU
-             and e.name.startswith("chip_smoke run ")}
-    kern = [e.time_range for e in events
-            if e.device_type == DeviceType.CUDA and name in e.name]
-    out = []
-    half = PROFILE_GAP_S * 1e6 / 2  # µs, as the time ranges
-    for i in range(len(fns)):
-        span = spans.get(f"chip_smoke run {i}")
-        mine = [t for t in kern if span is not None
-                and span.start - half <= t.start < span.end + half]
-        ms = (sum(t.elapsed_us() for t in mine) / len(mine) / 1e3
-              if mine else None)
-        out.append((ms, len(mine)))
-    return out
 
 
 def profiled_ms(fn, name: str, n: int = MANY):
@@ -2005,6 +1985,27 @@ def grouped_library(x, w, sizes):
     return None, "none"
 
 
+def grouped_dw_library(x, dy, sizes):
+    """One PyTorch call computing K5's weight gradient on the same inputs:
+    ``torch.bmm`` of the (G, C, d) view transposed with the (G, C, f) one
+    where the groups are equal, ``torch._grouped_mm`` of x^T and dy with
+    offsets along the rows (bf16, where the card's torch has it and the
+    rows are a whole number of 16 bytes, which it requires) where they are
+    not; else None."""
+    G, d, f = len(sizes), x.shape[1], dy.shape[1]
+    if len(set(sizes)) == 1:
+        xv, dyv = x.view(G, sizes[0], d), dy.view(G, sizes[0], f)
+        return lambda: torch.bmm(xv.transpose(1, 2), dyv), "torch.bmm"
+    if (x.dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm")
+            and d % 8 == 0 and f % 8 == 0):
+        offs = torch.tensor(np.cumsum(sizes), dtype=torch.int32,
+                            device=x.device)
+        return (lambda: torch._grouped_mm(x.t(), dy, offs=offs),
+                "torch._grouped_mm")
+    return None, ("none: torch._grouped_mm refuses rows that are not a "
+                  "whole number of 16 bytes, and the groups are unequal")
+
+
 def measure_grouped(key, shape, dev) -> dict:
     """Phase 7, one dense shape: every row real.  The bound counts x, w and
     tile_gid read once and y written once, and 2 T d f operations."""
@@ -2021,14 +2022,14 @@ def measure_grouped(key, shape, dev) -> dict:
                         nbytes, 2.0 * T * d * f, label)
 
 
-def measure_grouped_decode(key, c, d, f, dev) -> dict:
-    """Phase 7 (e), (e'), (j), (j'): the MoE decode's call.  tile_rows from
-    a seeded top-k routing ``c`` (the same seed at every shape) through
-    ``moe.expert_tiles``; x random in the real rows and zero past them, so
-    ``torch.bmm`` on the dense view computes the same function.  The bound
-    counts the active experts' weights, x's real rows, tile_gid and
-    tile_rows read once, y (all T rows) written once, and 2 d f operations
-    a real row."""
+def measure_grouped_decode(key, c, d, f, dtype, dev) -> dict:
+    """Phase 7 (e), (e'), (j), (j'), (e f32): the MoE decode's call.
+    tile_rows from a seeded top-k routing ``c`` (the same seed at every
+    shape) through ``moe.expert_tiles``; x random in the real rows and zero
+    past them, so ``torch.bmm`` on the dense view computes the same
+    function.  The bound counts the active experts' weights, x's real rows,
+    tile_gid and tile_rows read once, y (all T rows) written once, and 2 d
+    f operations a real row."""
     E, C = c["E"], c["C"]
     T = E * C
     gen = torch.Generator(device=dev).manual_seed(75)
@@ -2037,15 +2038,16 @@ def measure_grouped_decode(key, c, d, f, dev) -> dict:
     gid, rows = moe_mod.expert_tiles(top, E, C, GMM_BT)
     real = (torch.arange(GMM_BT, device=dev) < rows[:, None]).reshape(T)
     n_real = int(real.sum())
-    x = torch.zeros(T, d, device=dev, dtype=torch.bfloat16)
+    x = torch.zeros(T, d, device=dev, dtype=dtype)
     x[real] = torch.randn(n_real, d, device=dev, generator=gen).to(x.dtype)
     w = (torch.randn(E, d, f, device=dev, generator=gen)
-         * d ** -0.5).to(torch.bfloat16)
+         * d ** -0.5).to(dtype)
     active = int((rows.view(E, -1).sum(dim=1) > 0).sum())
     used_tiles = int((rows > 0).sum())
-    nbytes = ((active * d * f + n_real * d + T * f) * 2
+    nbytes = ((active * d * f + n_real * d + T * f) * x.element_size()
               + (gid.numel() + rows.numel()) * 4)
-    label = (f"({key}) T={T} d={d} f={f} groups={E} bfloat16, decode: "
+    label = (f"({key}) T={T} d={d} f={f} groups={E} "
+             f"{str(dtype).replace('torch.', '')}, decode: "
              f"{c['B']} tokens top-{c['k']}, {active} active experts, "
              f"{n_real} real rows in {used_tiles} row tiles")
     rec = time_grouped(x, gid, w, rows, grouped_library(x, w, [C] * E),
@@ -2057,7 +2059,9 @@ def measure_grouped_decode(key, c, d, f, dev) -> dict:
 def time_grouped(x, gid, w, rows, library, nbytes, flops, label) -> dict:
     """K5 against its plain version on the same card inputs, then the
     CUDA-event medians of the kernel, the plain version and the library
-    call, beside the bound for ``nbytes`` and ``flops``."""
+    call, beside the bound for ``nbytes`` and ``flops``.  In float32 the
+    element-load kernel too, on a misaligned copy of x: its output must
+    equal the TMA kernel's bit for bit, and its time is printed beside."""
     got = GK.grouped_matmul_kernel(x, gid, w, GMM_BT, rows)
     want = grouped_matmul_tiles_ref(x, gid, w, GMM_BT, rows)
     torch.cuda.synchronize()
@@ -2067,6 +2071,21 @@ def time_grouped(x, gid, w, rows, library, nbytes, flops, label) -> dict:
             and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)):
         raise SystemExit(f"K5 {label} differs from its plain version: "
                          f"max |diff| {err}")
+    path = GK.kernel_path(x, w)
+    elem_fn = None
+    if x.dtype == torch.float32:
+        xe = misaligned(x)
+        if path != "f32" or GK.kernel_path(xe, w) != "f32_elem":
+            raise SystemExit(f"K5 {label}: paths {path}, "
+                             f"{GK.kernel_path(xe, w)}; expected f32, "
+                             f"f32_elem")
+
+        def elem_fn():
+            return GK.grouped_matmul_kernel(xe, gid, w, GMM_BT, rows)
+
+        if not same_bits(got, elem_fn()):
+            raise SystemExit(f"K5 {label}: gmm_f32_tma differs from gmm_f32 "
+                             f"(the element-load kernel) in its bits")
     lib_fn, lib_name = library
     lib_ms, lib_err = None, None
     if lib_fn is not None:
@@ -2074,24 +2093,87 @@ def time_grouped(x, gid, w, rows, library, nbytes, flops, label) -> dict:
         lib_ms = cuda_ms(lib_fn, REPS)
     k_ms = cuda_ms(lambda: GK.grouped_matmul_kernel(x, gid, w, GMM_BT, rows),
                    REPS)
+    k_dev = many_ms(lambda: GK.grouped_matmul_kernel(x, gid, w, GMM_BT, rows))
+    e_ms = cuda_ms(elem_fn, REPS) if elem_fn is not None else None
+    e_dev = many_ms(elem_fn) if elem_fn is not None else None
     p_ms = cuda_ms(lambda: grouped_matmul_tiles_ref(x, gid, w, GMM_BT, rows),
                    REPS)
     peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     bound, bound_by = bound_ms(nbytes, flops, peak)
-    path = GK.kernel_path(x, w)
     lib_txt = (f"{lib_name} {lib_ms:.4f} ms (max |diff| {lib_err:.3e})"
                if lib_ms is not None else "library none")
-    print(f"[grouped] {label}: K5 path {path}, max |diff| {err:.3e} "
-          f"(tolerance {tol}); kernel {k_ms:.4f} ms "
+    elem_txt = (f"; f32_elem ({GK.KERNELS['f32_elem']}, bit-equal) "
+                f"{e_ms:.4f} ms (device {e_dev:.4f})" if e_ms is not None
+                else "")
+    print(f"[grouped] {label}: K5 path {path} ({GK.KERNELS[path]}), max "
+          f"|diff| {err:.3e} (tolerance {tol}); kernel {k_ms:.4f} ms "
+          f"(device {k_dev:.4f}) "
           f"({flops / k_ms / 1e9:.1f} TFLOP/s, "
-          f"{nbytes / k_ms / 1e9:.3f} TB/s of the bound's bytes), plain "
+          f"{nbytes / k_ms / 1e9:.3f} TB/s of the bound's bytes, "
+          f"{bound / k_ms:.2f} of the bound){elem_txt}, plain "
           f"{p_ms:.4f} ms, {lib_txt}, bound {bound:.4f} ms ({bound_by}, "
           f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.3f} GFLOP)", flush=True)
     return dict(
         name="grouped_matmul", route="cuda", source=GMM_SOURCE,
         replaces=GMM_REPLACES, launches=0, max_abs_err=err, ms=k_ms,
         plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
-        library=lib_name, shape=label, path=path,
+        library=lib_name, shape=label, path=path, kernel=GK.KERNELS[path],
+        device_ms=k_dev,
+        **({} if e_ms is None else {"elem_ms": e_ms, "elem_device_ms": e_dev,
+                                     "elem_kernel": GK.KERNELS["f32_elem"]}),
+    )
+
+
+def measure_grouped_dw(key, shape, dev) -> dict:
+    """Phase 7 (b bf16 elem)'s dW: K5's weight gradient at a dense shape of
+    phase 7, x (T, d) and dy (T, f) random, every row real, against its
+    plain version within ``TRAIN_DW_TOL`` of the largest value.  The bound
+    counts x, dy and the ids read once, dw written once, 2 T d f
+    operations."""
+    T, d, f, sizes, dtype, _ = shape
+    G = len(sizes)
+    gen = torch.Generator(device=dev).manual_seed(78)
+    x = torch.randn(T, d, device=dev, generator=gen).to(dtype)
+    dy = torch.randn(T, f, device=dev, generator=gen).to(dtype)
+    gid = gmm_ops.tile_groups(torch.tensor(sizes, device=dev), T, GMM_BT, G)
+
+    def kern():
+        return GK.grouped_matmul_dw_kernel(x, dy, gid, G, GMM_BT)
+
+    def plain():
+        return grouped_matmul_dw_ref(x, dy, gid, G, GMM_BT)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    tol = TRAIN_DW_TOL[dtype]
+    ok, err, scale = backward_close(got, want, tol)
+    if not ok:
+        raise SystemExit(f"K5 dW ({key}) differs from its plain version: "
+                         f"max |diff| {err} of {scale}")
+    path = GK.dw_kernel_path(x, dy)
+    lib_fn, lib_name = grouped_dw_library(x, dy, sizes)
+    lib_ms = cuda_ms(lib_fn, REPS) if lib_fn is not None else None
+    k_ms, p_ms = cuda_ms(kern, REPS), cuda_ms(plain, REPS)
+    nbytes = (T * (d + f) + G * d * f) * x.element_size() + gid.numel() * 4
+    flops = 2.0 * T * d * f
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    bound, bound_by = bound_ms(nbytes, flops, peak)
+    label = (f"({key}) dW T={T} d={d} f={f} groups={G} "
+             f"{str(dtype).replace('torch.', '')}")
+    lib_txt = (f"{lib_name} {lib_ms:.4f} ms" if lib_ms is not None
+               else f"library none ({lib_name})")
+    print(f"[grouped] {label}: dW path {path} ({GK.DW_KERNELS[path]}), max "
+          f"|diff| {err:.3e} of {scale:.3e} (tolerance {tol} of the "
+          f"largest); kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} "
+          f"TFLOP/s, {bound / k_ms:.2f} of the bound), plain {p_ms:.4f} ms, "
+          f"{lib_txt}, bound {bound:.4f} ms ({bound_by}, "
+          f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.3f} GFLOP)", flush=True)
+    return dict(
+        name="grouped_matmul_dw", route="cuda", source=GMM_SOURCE,
+        replaces=GMM_REPLACES, launches=0, max_abs_err=err, ms=k_ms,
+        plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
+        library=lib_name, shape=label, kernel_path=path,
+        kernel=GK.DW_KERNELS[path],
     )
 
 
@@ -2639,7 +2721,9 @@ def measure_backward(key, gid, rows, E, d, f, dtype, label,
     contiguous w^T (the earlier path, whose copy is timed apart) bit for
     bit; dW is held to its plain version within ``TRAIN_DW_TOL`` and
     printed beside the earlier kernel's recorded time (``DW_EARLIER_MS``).
-    With ``dw_fault`` (a library
+    In float32 dX and dW also run on the element-load kernels (misaligned
+    copies of x and dy; that dX copies w^T first), which must give the
+    same bits, and are timed beside.  With ``dw_fault`` (a library
     whose dW keeps the rows past the counts) the check must fail.  Returns
     the (dX, dW) records; the bounds count each input read once (x's and
     dy's real rows, the active experts' weights, the ids) and each output
@@ -2674,6 +2758,13 @@ def measure_backward(key, gid, rows, E, d, f, dtype, label,
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     tol = TRAIN_DW_TOL[dtype]
     bf16 = dtype == torch.bfloat16
+    xe, dye = (None, None) if bf16 else (misaligned(x), misaligned(dy))
+    elem = {} if bf16 else {
+        "grouped_matmul_dx": lambda: GK._k5(
+            dye, gid, w, GMM_BT, rows, "grouped_matmul_dx", w_transposed=True),
+        "grouped_matmul_dw": lambda: GK.grouped_matmul_dw_kernel(
+            xe, dye, gid, E, GMM_BT, rows),
+    }
     out = []
     for name, kern, earlier, plain, lib, nbytes, path in (
         ("grouped_matmul_dx",
@@ -2704,26 +2795,44 @@ def measure_backward(key, gid, rows, E, d, f, dtype, label,
                              f"map differs from K5 on a contiguous w^T")
         if name == "grouped_matmul_dw" and dw_fault is not None:
             check_dw_fault(dw_fault, kern, want, tol, key)
+        kernels = GK.KERNELS if name == "grouped_matmul_dx" else GK.DW_KERNELS
+        if name in elem:
+            if path != "f32" or not same_bits(got, elem[name]()):
+                raise SystemExit(f"[train] ({key}) {name} on path {path}: "
+                                 f"differs from the element-load kernel "
+                                 f"{kernels['f32_elem']} in its bits")
         k_ms = cuda_ms(kern, REPS)
+        k_dev = many_ms(kern)
         e_ms = cuda_ms(earlier, REPS) if earlier is not None else None
+        el_ms = cuda_ms(elem[name], REPS) if name in elem else None
+        el_dev = many_ms(elem[name]) if name in elem else None
         p_ms = cuda_ms(plain, REPS)
         l_ms = cuda_ms(lib, REPS)
         bound, bound_by = bound_ms(nbytes, flops, peak)
         if e_ms is not None:
             before = (f"; the earlier design {e_ms:.4f} ms (K5 on a copied "
-                      f"w^T, the copy apart)")
+                      f"w^T, the copy apart)" if bf16 else
+                      f"; K5 on a contiguous w^T {e_ms:.4f} ms (the copy "
+                      f"apart)")
         elif key in DW_EARLIER_MS and name == "grouped_matmul_dw":
             before = (f"; the earlier element-load wmma kernel "
                       f"{DW_EARLIER_MS[key]:.4f} ms as recorded, not timed "
                       f"here")
         else:
             before = ""
-        print(f"[train] ({key}) {name} {label}: path {path}; max |diff| "
+        if el_ms is not None:
+            before += (f"; f32_elem ({kernels['f32_elem']}, bit-equal"
+                       f"{', its w^T copy included' if e_ms else ''}) "
+                       f"{el_ms:.4f} ms (device {el_dev:.4f})")
+        print(f"[train] ({key}) {name} {label}: path {path} "
+              f"({kernels[path]}); max |diff| "
               f"{err:.3e} of {scale:.3e} (tolerance {tol} of the largest, "
               f"noise past the counts, NaN past tile {nan_tile}'s "
-              f"{int(rows[nan_tile])}); kernel {k_ms:.4f} ms "
-              f"({flops / k_ms / 1e9:.1f} TFLOP/s, {k_ms / l_ms:.2f}x "
-              f"torch.bmm){before}; plain {p_ms:.4f} ms, torch.bmm "
+              f"{int(rows[nan_tile])}); kernel {k_ms:.4f} ms (device "
+              f"{k_dev:.4f}; {flops / k_ms / 1e9:.1f} TFLOP/s, "
+              f"{k_ms / l_ms:.2f}x "
+              f"torch.bmm, {bound / k_ms:.2f} of the bound){before}; plain "
+              f"{p_ms:.4f} ms, torch.bmm "
               f"{l_ms:.4f} ms (max |diff| {lib_err:.3e}), bound {bound:.4f} "
               f"ms ({bound_by}, {nbytes / 1e6:.3f} MB, {flops / 1e9:.3f} "
               f"GFLOP)", flush=True)
@@ -2735,18 +2844,23 @@ def measure_backward(key, gid, rows, E, d, f, dtype, label,
             replaces=GMM_REPLACES, launches=0, max_abs_err=err, ms=k_ms,
             plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
             library_ms=l_ms, library="torch.bmm", kernel_path=path,
+            kernel=kernels[path], device_ms=k_dev,
             **({} if e_ms is None else {"earlier_ms": e_ms}),
+            **({} if el_ms is None else {"elem_ms": el_ms,
+                                          "elem_device_ms": el_dev,
+                                          "elem_kernel": kernels["f32_elem"]}),
             shape=f"({key}) {label}",
             note=("backward of K5; the reference has no Pallas backward "
                   "(XLA transposes its einsum)"),
         ))
-    if bf16:
-        copy_ms = cuda_ms(lambda: w.transpose(1, 2).contiguous(), REPS)
-        print(f"[train] ({key}) removed: the transposed-weight copy the "
-              f"earlier dX took first, {copy_ms:.4f} ms "
-              f"({2 * w.numel() * esize / 1e6:.3f} MB moved, "
-              f"{2 * w.numel() * esize / copy_ms / 1e9:.3f} TB/s)",
-              flush=True)
+    copy_ms = cuda_ms(lambda: w.transpose(1, 2).contiguous(), REPS)
+    what = ("removed: the transposed-weight copy the earlier dX took first"
+            if bf16 else "the transposed-weight copy the f32_elem dX still "
+            "takes first (none on the f32 path)")
+    print(f"[train] ({key}) {what}, {copy_ms:.4f} ms "
+          f"({2 * w.numel() * esize / 1e6:.3f} MB moved, "
+          f"{2 * w.numel() * esize / copy_ms / 1e9:.3f} TB/s)", flush=True)
+    out[0]["wt_copy_ms"] = copy_ms
     idle = rows.view(E, -1).sum(dim=1) == 0
     dw = GK.grouped_matmul_dw_kernel(x, dy, gid, E, GMM_BT, rows)
     dx = GK._k5(dy, gid, w, GMM_BT, rows, "grouped_matmul_dx",
@@ -2820,12 +2934,16 @@ def train_cpu_check(cfg, tag) -> None:
 
         live = tree_map(lambda p: p.detach().requires_grad_(True),
                         params[dev])
+        before = dict(GK.KERNEL_LAUNCHES)
         moe_mod.expert_tiles = recording
         try:
             loss = models.loss_fn(cut)(live, batch_on(b, dev))
         finally:
             moe_mod.expert_tiles = inner
-        grads = torch.autograd.grad(loss, tree_leaves(live))
+        if dev == DEVICE:
+            grads = profiled_backward(loss, tree_leaves(live), before, tag)
+        else:
+            grads = torch.autograd.grad(loss, tree_leaves(live))
         out[dev] = (float(loss.detach()), [g.float().cpu() for g in grads],
                    routes)
     (lc, gc, rc), (lg, gg, rg) = out["cpu"], out[DEVICE]
@@ -2851,6 +2969,52 @@ def train_cpu_check(cfg, tag) -> None:
             and worst <= TRAIN_GRAD_TOL and math.isfinite(lg)):
         raise SystemExit(f"{tag}: the card's loss or gradients differ from "
                          f"the cpu's")
+
+
+def profiled_backward(loss, leaves, before, tag) -> tuple:
+    """Phase 12 (b)'s float32 backward on the card under torch.profiler:
+    the gradients of ``leaves``.  Prints the K5 kernels the forward and
+    the backward launched (by ``GK.KERNEL_LAUNCHES`` since ``before``) and
+    the backward's device-to-device copies and K5 kernels from the trace;
+    fails unless K5 took its float32 TMA kernels (the products are at
+    moonshot's full widths, which TMA describes)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+    launched = {k: GK.KERNEL_LAUNCHES[k] - before[k] for k in before
+                if GK.KERNEL_LAUNCHES[k] != before[k]}
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if ev:
+        def total(match):
+            hits = [e for e in ev if match(e.name)]
+            return len(hits), sum(e.time_range.elapsed_us()
+                                  for e in hits) / 1e3
+
+        dtod = total(lambda n: n.startswith("Memcpy DtoD"))
+        kern = total(lambda n: "direct_copy_kernel" in n)
+        gmm = {}
+        for e in ev:
+            found = re.search(r"(gmm_[a-z0-9_]+)\s*[<(]", e.name)
+            if found:
+                gmm[found.group(1)] = gmm.get(found.group(1), 0) + 1
+        traced = (f"the trace's device-to-device copies: {dtod[0]} Memcpy "
+                  f"DtoD ({dtod[1]:.3f} ms) and {kern[0]} copy kernels "
+                  f"({kern[1]:.3f} ms); K5 kernels in it {gmm}")
+    else:
+        traced = ("device copies not measured (the profiler saw no device "
+                  "events)")
+    print(f"[{tag}] the f32 cut's forward and backward on the card: K5 "
+          f"launched {launched}; backward: {traced}", flush=True)
+    if not (launched.get("gmm_f32_tma", 0) > 0
+            and launched.get("gmm_dw_f32_tma", 0) > 0):
+        raise SystemExit(f"[{tag}] the f32 cut did not run K5's float32 TMA "
+                         f"kernels: {launched}")
+    return grads
 
 
 def iter_named_leaves(tree, path=""):
@@ -2968,8 +3132,23 @@ def run_train_phase(smi, dw_fault=None) -> tuple:
     ragged = measure_backward("r", rgid, rrows, 4, 192, 160, torch.float32,
                               "d=192 f=160 f32, 4 experts of 256 rows, one "
                               "empty, a partly filled tile")
-    dx_rec = dict(up[0], shapes={"a'": down[0], "r f32": ragged[0]})
-    dw_rec = dict(up[1], shapes={"a'": down[1], "r f32": ragged[1]})
+    # (t f32): the call of (b)'s float32 cut, its TRAIN_CPU_B x TRAIN_CPU_S
+    # tokens routed top-k over the E experts (seeded) at the capacity the
+    # MoE layer gives them
+    n_tok = TRAIN_CPU_B * TRAIN_CPU_S
+    C32 = moe_mod.moe_capacity(cfg, n_tok)
+    tgen = torch.Generator(device=dev).manual_seed(126)
+    top = torch.rand(n_tok, E, device=dev, generator=tgen).argsort(
+        dim=1)[:, :cfg.top_k]
+    tgid, trows = moe_mod.expert_tiles(top, E, C32, GMM_BT)
+    cut = measure_backward("t", tgid, trows, E, cfg.d_model, cfg.moe_d_ff,
+                           torch.float32, f"d={cfg.d_model} f={cfg.moe_d_ff} "
+                           f"T={E * C32} (E={E} x C={C32}), {n_tok} tokens "
+                           f"top-{cfg.top_k}, f32 (the f32 cut's call)")
+    dx_rec = dict(up[0], shapes={"a'": down[0], "r f32": ragged[0],
+                                 "t f32": cut[0]})
+    dw_rec = dict(up[1], shapes={"a'": down[1], "r f32": ragged[1],
+                                 "t f32": cut[1]})
 
     # (c) the slice at full width
     opt = make_optimizer(cfg.optimizer)

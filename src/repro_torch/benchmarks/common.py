@@ -24,8 +24,9 @@ from ..crossmatch import TraceConfig, make_catalog, make_trace
 __all__ = [
     "CATALOG_KW", "TRACE_KW", "CACHE_CAPACITY", "COST", "HYBRID_COST",
     "PEAK_FP32_FLOPS", "PEAK_BF16_FLOPS", "PEAK_BYTES",
-    "Timing", "workload", "time_call", "bound", "emit", "device_record",
-    "write_report",
+    "PROFILE_GAP_S", "Timing", "workload", "time_call", "profiled_runs",
+    "bound", "emit", "device_record", "write_report", "misaligned",
+    "same_bits",
 ]
 
 # Scaled SkyQuery setup: the paper uses 20k x 10k-object (40 MB) buckets
@@ -56,6 +57,7 @@ HYBRID_COST = HybridCostModel(T_b=1.2, T_m=0.13e-3, T_probe=4.13e-3)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+PROFILE_GAP_S = 0.05  # host seconds between profiled ranges (profiled_runs)
 
 _cache: dict = {}
 
@@ -118,6 +120,55 @@ def time_call(fn, *args, device="cpu", reps: int = 5, warmup: int = 2,
                   float(np.median(devs)) if cuda else None)
 
 
+def profiled_runs(fns, name: str, n: int = 20) -> list:
+    """(ms, traced) for each of ``fns``: the mean duration of the device
+    kernels whose name holds ``name`` in one ``torch.profiler`` trace of
+    ``n`` runs of each (each fn's in a ``record_function`` range that ends
+    in a synchronise), the kernel's own time even where its launch is
+    slower than it, or None where the trace holds none of them; and how
+    many of the ``n`` it holds.  The trace opens with ``n`` unattributed runs
+    of the first fn, since a trace that starts with launches can miss the
+    first of them; and every profiler session makes the later ones of the
+    process lose device events, so callers open few.  The ranges are
+    ``PROFILE_GAP_S`` apart and a kernel belongs to the range within half
+    a gap of its start: the device's timestamps can lag the host's by
+    more than a short range (on an H100, a whole range's kernels were
+    once counted to the next)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fns[0]()
+        torch.cuda.synchronize()
+        for i, fn in enumerate(fns):
+            time.sleep(PROFILE_GAP_S)
+            with record_function(f"profiled run {i}"):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+        time.sleep(PROFILE_GAP_S)
+    events = prof.events()
+    spans = {e.name: e.time_range for e in events
+             if e.device_type == DeviceType.CPU
+             and e.name.startswith("profiled run ")}
+    kern = [e.time_range for e in events
+            if e.device_type == DeviceType.CUDA and name in e.name]
+    out = []
+    half = PROFILE_GAP_S * 1e6 / 2  # µs, as the time ranges
+    for i in range(len(fns)):
+        span = spans.get(f"profiled run {i}")
+        mine = [t for t in kern if span is not None
+                and span.start - half <= t.start < span.end + half]
+        ms = (sum(t.elapsed_us() for t in mine) / len(mine) / 1e3
+              if mine else None)
+        out.append((ms, len(mine)))
+    return out
+
+
 def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time the card could take,
     the larger of ``nbytes`` (each input read once, each output written
@@ -145,3 +196,18 @@ def device_record(device) -> str:
 
 def write_report(path, report: dict) -> None:
     pathlib.Path(path).write_text(json.dumps(report, indent=2) + "\n")
+
+
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` one element past a 16-byte boundary:
+    TMA cannot describe it, so K5 takes its element-load kernel."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two float32 or bfloat16 tensors hold the same bits."""
+    bits = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return a.dtype == b.dtype and torch.equal(a.view(bits), b.view(bits))

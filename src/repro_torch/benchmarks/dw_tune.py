@@ -41,19 +41,16 @@ def variant_library(ftiles: int, stages: int, root: pathlib.Path
                     ) -> CudaLibrary:
     """A ``CudaLibrary`` of the source with the two constants set."""
     text = GK.LIBRARY.source.read_text()
+    edits = []
     for name, value in (("kDwFTiles", ftiles), ("kDwStages", stages)):
         lines = [ln for ln in text.splitlines()
                  if ln.startswith(f"constexpr int {name} = ")]
         if len(lines) != 1:
             raise SystemExit(f"{name}: not set once in the source")
-        old = lines[0].split(";")[0]
-        text = text.replace(old, f"constexpr int {name} = {value}")
-    path = root / f"f{ftiles}_s{stages}" / "grouped_matmul.cu"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(text)
-    lib = CudaLibrary("grouped_matmul", GK._bind)
-    lib.source = path
-    return lib
+        edits.append((lines[0].split(";")[0],
+                      f"constexpr int {name} = {value}"))
+    return GK.LIBRARY.variant(
+        edits, root / f"f{ftiles}_s{stages}" / "grouped_matmul.cu")
 
 
 def median_ms(fn) -> float:

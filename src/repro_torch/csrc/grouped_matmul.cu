@@ -49,9 +49,39 @@
 //    unaligned base; gmm_bf16_elem): tensor cores through nvcuda::wmma,
 //    16x16x16 fragments, 8 warps on a 128 x 128 tile, element loads with
 //    the ragged edges zeroed, double-buffered shared-memory slices.
-//  * float32 (gmm_f32): CUDA-core FMA, no TF32 (the reference checks f32 to
-//    1e-5).  A block of 256 threads owns a 64 x 64 output tile, 4 x 4 a
-//    thread, through 16-deep shared-memory slices.
+//  * float32 that TMA can describe (d and f multiples of 4, 16-byte aligned
+//    bases; gmm_f32_tma): CUDA-core FMA, no TF32 and no split of the depth
+//    (the reference checks f32 to 1e-5, and this is the path that proves
+//    the port exact on the card).  Each output is one fmaf chain over d in
+//    ascending order from +0, as in gmm_f32 below, so the two give the
+//    same bits (a zero term past d adds +0).  Bound: at kernel_bench's
+//    shape (T = 4096, d = f = 1024) 8.6 GFLOP is 0.128 ms at the 67
+//    TFLOP/s FP32 peak, so it is bound by operations, and what limits an
+//    FMA loop is how many shared-memory reads feed each FMA.  Design: a
+//    64 x 256 tile, 8 consumer warps of 8 rows x 256 columns, each thread
+//    8 x 8 outputs in registers; a depth step of a thread reads its 8 rows
+//    of x as 128-bit loads along d (one address across the warp: a
+//    broadcast) and its 8 columns of w as two 128-bit loads, 16 values for
+//    64 FMAs.  One producer warp keeps a ring of kF32Stages 32-deep stages
+//    filled by TMA (x as a 64-row x 32-deep box, w as 32 deep x 256
+//    columns; zero fill on the ragged d and f edges), each stage completing
+//    on an mbarrier and handed back once its warps have read it.  With
+//    tile_rows, a warp whose 8 rows all lie past the count writes zeros and
+//    computes nothing; a block whose real rows fit in 8 (the decode calls:
+//    a few tokens an expert) splits its 256 columns over the 8 warps
+//    instead, one a lane, so that every warp computes and the call is
+//    bound by the active experts' weights.  dX (kWKMajor) reads the
+//    forward's w (G, d, f) through a tensor map as 32-deep x 256-row boxes
+//    with the 128-byte swizzle, a thread's columns 32 apart so that the 8
+//    lanes of each quarter-warp read 8 rows whose 16-byte chunks land in
+//    distinct banks: no copy of w^T is made.  (Warps of 16 x 128 rows and
+//    columns read 40% fewer shared-memory wavefronts a FMA and were not
+//    faster on an H100, nor were 128-row blocks, whose 16 warps leave 96
+//    registers a thread: the loop is bound by issuing FMAs, not by shared
+//    memory.)
+//  * float32 that TMA cannot describe (gmm_f32): a block of 256 threads
+//    owns a 64 x 64 output tile, 4 x 4 a thread, through 16-deep
+//    shared-memory slices filled by element loads.
 //  The wrapper picks the kernel by dtype and shape (kernel_path), never
 //  because a build or launch failed.
 //
@@ -78,6 +108,8 @@
 #include <mma.h>
 #include <stdint.h>
 #include <stdio.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -617,6 +649,243 @@ __global__ void __launch_bounds__(kFThreads)
     }
 }
 
+// ------------------------------------------------------ f32: TMA + FMA
+constexpr int kF32BN = 256;    // columns of a block's tile: 32 lanes x 8
+constexpr int kF32BK = 32;     // depth of a stage: one 128-byte f32 line
+constexpr int kF32Stages = 4;  // ring depth: 160 KB of the SM's 227 KB
+constexpr int kF32Warps = kFBM / 8;                // consumers, 8 rows each
+constexpr int kF32Threads = kF32Warps * 32 + 32;  // + one producer warp
+constexpr int kF32WBytes = kF32BK * kF32BN * 4;   // w's box: 32 KB
+constexpr int kF32XBytes = kFBM * kF32BK * 4;     // x's box: 8 KB
+constexpr int kF32StageBytes = kF32WBytes + kF32XBytes;
+constexpr int kF32Smem =
+    kF32Stages * kF32StageBytes + 1024 + 2 * kF32Stages * 8;
+
+// Rows [r0, r1) x columns [n0, n0 + kF32BN) of an f32 y set to v, columns
+// past f left alone (f % 4 == 0 and y 16-byte aligned: four a store).
+__device__ __forceinline__ void fill_f32(float* y, int r0, int r1, int n0,
+                                         int f, float v, int tid,
+                                         int nthreads) {
+  const float4 v4 = make_float4(v, v, v, v);
+  for (int e = tid; e < (r1 - r0) * (kF32BN / 4); e += nthreads) {
+    const int c = n0 + (e % (kF32BN / 4)) * 4;
+    if (c < f)
+      *reinterpret_cast<float4*>(y + size_t(r0 + e / (kF32BN / 4)) * f + c) =
+          v4;
+  }
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// tmx: x as (T rows, d), 32-deep x 64-row boxes; tmw: w, boxes of one
+// group; both with zero fill past the edges.  kWKMajor false: w is (G, d,
+// f), a box 32 deep x 256 columns, unswizzled: a depth row of the box is
+// 1 KB, and lane l reads columns 4 l .. 4 l + 3 and 128 + 4 l .. of it.
+// kWKMajor true: w is stored (G, f, d), the transpose of the weights this
+// call multiplies by (dX on the forward's w), a box 256 columns (rows of
+// the stored w) x 32 deep with the 128-byte swizzle: column n is one
+// 128-byte line whose 16-byte chunk c sits at c ^ (n % 8); lane l reads
+// columns l + 32 j.  Either way each output is the same fmaf chain, so the
+// result equals the call on a contiguous copy of w^T bit for bit.
+template <bool kWKMajor>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    gmm_f32_tma(const __grid_constant__ CUtensorMap tmx,
+                const __grid_constant__ CUtensorMap tmw,
+                const int* __restrict__ tile_gid,
+                const int* __restrict__ tile_rows, float* __restrict__ y,
+                int d, int f, int G, int bt) {
+  extern __shared__ uint8_t smem_raw[];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * kF32BN;
+  const int row0 = blockIdx.y * kFBM;
+  const int t = row0 / bt;
+  const int g = tile_gid[t];
+  if (g < 0 || g >= G) {
+    fill_f32(y, row0, row0 + kFBM, n0, f, CUDART_NAN_F, tid, kF32Threads);
+    return;
+  }
+  const int rows = block_rows(tile_rows, t, row0, bt, kFBM);
+  if (rows == 0) {
+    fill_f32(y, row0, row0 + kFBM, n0, f, 0.0f, tid, kF32Threads);
+    return;
+  }
+  // A block whose real rows fit in 8 (the decode calls) splits its 256
+  // columns over the 8 warps instead, one a lane: every warp computes.
+  const bool narrow = rows <= 8;
+  const int nwarps = narrow ? kF32Warps : (rows + 7) / 8;  // computing
+
+  // Stages on 1024-byte boundaries (the swizzle's atom), w's box first;
+  // then the full and empty barriers of each stage.
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t bars = ring + kF32Stages * kF32StageBytes;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (kF32Stages + s); };
+  if (tid == 0) {
+    for (int s = 0; s < kF32Stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), nwarps * 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int nk = (d + kF32BK - 1) / kF32BK;
+  if (warp == kF32Warps) {
+    // Producer warp: one lane keeps the ring full.
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(&tmx))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(&tmw))
+                   : "memory");
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kF32Stages;
+        const uint32_t stage = ring + s * kF32StageBytes;
+        mbar_wait(empty(s), ((kt / kF32Stages) & 1) ^ 1);
+        mbar_expect_tx(full(s), kF32StageBytes);
+        tma_load_2d(stage + kF32WBytes, &tmx, kt * kF32BK, row0, full(s));
+        if (kWKMajor)
+          tma_load_3d(stage, &tmw, kt * kF32BK, n0, g, full(s));
+        else
+          tma_load_3d(stage, &tmw, n0, kt * kF32BK, g, full(s));
+      }
+    }
+    return;
+  }
+  if (warp >= nwarps) {
+    fill_f32(y, row0 + 8 * warp, row0 + 8 * warp + 8, n0, f, 0.0f, lane, 32);
+    return;
+  }
+  const float* ring_f = reinterpret_cast<const float*>(smem_raw + (ring - raw));
+  if (narrow) {
+    // Rows 0..7 of the tile, column 32 warp + lane: each depth step reads
+    // the 8 rows (one address a warp) and one value of w a lane, for 8
+    // FMAs; the rows past 8 are zeros.
+    fill_f32(y, row0 + 8, row0 + kFBM, n0, f, 0.0f, tid, kF32Warps * 32);
+    const int n = 32 * warp + lane;
+    float acc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = 0.0f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % kF32Stages;
+      mbar_wait(full(s), (kt / kF32Stages) & 1);
+      const float* ws = ring_f + s * (kF32StageBytes / 4);
+      const float* xs = ws + kF32WBytes / 4;
+#pragma unroll 2
+      for (int kc = 0; kc < kF32BK / 4; ++kc) {
+        float4 a[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          a[i] = *reinterpret_cast<const float4*>(xs + i * kF32BK + 4 * kc);
+        float4 b;
+        if (kWKMajor)
+          b = *reinterpret_cast<const float4*>(ws + n * kF32BK +
+                                               4 * (kc ^ (lane & 7)));
+        else
+          b = make_float4(ws[(4 * kc) * kF32BN + n],
+                          ws[(4 * kc + 1) * kF32BN + n],
+                          ws[(4 * kc + 2) * kF32BN + n],
+                          ws[(4 * kc + 3) * kF32BN + n]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            acc[i] = fmaf(lane_of(a[i], kk), lane_of(b, kk), acc[i]);
+      }
+      mbar_arrive(empty(s));
+    }
+    const int col = n0 + n;
+    if (col < f) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        y[size_t(row0 + i) * f + col] = i < rows ? acc[i] : 0.0f;
+    }
+    return;
+  }
+
+  // Consumer warp: rows [8 warp, 8 warp + 8) of the tile, 8 columns a lane.
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kF32Stages;
+    mbar_wait(full(s), (kt / kF32Stages) & 1);
+    const float* ws = ring_f + s * (kF32StageBytes / 4);
+    const float* xs = ws + kF32WBytes / 4 + 8 * warp * kF32BK;
+#pragma unroll 2
+    for (int kc = 0; kc < kF32BK / 4; ++kc) {
+      // x: rows 8 warp + i, depths 4 kc .. 4 kc + 3 (one address a warp).
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(xs + i * kF32BK + 4 * kc);
+      if (kWKMajor) {
+        // w^T: column lane + 32 j, the same four depths, one load each.
+        float4 b[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          b[j] = *reinterpret_cast<const float4*>(
+              ws + (lane + 32 * j) * kF32BK + 4 * (kc ^ (lane & 7)));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              acc[i][j] = fmaf(lane_of(a[i], kk), lane_of(b[j], kk),
+                               acc[i][j]);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* wrow = ws + (4 * kc + kk) * kF32BN + 4 * lane;
+          const float4 b0 = *reinterpret_cast<const float4*>(wrow);
+          const float4 b1 = *reinterpret_cast<const float4*>(wrow + 128);
+          const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              acc[i][j] = fmaf(lane_of(a[i], kk), b[j], acc[i][j]);
+        }
+      }
+    }
+    // Every lane's reads of the stage are done: hand it back.
+    mbar_arrive(empty(s));
+  }
+
+  // Epilogue: rows past the count are written as +0.
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * warp + i;
+    const bool real = r < rows;
+    float* out = y + size_t(row0 + r) * f;
+    if (kWKMajor) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = n0 + lane + 32 * j;
+        if (col < f) out[col] = real ? acc[i][j] : 0.0f;
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = n0 + 128 * h + 4 * lane;
+        if (col < f)
+          *reinterpret_cast<float4*>(out + col) =
+              real ? make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                                 acc[i][4 * h + 2], acc[i][4 * h + 3])
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    }
+  }
+}
+
 // ------------------------------------------ the weights' gradient (dW)
 // The backward of K5 with respect to w.  The Pallas kernel has none: the
 // reference's MoE is an einsum that XLA transposes.  The port runs the
@@ -670,7 +939,31 @@ __global__ void __launch_bounds__(kFThreads)
 //    its bound is not broken down (PERF.md).
 //  * other bfloat16 (gmm_dw_bf16): wmma 16x16x16 fragments from
 //    double-buffered shared-memory slices with element-wise masked loads.
-//  * float32 (gmm_dw_f32): CUDA-core FMA from 16-row slices.
+//  * float32 that TMA can describe (d and f multiples of 4, 16-byte
+//    aligned bases; gmm_dw_f32_tma): the forward's FMA microkernel turned
+//    over.  Each output is one fmaf chain over the group's real rows in
+//    ascending (tile, row) order from +0, as in gmm_dw_f32, so the two
+//    give the same bits.  A block owns a 64 (d) x 128 (f) tile of one
+//    group's dw, 4 consumer warps, 8 x 8 outputs a thread, and walks
+//    one or more f-tiles in turn as gmm_dw_bf16_tma does (one where the
+//    grid of single f-tiles would leave the card short of blocks, up to
+//    kDwF32MaxFTiles where it is large, so that each block's walk and
+//    first loads are paid once for several f-tiles): one producer
+//    warp walks the group's tiles 32 ids a step and fills a ring of
+//    32-row stages by TMA (x as 32 rows x 64 d-columns, dy as 32 rows x
+//    128 f-columns, both unswizzled: a row step of a thread reads 8 d and
+//    8 f values as four 128-bit loads along the rows, neighbouring lanes
+//    on neighbouring chunks), telling the consumers each stage's real
+//    rows.  The consumers sum only those rows: the rows of a box past the
+//    count (noise, or NaN) are never read, which gives the bits of
+//    gmm_dw_f32's zeroed rows (0 x 0 adds +0).  Each f-tile is stored from
+//    registers with 16-byte stores while the next one's stages arrive.
+//    Bound: at the f32 cut's call (32 tokens top-6, E = 64, C = 256, d =
+//    2048, f = 1408) the 192 real rows are 1.1 GFLOP against dw's 738 MB
+//    written once, 0.22 ms of bytes, so the kernel has to keep the writes
+//    streaming; at the ragged case (4 groups, d = 192, f = 160) it is
+//    operations and latency.
+//  * other float32 (gmm_dw_f32): CUDA-core FMA from 16-row slices.
 constexpr int kDEK = 32;  // rows of a bf16 dW slice
 constexpr int kDALd = kBM + 8;  // pitch of the x slice (d columns)
 constexpr int kDBLd = kBN + 8;  // of the dy slice (f columns)
@@ -1182,6 +1475,184 @@ __global__ void __launch_bounds__(kFThreads)
     }
 }
 
+// ------------------------------------------------- dW f32: TMA + FMA
+constexpr int kDwF32BM = 64;      // d rows of a block's dw tile
+constexpr int kDwF32BN = 128;     // f columns of it
+constexpr int kDwF32BK = 32;      // rows of x and dy a stage
+constexpr int kDwF32Stages = 4;   // ring depth: 96 KB, two blocks an SM
+constexpr int kDwF32MaxFTiles = 8;  // most f-tiles a block walks in turn
+constexpr int kDwF32Waves = 8;    // blocks of the grid an SM, at least
+constexpr int kDwF32Warps = 4;    // consumers: 8 x 8 outputs a thread
+constexpr int kDwF32Threads = kDwF32Warps * 32 + 32;  // + one producer
+constexpr int kDwF32XBytes = kDwF32BK * kDwF32BM * 4;  // 8 KB
+constexpr int kDwF32StageBytes = kDwF32XBytes + kDwF32BK * kDwF32BN * 4;
+constexpr int kDwF32Smem = kDwF32Stages * kDwF32StageBytes + 1024 +
+                           2 * kDwF32Stages * 8 + kDwF32Stages * 4;
+
+// tmx: x as (T rows, d) with 64-column x 32-row boxes, tmdy: dy as (T
+// rows, f) with 128-column x 32-row boxes, unswizzled, zero fill past the
+// edges.  Grid (d-tiles of 64, groups, chunks of `ftiles` f-tiles of
+// 128).  Thread (tm, tn) of the 8 x 16 consumer threads owns dw rows
+// m0 + 4 tm + {0..3} and m0 + 32 + 4 tm + {0..3}, columns n0 + 4 tn +
+// {0..3} and n0 + 64 + 4 tn + {0..3}: a row step reads them as two
+// 128-bit loads from x's row and two from dy's.
+__global__ void __launch_bounds__(kDwF32Threads)
+    gmm_dw_f32_tma(const __grid_constant__ CUtensorMap tmx,
+                   const __grid_constant__ CUtensorMap tmdy,
+                   const int* __restrict__ tile_gid,
+                   const int* __restrict__ tile_rows, float* __restrict__ dw,
+                   int d, int f, int ntiles, int bt, int ftiles) {
+  extern __shared__ uint8_t smem_raw[];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int m0 = blockIdx.x * kDwF32BM;
+  const int g = blockIdx.y;
+  const int n_lo = blockIdx.z * ftiles * kDwF32BN;
+  const int n_hi = min(n_lo + ftiles * kDwF32BN, f);
+  float* out = dw + size_t(g) * d * f;
+
+  // Every warp finds the group's first tile with a real row itself.
+  const int first = warp_next_tile(tile_gid, tile_rows, ntiles, g, 0, lane);
+  if (first >= ntiles) {
+    const int m1 = min(m0 + kDwF32BM, d), w4 = (n_hi - n_lo) / 4;
+    for (int e = tid; e < (m1 - m0) * w4; e += kDwF32Threads)
+      *reinterpret_cast<float4*>(out + size_t(m0 + e / w4) * f + n_lo +
+                                 (e % w4) * 4) = make_float4(0, 0, 0, 0);
+    return;
+  }
+
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t bars = ring + kDwF32Stages * kDwF32StageBytes;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (kDwF32Stages + s); };
+  volatile int* info = reinterpret_cast<volatile int*>(
+      smem_raw + (bars + 16 * kDwF32Stages - raw));
+  if (tid == 0) {
+    for (int s = 0; s < kDwF32Stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kDwF32Warps * 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  auto rows_of = [&](int t) {
+    return tile_rows == nullptr ? bt : min(max(tile_rows[t], 0), bt);
+  };
+  if (warp == kDwF32Warps) {
+    // Producer warp: walks the group's real rows once for each f-tile, 32
+    // rows a stage; lane 0 issues the loads.
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(&tmx))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(&tmdy))
+                   : "memory");
+    }
+    int n0 = n_lo, t = first, k0 = 0, rt = rows_of(first);
+    for (int it = 0;; ++it) {
+      const int s = it % kDwF32Stages;
+      const int valid = min(rt - k0, kDwF32BK);
+      int nt = t, nk0 = k0 + kDwF32BK;
+      if (nk0 >= rt) {
+        nt = warp_next_tile(tile_gid, tile_rows, ntiles, g, t + 1, lane);
+        nk0 = 0;
+      }
+      const bool tile_end = nt >= ntiles;
+      const bool last = tile_end && n0 + kDwF32BN >= n_hi;
+      if (lane == 0) {
+        const uint32_t stage = ring + s * kDwF32StageBytes;
+        mbar_wait(empty(s), ((it / kDwF32Stages) & 1) ^ 1);
+        info[s] = valid | (tile_end ? kDwTileEnd : 0) | (last ? kDwLast : 0);
+        mbar_expect_tx(full(s), kDwF32StageBytes);
+        const int row = t * bt + k0;
+        tma_load_2d(stage, &tmx, m0, row, full(s));
+        tma_load_2d(stage + kDwF32XBytes, &tmdy, n0, row, full(s));
+      }
+      __syncwarp();
+      if (last) break;
+      if (tile_end) {
+        n0 += kDwF32BN;
+        t = first;
+        k0 = 0;
+        rt = rows_of(first);
+      } else {
+        if (nt != t) rt = rows_of(nt);
+        t = nt;
+        k0 = nk0;
+      }
+    }
+    return;
+  }
+
+  // Consumer thread (tm, tn).
+  const int tm = 2 * warp + (lane >> 4), tn = lane & 15;
+  const float* ring_f = reinterpret_cast<const float*>(smem_raw + (ring - raw));
+  float acc[8][8];
+  int it = 0;
+  for (int n0 = n_lo;; n0 += kDwF32BN) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    int flags;
+    do {
+      const int s = it % kDwF32Stages;
+      mbar_wait(full(s), (it / kDwF32Stages) & 1);
+      flags = info[s];
+      const int valid = flags & 0xFF;
+      const float* xs = ring_f + s * (kDwF32StageBytes / 4) + 4 * tm;
+      const float* dys =
+          ring_f + s * (kDwF32StageBytes / 4) + kDwF32XBytes / 4 + 4 * tn;
+      // Row r of the stage: x's d values and dy's f values; the rows at
+      // or past `valid` belong to no real row and are not read.
+      auto step = [&](int r) {
+        const float4 a0 = *reinterpret_cast<const float4*>(xs + r * kDwF32BM);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(xs + r * kDwF32BM + 32);
+        const float4 b0 =
+            *reinterpret_cast<const float4*>(dys + r * kDwF32BN);
+        const float4 b1 =
+            *reinterpret_cast<const float4*>(dys + r * kDwF32BN + 64);
+        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      };
+      if (valid == kDwF32BK) {
+#pragma unroll 4
+        for (int r = 0; r < kDwF32BK; ++r) step(r);
+      } else {
+        for (int r = 0; r < valid; ++r) step(r);
+      }
+      mbar_arrive(empty(s));
+      ++it;
+    } while (!(flags & kDwTileEnd));
+
+    // Epilogue: 16-byte stores of the rows below d and columns below n_hi
+    // (f % 4 == 0, so a chunk lies wholly on one side of f).
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + (i < 4 ? 4 * tm + i : 32 + 4 * tm + i - 4);
+      if (m < d) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = n0 + 64 * h + 4 * tn;
+          if (col < n_hi)
+            *reinterpret_cast<float4*>(out + size_t(m) * f + col) =
+                make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                            acc[i][4 * h + 2], acc[i][4 * h + 3]);
+        }
+      }
+    }
+    if (flags & kDwLast) break;
+  }
+}
+
 // ------------------------------------------------------- host: tensor maps
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -1245,6 +1716,46 @@ cudaError_t bind_context() {
   return err;
 }
 
+// The device's SM count, read once a thread and device.
+int sm_count() {
+  thread_local int cached_dev = -1, sms = 1;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev == cached_dev) return sms;
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) ==
+      cudaSuccess) {
+    sms = n > 0 ? n : 1;
+    cached_dev = dev;
+  }
+  return sms;
+}
+
+// An f32 tensor map of `rank` dims (innermost first) with boxes `box`,
+// unswizzled or with the 128-byte swizzle, and zero fill.
+CUresult encode_f32(EncodeTiled enc, CUtensorMap* map, const void* base,
+                    int rank, const cuuint64_t* dims,
+                    const cuuint64_t* strides, const cuuint32_t* box,
+                    bool swizzle) {
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult res = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(base),
+      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) g_refused = static_cast<int>(res);
+  return res;
+}
+
+// A 2-D f32 tensor map of `rows` rows of `cols` contiguous floats, with
+// unswizzled boxes of box_rows x box_cols.
+CUresult encode_rows_f32(EncodeTiled enc, CUtensorMap* map, const void* base,
+                         int rows, int cols, int box_rows, int box_cols) {
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(cols) * 4};
+  const cuuint32_t box[2] = {cuuint32_t(box_cols), cuuint32_t(box_rows)};
+  return encode_f32(enc, map, base, 2, dims, strides, box, false);
+}
+
 // A 2-D bf16 tensor map of `rows` rows of `cols` contiguous elements.
 CUresult encode_rows(EncodeTiled enc, CUtensorMap* map, const void* base,
                      int rows, int cols) {
@@ -1272,19 +1783,23 @@ extern "C" {
 // Rows of a block's tile, by dtype: bt must be a multiple of it.
 int grouped_matmul_row_tile(int dtype) { return dtype == 1 ? kBM : kFBM; }
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w and y share it).  tma (bf16
-// only): d and f are multiples of 8 and x, w are 16-byte aligned, so the
-// TMA kernel runs; else the element-load one.  w_kmajor (TMA only): w is
-// stored (G, f, d), the transpose of the (G, d, f) weights the call
-// multiplies by, and is read K-major through its tensor map (K5's dX on
-// the forward's w, with no copy); else w is (G, d, f).  tile_rows may be
-// null (every row real).  T must be a positive multiple of bt, and bt of
-// the row tile.
+// dtype: 0 = float32, 1 = bfloat16 (x, w and y share it).  tma: TMA can
+// describe x and w (bf16: d and f multiples of 8; f32: of 4; 16-byte
+// aligned bases), so the TMA kernel of the dtype runs; else the
+// element-load one.  w_kmajor (TMA only): w is stored (G, f, d), the
+// transpose of the (G, d, f) weights the call multiplies by, and is read
+// K-major through its tensor map (K5's dX on the forward's w, with no
+// copy); else w is (G, d, f).  The TMA kernels fill and store y 16 bytes
+// at a time, so with tma the output width f must be a multiple of 8
+// (bf16) or 4 (f32) too.  tile_rows may be null (every row real).  T must
+// be a positive multiple of bt, and bt of the row tile.
 int grouped_matmul_launch(const void* x, const int* tile_gid,
                           const int* tile_rows, const void* w, void* y, int T,
                           int d, int f, int G, int bt, int dtype, int tma,
                           int w_kmajor, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tma && f % (dtype == 1 ? 8 : 4) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1 && tma) {
     const EncodeTiled enc = encode_tiled();
     if (enc == nullptr) return kNoEncoder;
@@ -1305,6 +1820,28 @@ int grouped_matmul_launch(const void* x, const int* tile_gid,
     kernel<<<grid, kTmaThreads, kTmaSmem, st>>>(
         tmx, tmw, tile_gid, tile_rows, static_cast<__nv_bfloat16*>(y), d, f,
         G, bt);
+  } else if (tma) {
+    const EncodeTiled enc = encode_tiled();
+    if (enc == nullptr) return kNoEncoder;
+    const cudaError_t ctx = bind_context();
+    if (ctx != cudaSuccess) return static_cast<int>(ctx);
+    CUtensorMap tmx, tmw;
+    const cuuint64_t inner = w_kmajor ? d : f, outer = w_kmajor ? f : d;
+    const cuuint64_t wdims[3] = {inner, outer, cuuint64_t(G)};
+    const cuuint64_t wstrides[2] = {inner * 4, inner * outer * 4};
+    const cuuint32_t wbox[3] = {
+        cuuint32_t(w_kmajor ? kF32BK : kF32BN),
+        cuuint32_t(w_kmajor ? kF32BN : kF32BK), 1};
+    if (encode_rows_f32(enc, &tmx, x, T, d, kFBM, kF32BK) != CUDA_SUCCESS ||
+        encode_f32(enc, &tmw, w, 3, wdims, wstrides, wbox, w_kmajor) !=
+            CUDA_SUCCESS)
+      return kEncodeFailed;
+    const auto kernel = w_kmajor ? gmm_f32_tma<true> : gmm_f32_tma<false>;
+    const cudaError_t attr = allow_smem(kernel, kF32Smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const dim3 grid((f + kF32BN - 1) / kF32BN, T / kFBM);
+    kernel<<<grid, kF32Threads, kF32Smem, st>>>(
+        tmx, tmw, tile_gid, tile_rows, static_cast<float*>(y), d, f, G, bt);
   } else if (w_kmajor) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else if (dtype == 1) {
@@ -1324,9 +1861,9 @@ int grouped_matmul_launch(const void* x, const int* tile_gid,
 
 // dw (G, d, f) = the gradient of K5 with respect to w, from x (T, d) and
 // dy (T, f) of one dtype (0 = float32, 1 = bfloat16), over T / bt tiles.
-// tma (bf16 only): d and f are multiples of 8 and x, dy 16-byte aligned,
-// so the TMA kernel runs; else the element-load one.  tile_rows may be
-// null.
+// tma: d and f are multiples of 8 (bf16) or 4 (f32) and x, dy 16-byte
+// aligned, so the TMA kernel of the dtype runs; else the element-load
+// one.  tile_rows may be null.
 int grouped_matmul_dw_launch(const void* x, const void* dy,
                              const int* tile_gid, const int* tile_rows,
                              void* dw, int T, int d, int f, int G, int bt,
@@ -1353,6 +1890,33 @@ int grouped_matmul_dw_launch(const void* x, const void* dy,
     gmm_dw_bf16_tma<<<grid, kTmaThreads, kDwSmem, st>>>(
         tmx, tmdy, tmdw, tile_gid, tile_rows,
         static_cast<__nv_bfloat16*>(dw), d, f, ntiles, bt);
+  } else if (tma) {
+    const EncodeTiled enc = encode_tiled();
+    if (enc == nullptr) return kNoEncoder;
+    const cudaError_t ctx = bind_context();
+    if (ctx != cudaSuccess) return static_cast<int>(ctx);
+    CUtensorMap tmx, tmdy;
+    if (encode_rows_f32(enc, &tmx, x, T, d, kDwF32BK, kDwF32BM) !=
+            CUDA_SUCCESS ||
+        encode_rows_f32(enc, &tmdy, dy, T, f, kDwF32BK, kDwF32BN) !=
+            CUDA_SUCCESS)
+      return kEncodeFailed;
+    const cudaError_t attr = allow_smem(gmm_dw_f32_tma, kDwF32Smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    // f-tiles a block walks: one where the grid of single f-tiles is
+    // small (the card needs every block it can hold), up to
+    // kDwF32MaxFTiles where it is large (a block's walk of the group's
+    // tiles and its first loads are then paid once for several f-tiles).
+    const int dtiles = (d + kDwF32BM - 1) / kDwF32BM;
+    const int nft = (f + kDwF32BN - 1) / kDwF32BN;
+    const long long single = 1LL * dtiles * G * nft;
+    const int ftiles = static_cast<int>(std::min<long long>(
+        std::max<long long>(single / (kDwF32Waves * sm_count()), 1),
+        kDwF32MaxFTiles));
+    const dim3 grid(dtiles, G, (nft + ftiles - 1) / ftiles);
+    gmm_dw_f32_tma<<<grid, kDwF32Threads, kDwF32Smem, st>>>(
+        tmx, tmdy, tile_gid, tile_rows, static_cast<float*>(dw), d, f,
+        ntiles, bt, ftiles);
   } else if (dtype == 1) {
     const dim3 grid((f + kBN - 1) / kBN, (d + kBM - 1) / kBM, G);
     gmm_dw_bf16<<<grid, kThreads, 0, st>>>(

@@ -6,17 +6,20 @@ kernel ``grouped_matmul_pallas`` of the JAX reference
 w[tile_gid[r // bt]] with f32 sums.  In bfloat16 it runs a TMA ring and
 ``wgmma`` where TMA can describe the operands (``kernel_path`` says which
 kernel a call takes), wmma with element loads where it cannot; in float32
-CUDA-core FMA.  An optional ``tile_rows`` names the real leading rows of
-each ``bt``-row tile: the other rows count as zero and are written as +0,
-and a tile with none reads no weights.  At the MoE decode shapes K5 is
+CUDA-core FMA, fed by TMA where it can describe the operands and by
+element loads where it cannot, each output the same fmaf chain on both.
+An optional ``tile_rows`` names the real leading rows of each ``bt``-row
+tile: the other rows count as zero and are written as +0, and a tile with
+none reads no weights.  At the MoE decode shapes K5 is
 bound by the bytes of the experts' weights; see the source's note.
 
 Training.  ``grouped_matmul_fn`` is K5 with a backward (an autograd
 Function): dX is K5 itself on each group's transposed weights, which the
-TMA kernel reads through a tensor map over w as it is (``w_transposed``:
-no copy of w^T is made on that path), and dW the source's ``gmm_dw_*``
-kernels (``grouped_matmul_dw_kernel``; ``dw_kernel_path`` says which),
-which the reference has no counterpart of (XLA transposes its einsum).
+TMA kernels (bf16 and f32) read through a tensor map over w as it is
+(``w_transposed``: no copy of w^T is made on those paths), and dW the
+source's ``gmm_dw_*`` kernels (``grouped_matmul_dw_kernel``;
+``dw_kernel_path`` says which), which the reference has no counterpart of
+(XLA transposes its einsum).
 With no input that requires grad it is the raw wrapper, so serving
 launches and copies nothing more.  The raw ``grouped_matmul_kernel``
 raises when grad mode is on and a CUDA input requires grad: its output
@@ -28,10 +31,11 @@ raises; given ``meta`` tensors (the multi-pod dry-run) it returns the
 output's shape and reports the kernel's flops and bytes to
 ``kernels.shapes`` (every row counted: a meta tensor holds no counts).  ``LAUNCHES`` counts kernel launches: ``grouped_matmul`` the
 forward's, ``grouped_matmul_dx`` the backward's K5 on the transposed
-weights (the element-load and f32 kernels take a contiguous copy of w^T,
-off the main path), ``grouped_matmul_dw`` the weight gradient's.  The source is
-compiled at first use (``nvcc.CudaLibrary``); nothing is built when this
-module is imported.
+weights (the element-load kernels take a contiguous copy of w^T, off the
+main path), ``grouped_matmul_dw`` the weight gradient's;
+``KERNEL_LAUNCHES`` counts the same launches by the CUDA kernel each
+took.  The source is compiled at first use (``nvcc.CudaLibrary``); nothing
+is built when this module is imported.
 """
 from __future__ import annotations
 
@@ -45,6 +49,9 @@ from ..nvcc import CudaLibrary
 from .ref import grouped_matmul_dw_ref, grouped_matmul_tiles_ref
 
 __all__ = [
+    "DW_KERNELS",
+    "KERNELS",
+    "KERNEL_LAUNCHES",
     "LAUNCHES",
     "ROW_TILE",
     "reset_launches",
@@ -66,18 +73,26 @@ _INT32_MAX = 2**31 - 1
 
 LAUNCHES = {"grouped_matmul": 0, "grouped_matmul_dx": 0,
             "grouped_matmul_dw": 0}
+# The CUDA kernel of each path (``kernel_path`` / ``dw_kernel_path``).
+KERNELS = {"tma": "gmm_bf16_tma", "elem": "gmm_bf16_elem",
+           "f32": "gmm_f32_tma", "f32_elem": "gmm_f32"}
+DW_KERNELS = {"tma": "gmm_dw_bf16_tma", "elem": "gmm_dw_bf16",
+              "f32": "gmm_dw_f32_tma", "f32_elem": "gmm_dw_f32"}
+KERNEL_LAUNCHES = {k: 0 for k in (*KERNELS.values(), *DW_KERNELS.values())}
 _count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
     with _count_lock:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+        for counts in (LAUNCHES, KERNEL_LAUNCHES):
+            for k in counts:
+                counts[k] = 0
 
 
-def _count(name: str) -> None:
+def _count(name: str, kernel: str) -> None:
     with _count_lock:
         LAUNCHES[name] += 1
+        KERNEL_LAUNCHES[kernel] += 1
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -104,31 +119,41 @@ def build_info() -> dict:
     return LIBRARY.info()
 
 
-def _tma_path(a: torch.Tensor, b: torch.Tensor) -> str:
-    """"f32" for float32 operands; for bf16 "tma" where TMA can describe
-    both (inner widths multiples of 8, 16-byte aligned bases), else
-    "elem"."""
-    if a.dtype == torch.float32:
-        return "f32"
-    ok = all(t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0 for t in (a, b))
+def _tma_path(a: torch.Tensor, b: torch.Tensor, widths) -> str:
+    """Whether TMA can describe both operands and the TMA kernels' 16-byte
+    stores fit the output: ``widths`` (the inner widths and the output's)
+    whose rows are a whole number of 16 bytes (multiples of 8 in bf16, of
+    4 in f32) on 16-byte aligned bases.  bf16: "tma" or "elem"; float32:
+    "f32" or "f32_elem"."""
+    f32 = a.dtype == torch.float32
+    ok = (all(n % (4 if f32 else 8) == 0 for n in widths)
+          and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+    if f32:
+        return "f32" if ok else "f32_elem"
     return "tma" if ok else "elem"
 
 
 def kernel_path(x: torch.Tensor, w: torch.Tensor) -> str:
-    """The kernel a CUDA call on these operands takes, by dtype and shape:
-    "tma" (``gmm_bf16_tma``: bf16 with d and f multiples of 8 and 16-byte
-    aligned bases, what TMA can describe; it also reads w transposed, for
-    K5's dX), "elem" (``gmm_bf16_elem``, other bf16) or "f32"
-    (``gmm_f32``).  The wrapper launches by it."""
-    return _tma_path(x, w)
+    """The kernel a CUDA call on these operands takes, by dtype, shape and
+    alignment: "tma" (``gmm_bf16_tma``: bf16 with d and f multiples of 8
+    and 16-byte aligned bases, what TMA can describe), "elem"
+    (``gmm_bf16_elem``, other bf16), "f32" (``gmm_f32_tma``: float32 with d
+    and f multiples of 4 and 16-byte aligned bases) or "f32_elem"
+    (``gmm_f32``, other float32).  The two TMA kernels also read w
+    transposed, for K5's dX (dy (T, f) against the forward's w (G, d, f)):
+    both of w's widths are checked, since d is then the output's.  The
+    wrapper launches by it (``KERNELS``)."""
+    return _tma_path(x, w, (x.shape[-1], *w.shape[1:]))
 
 
 def dw_kernel_path(x: torch.Tensor, dy: torch.Tensor) -> str:
     """The kernel a CUDA ``grouped_matmul_dw_kernel`` call takes: "tma"
     (``gmm_dw_bf16_tma``: bf16 with d and f multiples of 8 and 16-byte
-    aligned bases), "elem" (``gmm_dw_bf16``, other bf16) or "f32"
-    (``gmm_dw_f32``).  The wrapper launches by it."""
-    return _tma_path(x, dy)
+    aligned bases), "elem" (``gmm_dw_bf16``, other bf16), "f32"
+    (``gmm_dw_f32_tma``: float32 with d and f multiples of 4 and 16-byte
+    aligned bases) or "f32_elem" (``gmm_dw_f32``).  The wrapper launches
+    by it (``DW_KERNELS``)."""
+    return _tma_path(x, dy, (x.shape[-1], dy.shape[-1]))
 
 
 def _check(x, tile_gid, w, bt, tile_rows, w_transposed=False) -> None:
@@ -209,9 +234,9 @@ def _k5(x, tile_gid, w, bt, tile_rows, counter: str,
         raise ValueError(f"unsupported device {x.device}")
     _check(x, tile_gid, w, bt, tile_rows, w_transposed)
     path = kernel_path(x, w)
-    if w_transposed and path != "tma":
-        # The element-load and f32 kernels index w (G, d, f); only the TMA
-        # kernel reads it transposed, so the other paths copy it.
+    if w_transposed and path in ("elem", "f32_elem"):
+        # The element-load kernels index w (G, d, f); only the TMA kernels
+        # read it transposed, so those paths copy it.
         w, w_transposed = w.transpose(1, 2).contiguous(), False
     T, d = x.shape
     G, f = w.shape[0], w.shape[1 if w_transposed else 2]
@@ -224,11 +249,11 @@ def _k5(x, tile_gid, w, bt, tile_rows, counter: str,
             x.data_ptr(), tile_gid.data_ptr(),
             None if tile_rows is None else tile_rows.data_ptr(),
             w.data_ptr(), out.data_ptr(), T, d, f, G, bt, _DTYPES[x.dtype],
-            int(path == "tma"), int(w_transposed),
+            int(path in ("tma", "f32")), int(w_transposed),
             torch.cuda.current_stream().cuda_stream,
         )
     LIBRARY.check(code, "grouped_matmul")
-    _count(counter)
+    _count(counter, KERNELS[path])
     return out
 
 
@@ -259,17 +284,18 @@ def grouped_matmul_dw_kernel(
     dw = torch.empty((n_groups, d, f), dtype=x.dtype, device=x.device)
     if dw.numel() == 0:
         return dw
-    tma = dw_kernel_path(x, dy) == "tma"
+    path = dw_kernel_path(x, dy)
     lib = build()
     with torch.cuda.device(x.device):
         code = lib.grouped_matmul_dw_launch(
             x.data_ptr(), dy.data_ptr(), tile_gid.data_ptr(),
             None if tile_rows is None else tile_rows.data_ptr(),
-            dw.data_ptr(), T, d, f, n_groups, bt, _DTYPES[x.dtype], int(tma),
+            dw.data_ptr(), T, d, f, n_groups, bt, _DTYPES[x.dtype],
+            int(path in ("tma", "f32")),
             torch.cuda.current_stream().cuda_stream,
         )
     LIBRARY.check(code, "grouped_matmul_dw")
-    _count("grouped_matmul_dw")
+    _count("grouped_matmul_dw", DW_KERNELS[path])
     return dw
 
 

@@ -105,6 +105,22 @@ class CudaLibrary:
             self.loads += 1
             return lib
 
+    def variant(self, edits, path) -> "CudaLibrary":
+        """A library of this one's source with each ``(old, new)`` of
+        ``edits`` replaced (``old`` must occur once), written to ``path``
+        and built on its own: a copy with one change, for a tuning sweep."""
+        text = self.source.read_text()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise ValueError(f"{old!r} is not in {self.source.name} once")
+            text = text.replace(old, new)
+        path = pathlib.Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(text)
+        lib = CudaLibrary(self.name, self._bind)
+        lib.source = path
+        return lib
+
     def info(self) -> dict:
         """Library path, whether this process compiled it, the build's wall
         seconds and nvcc's output (ptxas register/shared-memory report)."""

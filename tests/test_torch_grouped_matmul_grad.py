@@ -36,6 +36,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import smoke_config as j_smoke  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models.common import ParamFactory as JFactory  # noqa: E402
+from repro_torch.benchmarks.common import misaligned, same_bits  # noqa: E402
 from repro_torch.configs import smoke_config as t_smoke  # noqa: E402
 from repro_torch.kernels.grouped_matmul import kernel as gkernel  # noqa: E402
 from repro_torch.kernels.grouped_matmul import ops as gops  # noqa: E402
@@ -120,22 +121,102 @@ def test_transposed_w_equals_the_plain_version_on_w_t(dtype, with_rows):
     assert torch.equal(dx, want)
 
 
-@pytest.mark.parametrize("dtype,d,f,offset,path", [
-    (torch.bfloat16, 2048, 1408, 0, "tma"),
-    (torch.bfloat16, 192, 160, 0, "tma"),
-    (torch.bfloat16, 100, 37, 0, "elem"),
-    (torch.bfloat16, 64, 32, 1, "elem"),
-    (torch.float32, 192, 160, 0, "f32"),
-], ids=["moe", "ragged", "odd", "unaligned", "f32"])
+# (dtype, d, f, offset of x's base in elements, the path): TMA takes rows
+# of a whole number of 16 bytes (d and f multiples of 8 in bf16, 4 in f32)
+# on 16-byte aligned bases.
+PATH_CASES = {
+    "moe": (torch.bfloat16, 2048, 1408, 0, "tma"),
+    "ragged": (torch.bfloat16, 192, 160, 0, "tma"),
+    "odd": (torch.bfloat16, 100, 37, 0, "elem"),
+    "unaligned": (torch.bfloat16, 64, 32, 1, "elem"),
+    "d_odd": (torch.bfloat16, 100, 160, 0, "elem"),
+    "f32": (torch.float32, 192, 160, 0, "f32"),
+    "f32_moe": (torch.float32, 2048, 1408, 0, "f32"),
+    "f32_d_odd": (torch.float32, 98, 160, 0, "f32_elem"),
+    "f32_f_odd": (torch.float32, 192, 162, 0, "f32_elem"),
+    "f32_odd": (torch.float32, 100, 37, 0, "f32_elem"),
+    "f32_unaligned": (torch.float32, 192, 160, 1, "f32_elem"),
+    "f32_unaligned_2": (torch.float32, 192, 160, 2, "f32_elem"),
+    "f32_aligned_4": (torch.float32, 192, 160, 4, "f32"),
+}
+
+
+@pytest.mark.parametrize("dtype,d,f,offset,path", list(PATH_CASES.values()),
+                         ids=list(PATH_CASES))
 def test_dw_kernel_path_by_dtype_shape_and_alignment(dtype, d, f, offset,
                                                      path):
-    """``dw_kernel_path`` names the dW kernel a call takes: the TMA one for
-    bf16 whose d and f are multiples of 8 on 16-byte aligned bases, the
-    element-load one for other bf16, the f32 one for float32."""
+    """``dw_kernel_path`` names the dW kernel a call takes: the TMA one of
+    the dtype where TMA can describe x and dy (bf16 "tma", f32 "f32"), the
+    element-load one else ("elem", "f32_elem")."""
     T = 256
     x = torch.zeros(T * d + offset, dtype=dtype)[offset:].view(T, d)
     dy = torch.zeros(T, f, dtype=dtype)
     assert gkernel.dw_kernel_path(x, dy) == path
+    assert gkernel.DW_KERNELS[path] in gkernel.KERNEL_LAUNCHES
+
+
+@pytest.mark.parametrize("dtype,d,f,offset,path", list(PATH_CASES.values()),
+                         ids=list(PATH_CASES))
+def test_kernel_path_by_dtype_shape_and_alignment(dtype, d, f, offset, path):
+    """``kernel_path`` names the forward's kernel by the same rule: x (T,
+    d) at the offset and w (G, d, f); and K5's dX, dy (T, f) against the
+    forward's w read transposed, takes the TMA kernel only where dy's
+    width f, its output's width d and both bases suit it (a misaligned dy,
+    or a d the TMA kernels' 16-byte stores do not fit, sends it to the
+    element-load kernel, which copies w^T)."""
+    T, G = 256, 2
+    x = torch.zeros(T * d + offset, dtype=dtype)[offset:].view(T, d)
+    w = torch.zeros(G, d, f, dtype=dtype)
+    assert gkernel.kernel_path(x, w) == path
+    assert gkernel.KERNELS[path] in gkernel.KERNEL_LAUNCHES
+    dy = torch.zeros(T * f + offset, dtype=dtype)[offset:].view(T, f)
+    dx_path = gkernel.kernel_path(dy, w)
+    vec = 4 if dtype == torch.float32 else 8
+    tma = f % vec == 0 and d % vec == 0 and offset * \
+        dy.element_size() % 16 == 0
+    assert dx_path == {(torch.float32, True): "f32",
+                       (torch.float32, False): "f32_elem",
+                       (torch.bfloat16, True): "tma",
+                       (torch.bfloat16, False): "elem"}[dtype, tma]
+
+
+@pytest.mark.parametrize("dtype,elem", [(torch.float32, "f32_elem"),
+                                        (torch.bfloat16, "elem")],
+                         ids=["f32", "bf16"])
+def test_misaligned_copy_takes_the_element_load_path(dtype, elem):
+    """``misaligned`` (the card checks' way onto the element-load kernels)
+    copies x one element past a 16-byte boundary: the same bits, a base
+    TMA cannot describe; ``same_bits`` tells one flipped bit apart."""
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(128, 64)).astype(np.float32)).to(dtype)
+    w = torch.zeros(2, 64, 32, dtype=dtype)
+    xm = misaligned(x)
+    assert xm.is_contiguous() and xm.data_ptr() % 16 != 0
+    assert gkernel.kernel_path(xm, w) == elem
+    assert gkernel.dw_kernel_path(xm, torch.zeros(128, 32, dtype=dtype)) \
+        == elem
+    assert same_bits(x, xm) and not same_bits(x, xm.double())
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    flipped = xm.clone()
+    flipped.view(bits)[3, 5] ^= 1
+    assert not same_bits(x, flipped)
+
+
+def test_library_variant_writes_the_source_with_one_edit(tmp_path):
+    """``CudaLibrary.variant`` (the tuning sweeps' copies of K5's source)
+    writes the source with each edit made once and builds nothing until
+    loaded; text that is not in the source once is refused."""
+    old = "constexpr int kF32Stages = 4;"
+    lib = gkernel.LIBRARY.variant(
+        [(old, "constexpr int kF32Stages = 3;")], tmp_path / "v" / "g.cu")
+    text = lib.source.read_text()
+    assert lib.name == gkernel.LIBRARY.name and lib.source != \
+        gkernel.LIBRARY.source
+    assert text == gkernel.LIBRARY.source.read_text().replace(
+        old, "constexpr int kF32Stages = 3;")
+    assert lib.info() == {}
+    with pytest.raises(ValueError, match="once"):
+        gkernel.LIBRARY.variant([("no such text", "")], tmp_path / "w.cu")
 
 
 def test_fn_matches_jax_grad_of_the_einsum():

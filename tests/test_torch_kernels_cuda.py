@@ -55,6 +55,13 @@ kernel loads whole 64-row boxes and zeroes the rows past each tile's
 count itself, so it is held with noise, and NaN in one tile, past the
 counts; dX read from w through its tensor map equals K5 on a contiguous
 copy of w^T bit for bit, and a backward makes no device-to-device copy.
+In float32 K5 has two kernels for each product: the TMA-fed one
+(``kernel_path`` "f32") and the element-load one ("f32_elem", taken where
+TMA cannot describe an operand: d or f not a multiple of 4, or a base off
+16 bytes).  Both sum each output as one fmaf chain in the same order, so
+the forward, dX and dW of the first equal those of the second bit for
+bit, with counts, noise and NaN past them, an empty group and a bad group
+id; a misaligned copy of the inputs sends a call to the second.
 
 The tests here are marked ``cuda``: they run the CUDA kernels on a card
 against the plain versions on the CPU, and skip without one.  They import
@@ -82,6 +89,7 @@ from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
 from repro_torch.kernels.grouped_matmul import kernel as gkernel  # noqa: E402
 from repro_torch.kernels.grouped_matmul import ops as gops  # noqa: E402
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref  # noqa: E402
+from repro_torch.benchmarks.common import misaligned, same_bits  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.models import registry as tmodels  # noqa: E402
 
@@ -827,10 +835,10 @@ GMM_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-5}
 
 
 def _gmm_path(d, f, dtype):
-    """The kernel K5 should take: TMA + wgmma for bf16 whose d and f are
-    multiples of 8 (a 16-byte row pitch), element loads for other bf16."""
+    """The kernel K5 should take: TMA for rows of a 16-byte pitch (d and f
+    multiples of 8 in bf16, of 4 in f32), element loads else."""
     if dtype == torch.float32:
-        return "f32"
+        return "f32" if d % 4 == 0 and f % 4 == 0 else "f32_elem"
     return "tma" if d % 8 == 0 and f % 8 == 0 else "elem"
 
 
@@ -1089,7 +1097,7 @@ DW_ROWS = [1, 5, 63, 65, 0, 0, 0, 0, 77, 127, 128, 64, 128, 17, 32, 100]
 DW_NAN_TILE = 2
 
 
-def _dw_case(d, f, G=4):
+def _dw_case(d, f, G=4, dtype=torch.bfloat16):
     rng = np.random.default_rng(d * f)
     T = len(DW_ROWS) * DW_BT
     x = torch.from_numpy(rng.normal(size=(T, d)).astype(np.float32))
@@ -1102,7 +1110,7 @@ def _dw_case(d, f, G=4):
     x[nan], dy[nan] = float("nan"), float("nan")
     gid = torch.arange(len(DW_ROWS), dtype=torch.int32) // (len(DW_ROWS) // G)
     gid[13] = G + 5
-    return x.to(torch.bfloat16), dy.to(torch.bfloat16), gid, rows
+    return x.to(dtype), dy.to(dtype), gid, rows
 
 
 @pytest.mark.cuda
@@ -1135,61 +1143,177 @@ def test_k5_dw_kernel_masks_rows_past_the_counts(card, d, f, path):
 
 
 @pytest.mark.cuda
-def test_k5_dw_same_bits_every_run(card):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_k5_dw_same_bits_every_run(card, dtype):
     """dW sums each output element in one block in row order: two calls
-    give the same bits."""
-    x, dy, gid, rows = [t.to(card) for t in _dw_case(256, 176)]
+    give the same bits (on the TMA kernel of the dtype)."""
+    x, dy, gid, rows = [t.to(card) for t in _dw_case(256, 176, dtype=dtype)]
+    assert gkernel.dw_kernel_path(x, dy) == _gmm_path(256, 176, dtype)
     a = gkernel.grouped_matmul_dw_kernel(x, dy, gid, 4, DW_BT, rows)
     b = gkernel.grouped_matmul_dw_kernel(x, dy, gid, 4, DW_BT, rows)
-    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(a.view(bits), b.view(bits))
+
+
+# The f32 kernels against each other: 4 groups of 2 tiles of 128 rows,
+# (d, f, each tile's real rows or None).  Group 1 (tiles 2, 3) has no real
+# row, and tile 2's id lies outside [0, G) in the forward and dX.
+F32_BITS_CASES = {
+    "dense": (256, 192, None),
+    "rows": (176, 200, [128, 77, 0, 0, 5, 128, 63, 65]),
+    "moe_up": (2048, 1408, [128, 3, 0, 0, 128, 128, 64, 65]),
+    "narrow": (100, 36, [1, 127, 0, 0, 33, 128, 8, 17]),
+}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,f,with_rows", [
-    (176, 200, True),  # ragged output columns and depth
-    (2048, 1408, True),  # moonshot's dX of the gate/up product
-    (1408, 2048, False),
-], ids=["ragged", "moe_up", "moe_down_dense"])
-def test_k5_dx_reads_w_transposed_bit_for_bit(card, d, f, with_rows):
+@pytest.mark.parametrize("d,f,pattern", list(F32_BITS_CASES.values()),
+                         ids=list(F32_BITS_CASES))
+def test_k5_f32_tma_equals_elem_bit_for_bit(card, d, f, pattern):
+    """K5's float32 forward, dX and dW on the TMA-fed kernels equal the
+    element-load kernels bit for bit (each output one fmaf chain in the
+    same order), with and without tile_rows, at ragged d and f edges, with
+    an empty group, noise past every count and NaN past tile 1's, and a
+    bad group id (its tile NaN).  The element-load calls take misaligned
+    copies of the same inputs; each path launched its own kernel."""
+    rng = np.random.default_rng(d + 7 * f)
+    G, bt, T = 4, 128, 8 * 128
+    x = torch.from_numpy(rng.normal(size=(T, d)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(T, f)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(G, d, f)) * d ** -0.5)
+                         .astype(np.float32))
+    gid = torch.arange(T // bt, dtype=torch.int32) // 2
+    rows = None
+    if pattern is not None:
+        rows = torch.tensor(pattern, dtype=torch.int32)
+        past = (torch.arange(bt)[None, :] >= rows[:, None]).reshape(T)
+        nan = past & (torch.arange(T) // bt == 1)
+        x[nan], dy[nan] = float("nan"), float("nan")
+        rows = rows.to(card)
+    x, dy, w, gid = x.to(card), dy.to(card), w.to(card), gid.to(card)
+    bad = gid.clone()
+    bad[2] = G + 1
+    xm, dym = misaligned(x), misaligned(dy)
+    assert gkernel.kernel_path(x, w) == gkernel.kernel_path(dy, w) == "f32"
+    assert gkernel.dw_kernel_path(x, dy) == "f32"
+    assert gkernel.kernel_path(xm, w) == gkernel.dw_kernel_path(xm, dym) \
+        == "f32_elem"
+    before = dict(gkernel.KERNEL_LAUNCHES)
+    y = gkernel.grouped_matmul_kernel(x, bad, w, bt, rows)
+    y_elem = gkernel.grouped_matmul_kernel(xm, bad, w, bt, rows)
+    dx = gkernel._k5(dy, bad, w, bt, rows, "grouped_matmul_dx",
+                     w_transposed=True)
+    dx_elem = gkernel._k5(dym, bad, w, bt, rows, "grouped_matmul_dx",
+                          w_transposed=True)
+    dw = gkernel.grouped_matmul_dw_kernel(x, dy, gid, G, bt, rows)
+    dw_elem = gkernel.grouped_matmul_dw_kernel(xm, dym, gid, G, bt, rows)
+    torch.cuda.synchronize()
+    launched = {k: gkernel.KERNEL_LAUNCHES[k] - before[k] for k in before}
+    assert launched == {**{k: 0 for k in before}, "gmm_f32_tma": 2,
+                        "gmm_f32": 2, "gmm_dw_f32_tma": 1,
+                        "gmm_dw_f32": 1}, launched
+    assert same_bits(y, y_elem) and same_bits(dx, dx_elem)
+    assert same_bits(dw, dw_elem)
+    for out in (y, dx):
+        assert bool(torch.isnan(out[2 * bt:3 * bt]).all())
+    assert bool(torch.isfinite(dw).all())
+    if pattern is not None:
+        assert bool((dw[1] == 0).all()) and not torch.signbit(dw[1]).any()
+    # the real rows against the plain version (the rule of
+    # test_k5_kernel_matches_plain), the others +0
+    keep = torch.ones(T, dtype=torch.bool)
+    keep[2 * bt:3 * bt] = False
+    real = keep.clone()
+    if rows is not None:
+        real &= (torch.arange(bt)[None, :] < rows.cpu()[:, None]).reshape(T)
+    xc, wc, sizes = x.cpu().nan_to_num(), w.cpu(), torch.full((G,), 2 * bt)
+    got = y.cpu()
+    assert bool((got[keep & ~real] == 0).all())
+    assert not torch.signbit(got[keep & ~real]).any()
+    if d > 512:
+        exact = grouped_matmul_ref(xc.double(), sizes, wc.double())[real]
+        bound = d ** 0.5 * 2.0**-24 * grouped_matmul_ref(
+            xc.double().abs(), sizes, wc.double().abs())[real]
+        assert bool(((got[real].double() - exact).abs() <= bound).all())
+    else:
+        want = grouped_matmul_ref(xc, sizes, wc)[real]
+        tol = GMM_TOL[torch.float32]
+        np.testing.assert_allclose(got[real].numpy(), want.numpy(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f,with_rows,bad_gid,dtype", [
+    (176, 200, True, False, torch.bfloat16),  # ragged columns and depth
+    (2048, 1408, True, False, torch.bfloat16),  # moonshot's dX of gate/up
+    (1408, 2048, False, False, torch.bfloat16),
+    (176, 200, True, True, torch.float32),
+    (2048, 1408, True, False, torch.float32),
+    # d, dX's output width, not a multiple of 4 (f32) or 8 (bf16): the
+    # TMA kernels' 16-byte fills do not fit it, so the element-load kernel
+    # takes the call, on a copy of w^T
+    (98, 36, True, True, torch.float32),
+    (98, 40, True, True, torch.bfloat16),
+], ids=["ragged", "moe_up", "moe_down_dense", "f32_ragged", "f32_moe_up",
+        "f32_narrow", "narrow"])
+def test_k5_dx_reads_w_transposed_bit_for_bit(card, d, f, with_rows,
+                                              bad_gid, dtype):
     """K5's dX reads the forward's w (G, d, f) through its tensor map
     (K-major): equal bit for bit to K5 on a contiguous copy of w^T, on the
-    TMA kernel both times."""
+    TMA kernel of the dtype both times where TMA describes w^T too, with
+    empty tiles and a bad group id (its tile NaN)."""
     rng = np.random.default_rng(d + 3 * f)
     G, bt = 4, 128
     w = torch.from_numpy((rng.normal(size=(G, d, f)) * d ** -0.5)
-                         .astype(np.float32)).to(torch.bfloat16).to(card)
+                         .astype(np.float32)).to(dtype).to(card)
     dy = torch.from_numpy(rng.normal(size=(G * 256, f)).astype(np.float32)
-                          ).to(torch.bfloat16).to(card)
+                          ).to(dtype).to(card)
     gid = (torch.arange(G * 256 // bt, dtype=torch.int32) // 2).to(card)
+    if bad_gid:
+        gid[1] = G + 1
     rows = (torch.tensor([128, 77, 0, 0, 5, 128, 63, 65], dtype=torch.int32)
             .to(card) if with_rows else None)
     wt = w.transpose(1, 2).contiguous()
-    assert gkernel.kernel_path(dy, w) == gkernel.kernel_path(dy, wt) == "tma"
+    path, path_t = gkernel.kernel_path(dy, w), gkernel.kernel_path(dy, wt)
+    assert path == _gmm_path(d, f, dtype)
+    assert path_t == _gmm_path(f, d, dtype)
+    before = dict(gkernel.KERNEL_LAUNCHES)
     got = gkernel._k5(dy, gid, w, bt, rows, "grouped_matmul_dx",
                       w_transposed=True)
     want = gkernel._k5(dy, gid, wt, bt, rows, "grouped_matmul_dx")
     torch.cuda.synchronize()
+    launched = {k: n - before[k] for k, n in gkernel.KERNEL_LAUNCHES.items()
+                if n != before[k]}
+    kernels = [gkernel.KERNELS[path], gkernel.KERNELS[path_t]]
+    assert launched == {k: kernels.count(k) for k in kernels}, launched
     assert got.shape == (G * 256, d)
-    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+    if bad_gid:
+        assert bool(torch.isnan(got[bt:2 * bt]).all())
 
 
 @pytest.mark.cuda
-def test_k5_backward_copies_nothing(card):
-    """One ``grouped_matmul_fn`` backward at bf16 TMA shapes runs K5's dX
-    and the dW kernel and no device-to-device copy (torch.profiler's
-    device events): w^T is read through its tensor map."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_k5_backward_copies_nothing(card, dtype):
+    """One ``grouped_matmul_fn`` backward at TMA shapes (bf16 and f32) runs
+    K5's dX and the dW kernel and no device-to-device copy
+    (torch.profiler's device events): w^T is read through its tensor
+    map."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     x, _, w = _gmm_case(np.random.default_rng(4), [256] * 4, 256, 192,
-                        torch.bfloat16)
+                        dtype)
     x_ = x.to(card).requires_grad_()
     w_ = w.to(card).requires_grad_()
     gid = (torch.arange(8, dtype=torch.int32) // 2).to(card)
     rows = torch.tensor([128, 77, 0, 0, 5, 128, 63, 65], dtype=torch.int32,
                         device=card)
     y = gkernel.grouped_matmul_fn(x_, gid, w_, 128, rows)
-    dy = torch.randn(y.shape, device=card).to(torch.bfloat16)
+    dy = torch.randn(y.shape, device=card).to(dtype)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
