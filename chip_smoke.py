@@ -7,7 +7,9 @@ the paper's drivers and gates, the rest of the model zoo (the SSM,
 the Jamba hybrid, the encoder-decoder and the VLM), served and
 prefilled, the MoE train step with K5's backward, the trainer with
 its checkpoint and resume, the mesh tools, and CodeQwen's
-sequence-parallel decode over two ranks of the card.
+sequence-parallel decode over two ranks of the card, and the training of
+the SSM, the hybrid with its 8-bit AdamW, the VLM and the
+encoder-decoder.
 
     python3 chip_smoke.py
 
@@ -113,14 +115,16 @@ Phases; any failure exits non-zero before the last line is printed:
               the first way, SDPA also the second.  ``k4_tune.py`` sweeps
               the chunk and breaks the wrapper's host time into parts.
 6. serve   -- the port's ``launch/serve.py`` on ``cuda`` at CodeQwen1.5-7B's
-              full config (32 layers, bf16) with the launcher's defaults (40
-              requests, 4 tenants, rate 50, ``liferaft``).  K4's launches must
-              equal 32 x the decode steps; the engine summary must equal the
-              ``--no-decode`` run's; a 2-layer cut of the same widths, with the
-              same seeded weights made on the CPU, must decode 16 steps on the
-              card as on the CPU (step-1 logits within ``BF16_LOGIT_TOL``;
-              greedy tokens equal wherever the CPU's top-2 margin exceeds it).
-              CodeQwen's weights are freed before phase 8.
+              full config (32 layers, bf16) with the launcher's defaults but
+              ``ZOO_REQUESTS`` (10) of its 40 requests (4 tenants, rate 50,
+              ``liferaft``).  K4's launches must equal 32 x the decode steps;
+              the engine summary must equal the ``--no-decode`` run's; a
+              2-layer cut of the same widths, with the same seeded weights
+              (drawn on the card and copied to the CPU), must decode 16 steps
+              on the card as on the CPU (step-1 logits within
+              ``BF16_LOGIT_TOL``; greedy tokens equal wherever the CPU's top-2
+              margin exceeds it).  CodeQwen's weights are freed before phase
+              8.
 7. grouped -- K5 against its plain version on the card at (a) moonshot's
               gate/up products (T = 16,384 capacity rows, 64 groups of 256,
               d = 2048, f = 1408, bf16), (a') its down product (d = 1408,
@@ -148,7 +152,7 @@ Phases; any failure exits non-zero before the last line is printed:
               written whole.
 8. moe     -- ``launch/serve.py`` on ``cuda`` at moonshot-v1-16b-a3b's full
               config (48 layers, 64 experts top-6, 28.06 G parameters in
-              bf16) with the launcher's defaults.  K5's launches must equal
+              bf16) with phase 6's requests.  K5's launches must equal
               3 x 48 x the decode steps and K4's 48 x the steps; the engine
               summary must equal the ``--no-decode`` run's; a 2-layer cut at
               full width decodes 4 steps on the card as on the CPU under
@@ -216,8 +220,8 @@ Phases; any failure exits non-zero before the last line is printed:
               64 decoder tokens): logits finite, the CUDA-event median of
               5, prompt positions a second.  Then a 2-layer cut of the same
               widths in float32 (jamba's: one period of an attention layer
-              with its MLP and a Mamba layer with its MoE), weights made on
-              the CPU and copied, held to ``ZOO_F32_TOL`` under phase 6's
+              with its MLP and a Mamba layer with its MoE), weights drawn on
+              the card and copied, held to ``ZOO_F32_TOL`` under phase 6's
               rules: the prefill's logits at 2 prompts of 16 tokens (16
               patches / frames) and its greedy tokens; 16 decode steps (4
               with experts), seamless's after ``prefill_cross_kv`` filled
@@ -251,7 +255,7 @@ Phases; any failure exits non-zero before the last line is printed:
               the step's floor (its operations at the bf16 peak against
               AdamW's bytes at 3.35 TB/s), then a profile of 2 steps
               (device busy, launches a step).  (b) A 2-layer float32 cut
-              at the same widths, weights made on the CPU and copied: the
+              at the same widths, weights drawn on the card and copied: the
               loss and every gradient leaf for 2 x 16 tokens on the card
               against the CPU within ``TRAIN_LOSS_TOL`` (relative) and
               ``TRAIN_GRAD_TOL`` (of each leaf's largest value), each MoE
@@ -279,10 +283,15 @@ Phases; any failure exits non-zero before the last line is printed:
               phase fails), checkpoint bytes and files, the ms ``save``
               blocked the loop, the s ``wait`` blocked, the restore s, the
               median step.  (b) ``Trainer`` at the f32 smoke configs of
-              codeqwen1.5-7b and moonshot-v1-16b-a3b (K5's f32 kernels)
-              for ``TRAINER_SMOKE_STEPS`` (20) steps from weights made on
-              the CPU: every loss within ``TRAINER_SMOKE_TOL`` (relative)
-              of the CPU run's.  (c) ``launch.train`` (codeqwen1.5-7b, 20
+              codeqwen1.5-7b, moonshot-v1-16b-a3b (K5's f32 kernels),
+              falcon-mamba-7b and jamba-v0.1-52b (8-bit AdamW) for
+              ``TRAINER_SMOKE_STEPS`` (20) steps from weights made on the
+              CPU: every loss within ``TRAINER_SMOKE_TOL`` (relative) of the
+              CPU run's, jamba's within ``TRAINER_SMOKE_TOL_8BIT``; jamba's
+              also saved at step 10 and resumed by a second trainer, every
+              leaf (int8 codes and f32 scales) restored equal and both
+              trainers' losses within ``TRAINER_LOSS_TOL`` of the
+              uninterrupted card run's.  (c) ``launch.train`` (codeqwen1.5-7b, 20
               steps) prints a finite final loss and ``examples.train_lm
               --big --steps 100`` prints ``improved``.  The checkpoint
               directory stays until phase 14 ends.
@@ -320,8 +329,44 @@ Phases; any failure exits non-zero before the last line is printed:
               cache must be sequence-sharded, and K4 must launch once a
               layer a step in both runs.  Printed: the step times and K4
               launches a step of both runs, the cache's placements.
+  16. zootrain Training on ``cuda`` for the families phases 12 and 13 leave
+              out, each at its published widths in bf16 with its own
+              optimizer and remat, ``ZOOTRAIN_STEPS`` (4) steps of
+              ``make_train_step`` on ``TokenPipeline(seed=0)`` batches of 8
+              x 512 tokens (paligemma adds 256 seeded normal patches a row,
+              seamless takes 512 seeded normal frames; ``family_batch``):
+              jamba-v0.1-52b cut to two periods of 2 layers (attention +
+              MLP, then Mamba + MoE; 8-bit AdamW), falcon-mamba-7b cut to 16
+              of 64 layers, paligemma-3b and seamless-m4t-large-v2 whole
+              (``ZOOTRAIN`` says why).  (a) Each loss finite and the last
+              below the first (paligemma and seamless, whose gradients at
+              the reference's init grow with depth until the clip stalls
+              them, ``ZOOTRAIN_STALLS``: each loss finite, and their
+              2-layer cut in bf16 must lower its first batch's loss in
+              as many steps); printed: the median CUDA-event step after
+              step 1, tokens a second, peak memory against the card's, a
+              2-step profile (device busy, launches a step; read from the
+              trace's raw events) and the optimizer update alone.  For
+              jamba, first K5's backward at its training call, (j) gate/up
+              (d = 4096 -> f = 14336) and (j') down, 16 experts of C = 768
+              rows with the cut's first MoE layer's routing on the first
+              batch, under phase 12 (a)'s rules (dX bit-equal to K5 on a
+              contiguous w^T, dW within ``TRAIN_DW_TOL``; its records join
+              phase 12's); then K5's forward / dX / dW launches 6 / 3 / 3 an
+              MoE layer a step and the experts' 8-bit m codes nonzero after
+              step 1.  (b) The 2-layer float32 cut (``zoo_cut``) against the
+              CPU under phase 12 (b)'s rules (loss within ``TRAIN_LOSS_TOL``,
+              each gradient leaf within ``TRAIN_GRAD_TOL``; the
+              encoder-decoder's within ``ZOO_GRAD_TOL``).  (c) jamba: one
+              ``adamw8bit`` update of that cut on the card against the same
+              update on the CPU at sampled 256-blocks of every leaf (each
+              chunk boundary, both ends, a stride): parameters within
+              ``OPT8_TOL``, codes equal but for at most 1 in 1,000 one off,
+              scales within ``OPT8_TOL``.  Each model is freed before the
+              next.
 
-The last two lines are the kernels' JSON record and the device record.
+Every phase prints its seconds.  The last two lines are the kernels' JSON
+record and the device record.
 Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -384,6 +429,7 @@ from repro_torch.models import registry as models  # noqa: E402
 from repro_torch.data import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.models.common import pad_vocab  # noqa: E402
 from repro_torch.training import make_optimizer, make_train_step  # noqa: E402
+from repro_torch.training import optimizer as opt_mod  # noqa: E402
 from repro_torch.training.optimizer import tree_leaves, tree_map  # noqa: E402
 from repro_torch.training.train_step import make_prefill_step  # noqa: E402
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
@@ -518,7 +564,10 @@ BF16_LOGIT_TOL = 2.0**-3
 PROFILE_STEPS = 4
 # Phase 11: the families this slice ports, each at full width; jamba cut
 # to its first 16 layers (two periods of 8), which fit the card with their
-# cache.  The engine runs ZOO_REQUESTS of the launcher's 40 requests.
+# cache.  The engine runs ZOO_REQUESTS of the launcher's 40 requests, as
+# phases 6 and 8 do (their step median and launches a step are the numbers
+# compared; 40 requests took 36 s and 93 s of engine wall on an H100
+# 80GB HBM3 at 700 W).
 ZOO_ARCHS = ("falcon-mamba-7b", "paligemma-3b", "seamless-m4t-large-v2",
              "jamba-v0.1-52b")
 ZOO_LAYERS = {"jamba-v0.1-52b": 16}
@@ -545,15 +594,23 @@ TRAIN_LAYERS = 4
 TRAIN_B, TRAIN_S = 8, 512
 TRAIN_STEPS = 10
 TRAIN_PROFILE_STEPS = 2
-# (b): the float32 cut against the CPU, 2 prompts of 16 tokens.  Tighter
-# than ZOO_F32_TOL: the loss within 1e-4 relative, each gradient leaf
-# within 1e-2 of its largest value (an H100 at 700 W measured 9.5e-7 of
-# a loss of 12.5 and 2.2e-3, the embedding's: the 163,840-row table's
+# (b): the float32 cut (``zoo_cut``, 2 layers) against the CPU, 2 prompts
+# of 16 tokens.  Tighter than ZOO_F32_TOL: the loss within 1e-4 relative,
+# each gradient leaf within 1e-2 of its largest value (an H100 at 700 W
+# measured 9.5e-7 of a loss of 12.5 and 2.2e-3, the embedding's, with
+# weights drawn on the CPU; 0 and 5.4e-4 with the card's: the table's
 # gradient is scattered from 32 tokens, each a sum in another order).
-TRAIN_CPU_LAYERS = 2
 TRAIN_CPU_B, TRAIN_CPU_S = 2, 16
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-2
+# Phase 16 (b): the encoder-decoder's cut needs more room.  At the
+# reference's init its attention softmaxes are near one-hot, and their
+# backward, p (g - sum p g), cancels most digits of an f32 gradient: on an
+# H100 (80GB HBM3, 700 W) the card's f32 leaves and the CPU's differed by
+# up to 0.165 of a leaf's largest value (enc.attn.wq), while in float64
+# the two agree to 4.9e-4 and each f32 run is 0.133 (CPU) and 0.027
+# (card) from it (``benchmarks/grad_conditioning.py``).
+ZOO_GRAD_TOL = {"encdec": 0.3}
 # (a): K5's backward against its plain versions, of the largest value: in
 # bf16 both round an f32 sum over up to C = 512 rows to bf16 once (one
 # bf16 rounding is 2^-8 relative); in f32 the sums differ in order only.
@@ -574,14 +631,27 @@ DW_EARLIER_MS = {"a": 2.8397, "a'": 2.7099}
 # TRAINER_SMOKE_TOL: the f32 smoke configs' 20 losses on the card against
 # the CPU's, relative (measured 5.4e-5 and 3.6e-5: the products sum in
 # other orders, and 20 AdamW steps carry the differences on).
+# TRAINER_SMOKE_TOL_8BIT: the same for jamba's, which trains with 8-bit
+# AdamW.  Where a block's v code rounds to 0 the update is m / eps, so a
+# code one off at a rounding boundary (the gradients differ in their last
+# bits) moves a parameter by ~0.1 on one side only, and the losses part
+# from step 3 on: an H100 (80GB HBM3, 700 W) measured 1.98e-3 against the
+# CPU, and the CPU differs from itself as much between runs (its
+# embedding gradient sums in no fixed order).  Jamba's smoke trainer also
+# saves at TRAINER_SMOKE_SAVE_AT into TRAINER_SMOKE_DIR, and a second
+# trainer resumes it on the card.
 TRAINER_LAYERS = 1
 TRAINER_STEPS = 6
 TRAINER_SAVE_AT = 3
 TRAINER_LOSS_TOL = 1e-5
-TRAINER_SMOKE_ARCHS = (SERVE_ARCH, MOE_ARCH)
+TRAINER_SMOKE_ARCHS = (SERVE_ARCH, MOE_ARCH, "falcon-mamba-7b",
+                       "jamba-v0.1-52b")
 TRAINER_SMOKE_STEPS = 20
 TRAINER_SMOKE_TOL = 1e-3
+TRAINER_SMOKE_TOL_8BIT = 1e-2
+TRAINER_SMOKE_SAVE_AT = 10
 TRAINER_DIR = pathlib.Path(ROOT) / "build" / "trainer_ckpt"
+TRAINER_SMOKE_DIR = pathlib.Path(ROOT) / "build" / "trainer_smoke_ckpt"
 TRAIN_LM_DIR = pathlib.Path(ROOT) / "build" / "train_lm_ckpt"
 # Phase 14 (a): the dry-run's cells, each a subprocess, and their output.
 MESH_CELLS = (
@@ -620,6 +690,40 @@ SHARDED_B, SHARDED_SLOTS = 2, 32768
 SHARDED_STEPS = 8
 SHARDED_POS = SHARDED_SLOTS // 2 - SHARDED_STEPS // 2
 SHARDED_TIMEOUT = 600
+# Phase 16: the families phases 12 and 13 leave out, trained on the card
+# at their published widths in bf16 with their own optimizer and remat,
+# TRAIN_B x TRAIN_S tokens a step.  The cuts in depth, from
+# ``ModelConfig.param_count`` (bf16 weights and gradients, the optimizer's
+# state; activations not counted): falcon-mamba 16 of 64 layers (2.22 G
+# parameters, 26.6 GB; all 64 with AdamW's f32 moments 87.3 GB); jamba
+# two periods of 2 layers, attention + MLP then Mamba + MoE, the period
+# of phase 11's f32 cut (6.82 G, 41.1 GB with the 8-bit moments; jamba's
+# own 8-layer period is 13.30 G, 80.2 GB, and ``hybrid._n_periods`` takes
+# whole periods); paligemma (1.90 G, 22.9 GB) and seamless (1.63 G, 19.6
+# GB) whole.
+ZOOTRAIN = {
+    "jamba-v0.1-52b": dict(n_layers=4, attn_period=2, attn_offset=0),
+    "falcon-mamba-7b": dict(n_layers=16),
+    "paligemma-3b": {},
+    "seamless-m4t-large-v2": {},
+}
+ZOOTRAIN_STEPS = 4
+# At the reference's init (wq's fan_in is H, so attention logits reach the
+# hundreds) an attention stack's gradient grows several-fold a layer: on
+# an H100 (80GB HBM3, 700 W) paligemma's grad norm was ~5e2 at 2 layers
+# and ~1e15 at its 18, seamless's ~4e3 at 2 + 2 and inf at 24 + 24 (the
+# norm's f32 squares overflow, and the clip scales the update to 0).
+# Under the clip (norm 1) AdamW's eps then swamps every leaf but the
+# largest, and the full-depth losses stay flat.  These two are held to
+# finite losses at full depth, and their 2-layer cut (``cut_learns``) to
+# a falling loss.
+ZOOTRAIN_STALLS = ("paligemma-3b", "seamless-m4t-large-v2")
+# (c): the 256-blocks of each leaf the CPU's 8-bit update repeats: about
+# ZOOTRAIN_SAMPLE a leaf at a stride, and ZOOTRAIN_EDGE at each end and on
+# each side of every chunk boundary.  OPT8_TOL: the optimizer tests' 1e-6.
+ZOOTRAIN_SAMPLE = 4096
+ZOOTRAIN_EDGE = 4
+OPT8_TOL = 1e-6
 
 
 def main() -> int:
@@ -654,6 +758,7 @@ def main() -> int:
             if ("registers" in line or "Compiling entry" in line
                     or "spill" in line):
                 print(f"[build]   {line.strip()}")
+    print(f"[build] phase 1 in {time.perf_counter() - t0:.1f}s", flush=True)
 
     # -- data: the main path's catalog --------------------------------------
     t0 = time.perf_counter()
@@ -665,6 +770,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f}s", flush=True)
 
     # -- 2. kernels against their plain versions ----------------------------
+    t0 = time.perf_counter()
     dev = torch.device(DEVICE)
     buckets = largest_buckets(cat, 4)
     rng = np.random.default_rng(11)
@@ -674,17 +780,23 @@ def main() -> int:
             measure(c, counting)
             checks.append(c)
     check_planted_faults(faults, checks)
+    print(f"[kernels] phase 2 in {time.perf_counter() - t0:.1f}s", flush=True)
 
     # -- 3. main path ---------------------------------------------------------
+    t0 = time.perf_counter()
     by_run, batches, obs_off = run_main_path(cat, trace)
+    print(f"[main] phase 3 in {time.perf_counter() - t0:.1f}s", flush=True)
 
     # -- 4. kernels at the main path's shapes --------------------------------
+    t0 = time.perf_counter()
     shaped = main_shape_cases(buckets, batches, rng, dev)
     records = [measure(c, counting) for c in shaped]
     profile_cases(checks + shaped + [c["padded"] for c in shaped
                                      if "padded" in c])
+    print(f"[shapes] phase 4 in {time.perf_counter() - t0:.1f}s", flush=True)
 
     # -- 5. K4 against its plain version -------------------------------------
+    t0 = time.perf_counter()
     paged = {key: measure_paged(key, shape, dev)
              for key, shape in PAGED_SHAPES.items()}
     check_paged_partials(dev)
@@ -698,6 +810,7 @@ def main() -> int:
         print(f"[paged] ({key}) profiled {fmt_ms(ms)} ms", flush=True)
     k4 = dict(paged["a"], shapes={k: v for k, v in paged.items() if k != "a"})
     records.append(k4)
+    print(f"[paged] phase 5 in {time.perf_counter() - t0:.1f}s", flush=True)
 
     # -- 6. the serving path ---------------------------------------------------
     t0 = time.perf_counter()
@@ -705,6 +818,7 @@ def main() -> int:
     print(f"[serve] phase 6 in {time.perf_counter() - t0:.1f}s", flush=True)
 
     # -- 7. K5 against its plain version -------------------------------------
+    t0 = time.perf_counter()
     grouped = {key: measure_grouped(key, shape, dev)
                for key, shape in GMM_SHAPES.items()}
     for key, (routing, d, f, dtype) in GMM_DECODE_SHAPES.items():
@@ -712,6 +826,7 @@ def main() -> int:
     grouped_dw = measure_grouped_dw(GMM_DW_ELEM, GMM_SHAPES[GMM_DW_ELEM], dev)
     records.append(dict(grouped["a"], shapes={
         k: v for k, v in grouped.items() if k != "a"}))
+    print(f"[grouped] phase 7 in {time.perf_counter() - t0:.1f}s", flush=True)
 
     # -- 8. the MoE serving path ----------------------------------------------
     t0 = time.perf_counter()
@@ -760,6 +875,12 @@ def main() -> int:
     t0 = time.perf_counter()
     by_run["sharded"] = run_sharded_phase(smi)
     print(f"[sharded] phase 15 in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+    # -- 16. training the rest of the zoo -------------------------------------
+    t0 = time.perf_counter()
+    by_run["zootrain"] = run_zootrain_phase(smi, backward)
+    print(f"[zootrain] phase 16 in {time.perf_counter() - t0:.1f}s",
           flush=True)
 
     for rec in records:
@@ -1785,14 +1906,12 @@ def count_active_experts(cfg, params, dev, steps, tag) -> None:
 
 
 def compare_with_cpu(cfg, steps, tag) -> None:
-    """A 2-layer cut at full width: the same seeded weights, made on the
-    CPU and copied to the card, decode ``steps`` steps on both from zero
-    tokens (``decode_cpu_vs_card``)."""
+    """A 2-layer cut at full width: the same seeded weights
+    (``cut_weights``) decode ``steps`` steps on the CPU and the card from
+    zero tokens (``decode_cpu_vs_card``)."""
     cut = dataclasses.replace(cfg, n_layers=CPU_LAYERS)
     t0 = time.perf_counter()
-    cpu_params = models.init_params(cut, torch.Generator().manual_seed(1))
-    params = {"cpu": cpu_params, DEVICE: to_device(cpu_params, DEVICE)}
-    decode_cpu_vs_card(cut, params, steps, tag)
+    decode_cpu_vs_card(cut, cut_weights(cut), steps, tag)
     print(f"[{tag}] cpu vs card in {time.perf_counter() - t0:.1f}s",
           flush=True)
 
@@ -1870,7 +1989,8 @@ def run_serve_path(arch, tag, cpu_steps) -> dict:
     serving run's kernel launches."""
     cfg = get_config(arch)
     params = seeded_on_card(cfg, arch, tag)
-    launches = serve_on_card(cfg, params, arch, tag)
+    launches = serve_on_card(cfg, params, arch, tag, "--requests",
+                             str(ZOO_REQUESTS))
     del params
     torch.cuda.empty_cache()
     compare_with_cpu(cfg, cpu_steps, tag)
@@ -2590,7 +2710,7 @@ def measure_prefill(cfg, params, tag) -> dict:
 
 def zoo_cpu_check(cfg, tag) -> None:
     """Phase 11's card against the CPU, at ``zoo_cut(cfg)`` in float32
-    with the same seeded weights made on the CPU and copied: the prefill's
+    with the same seeded weights on both (``cut_weights``): the prefill's
     logits (all positions; ZOO_CPU_B prompts of ZOO_CPU_S tokens, and as
     many patches or frames) within ``ZOO_F32_TOL`` and its greedy tokens
     equal where the CPU's margin exceeds it; ``CPU_STEPS`` decode steps
@@ -2602,8 +2722,7 @@ def zoo_cpu_check(cfg, tag) -> None:
     cut = dataclasses.replace(zoo_cut(cfg), dtype="float32")
     tol = ZOO_F32_TOL
     t0 = time.perf_counter()
-    cpu_params = models.init_params(cut, torch.Generator().manual_seed(1))
-    params = {"cpu": cpu_params, DEVICE: to_device(cpu_params, DEVICE)}
+    params = cut_weights(cut)
     batch, _ = prefill_batch(cut, ZOO_CPU_B, ZOO_CPU_S, torch.device("cpu"),
                              seed=91, n_prefix=ZOO_CPU_S)
     fwd = models.forward_fn(cut)
@@ -2913,19 +3032,52 @@ def batch_on(b, dev) -> dict:
     return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
 
 
-def train_cpu_check(cfg, tag) -> None:
-    """Phase 12 (b): the float32 cut (``TRAIN_CPU_LAYERS`` layers at full
-    width), the same seeded weights made on the CPU and copied: the loss
-    and every gradient leaf on the card against the CPU, the routing of
-    each MoE layer compared (a flip is printed)."""
-    cut = dataclasses.replace(cfg, n_layers=TRAIN_CPU_LAYERS, dtype="float32")
+def family_batch(cfg, b, seed) -> dict:
+    """A ``TokenPipeline`` batch ``b`` as CPU tensors in the family's keys
+    (``tests/test_torch_train.py::_step_batch``'s rule): the
+    encoder-decoder takes its tokens as ``dec_tokens`` beside as many
+    seeded normal frames, the VLM ``cfg.n_prefix`` seeded normal patches
+    before them."""
+    out = batch_on(b, "cpu")
+    rows, seq = out["tokens"].shape
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.family == "encdec":
+        return {"frames": torch.randn(rows, seq, cfg.d_model, generator=gen),
+                "dec_tokens": out["tokens"], "labels": out["labels"]}
+    if cfg.family == "vlm":
+        return {"patches": torch.randn(rows, cfg.n_prefix, cfg.d_model,
+                                       generator=gen), **out}
+    return out
+
+
+def cut_weights(cut) -> dict:
+    """``cut``'s weights by device: drawn on the card from seed 1 and
+    copied to the CPU, so both hold the same values."""
+    card = models.init_params(cut, torch.Generator(device=DEVICE).manual_seed(1))
+    return {"cpu": tree_map(lambda p: p.to("cpu", copy=True), card),
+            DEVICE: card}
+
+
+def train_cpu_check(cfg, tag) -> tuple:
+    """Phase 12 (b), 16 (b): the float32 cut (``zoo_cut``: 2 layers at
+    full width), the same seeded weights on the card and the CPU: the loss
+    and every gradient leaf for ``TRAIN_CPU_B`` x ``TRAIN_CPU_S`` tokens
+    (as many frames, ``cfg.n_prefix`` patches) on the card against the
+    CPU, the routing of each MoE layer compared (a flip is printed); with
+    experts the card's backward is profiled (``profiled_backward``).  The
+    leaves' tolerance is ``ZOO_GRAD_TOL``'s for the family, else
+    ``TRAIN_GRAD_TOL``.  Returns the cut, its card weights and the card's
+    gradient leaves."""
+    cut = dataclasses.replace(zoo_cut(cfg), dtype="float32")
     t0 = time.perf_counter()
-    cpu_params = models.init_params(cut, torch.Generator().manual_seed(1))
-    params = {"cpu": cpu_params, DEVICE: to_device(cpu_params, DEVICE)}
-    b = train_batch(cut, TRAIN_CPU_B, TRAIN_CPU_S, seed=1)
+    params = cut_weights(cut)
+    b = family_batch(cut, train_batch(cut, TRAIN_CPU_B, TRAIN_CPU_S, seed=1),
+                     seed=161)
     out = {}
+    times = [time.perf_counter() - t0]
     inner = moe_mod.expert_tiles
     for dev in ("cpu", DEVICE):
+        t1 = time.perf_counter()
         routes = []
 
         def recording(top_idx, E, C, bt=moe_mod.EXPERT_BT):
@@ -2937,38 +3089,44 @@ def train_cpu_check(cfg, tag) -> None:
         before = dict(GK.KERNEL_LAUNCHES)
         moe_mod.expert_tiles = recording
         try:
-            loss = models.loss_fn(cut)(live, batch_on(b, dev))
+            loss = models.loss_fn(cut)(live, to_device(b, dev))
         finally:
             moe_mod.expert_tiles = inner
-        if dev == DEVICE:
+        if dev == DEVICE and cut.n_experts:
             grads = profiled_backward(loss, tree_leaves(live), before, tag)
         else:
             grads = torch.autograd.grad(loss, tree_leaves(live))
-        out[dev] = (float(loss.detach()), [g.float().cpu() for g in grads],
-                   routes)
+        out[dev] = (float(loss.detach()), grads, routes)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
     (lc, gc, rc), (lg, gg, rg) = out["cpu"], out[DEVICE]
     flips = sum(int((a != b).any(dim=1).sum()) for a, b in zip(rc, rg))
     print(f"[{tag}] cpu vs card, {cut.n_layers}-layer cut in float32, "
           f"{TRAIN_CPU_B} x {TRAIN_CPU_S} tokens: routing of "
           f"{len(rc)} MoE layers, {flips} token(s) routed differently",
           flush=True)
+    t1 = time.perf_counter()
     worst, where = 0.0, ""
-    names = [n for n, _ in iter_named_leaves(cpu_params)]
-    for name, a, g in zip(names, gc, gg):
+    names = [n for n, _ in iter_named_leaves(params["cpu"])]
+    for name, a, g in zip(names, gc, gg):  # on the card: 3.7 G elements
+        a = a.to(g.device)
         scale = float(a.abs().max()) or 1.0
         rel = float((a - g).abs().max()) / scale
         if rel > worst:
             worst, where = rel, name
+    tol = ZOO_GRAD_TOL.get(cut.family, TRAIN_GRAD_TOL)
     print(f"[{tag}] loss cpu {lc:.6f} card {lg:.6f} (|diff| "
           f"{abs(lc - lg):.3e}); {len(gc)} gradient leaves, the largest "
           f"|diff| / the leaf's largest value {worst:.3e} ({where}); "
-          f"tolerances {TRAIN_LOSS_TOL} (loss, relative) and "
-          f"{TRAIN_GRAD_TOL} (leaves); {time.perf_counter() - t0:.1f}s",
-          flush=True)
+          f"tolerances {TRAIN_LOSS_TOL} (loss, relative) and {tol} "
+          f"(leaves); {time.perf_counter() - t0:.1f}s (weights "
+          f"{times[0]:.1f}, cpu {times[1]:.1f}, card {times[2]:.1f}, "
+          f"compare {time.perf_counter() - t1:.1f})", flush=True)
     if not (abs(lc - lg) <= TRAIN_LOSS_TOL * abs(lc)
-            and worst <= TRAIN_GRAD_TOL and math.isfinite(lg)):
+            and worst <= tol and math.isfinite(lg)):
         raise SystemExit(f"{tag}: the card's loss or gradients differ from "
                          f"the cpu's")
+    return cut, params[DEVICE], gg
 
 
 def profiled_backward(loss, leaves, before, tag) -> tuple:
@@ -3045,7 +3203,10 @@ def train_flops(cfg, B, S, n_real) -> float:
 
 def profile_train(step, params, state, batch, tag) -> None:
     """Device busy share, launches and the heaviest kernels of
-    ``TRAIN_PROFILE_STEPS`` train steps under torch.profiler."""
+    ``TRAIN_PROFILE_STEPS`` train steps under torch.profiler, read from
+    the trace's raw events: a Mamba model's step launches some 10^5
+    kernels, for which ``prof.events()`` would build Python objects for
+    minutes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3057,27 +3218,29 @@ def profile_train(step, params, state, batch, tag) -> None:
             params, state, _ = step(params, state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    launch_calls = sum(a.count for a in prof.key_averages()
-                       if "LaunchKernel" in a.key)
+    by_name: dict = {}
+    launch_calls = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ms, k = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, k + 1)
+        elif "LaunchKernel" in e.name():
+            launch_calls += 1
     n = TRAIN_PROFILE_STEPS
-    if not ev:
+    if not by_name:
         print(f"[{tag}] device time not measured (the profiler saw no "
               f"device events); {n} steps {wall:.4f}s; kernel launch calls "
               f"{launch_calls / n:.1f} a step", flush=True)
         return
-    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
-    by_name: dict = {}
-    for e in ev:
-        ms, k = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, k + 1)
+    busy = sum(v[0] for v in by_name.values())
+    events = sum(v[1] for v in by_name.values())
     print(f"[{tag}] profile of {n} steps: wall {wall * 1e3:.3f} ms "
           f"(profiler on), device busy {busy:.3f} ms "
-          f"({100 * busy / (wall * 1e3):.2f}%), {len(ev) / n:.1f} device "
+          f"({100 * busy / (wall * 1e3):.2f}%), {events / n:.1f} device "
           f"events and {launch_calls / n:.1f} kernel launch calls a step; "
           f"the heaviest kernels:", flush=True)
     for name, (ms, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-        print(f"[{tag}]   {ms / n:9.3f} ms a step in {k / n:6.1f} launches  "
+        print(f"[{tag}]   {ms / n:9.3f} ms a step in {k / n:8.1f} launches  "
               f"{name[:90]}")
 
     def total(match):
@@ -3094,8 +3257,103 @@ def profile_train(step, params, state, batch, tag) -> None:
     for name, (ms, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
         if "direct_copy_kernel" in name:
             head = name.split("at::native::direct_copy_kernel_cuda")[0]
-            print(f"[{tag}]   {ms / n:9.3f} ms a step in {k / n:6.1f} "
+            print(f"[{tag}]   {ms / n:9.3f} ms a step in {k / n:8.1f} "
                   f"launches  {head[:70]}direct_copy", flush=True)
+
+
+def update_bytes(name: str, n_params: int) -> float:
+    """The bytes an update of bf16 parameters moves: AdamW reads p, g, m,
+    v and writes p, m, v (22 a parameter); 8-bit AdamW reads p, g and the
+    m, v codes and writes p and the codes, with an f32 scale a 256-block
+    for each of m and v read and written."""
+    if name == "adamw8bit":
+        return (2 + 2 + 2 + 2 + 2 + 16 / 256) * n_params
+    return 22 * n_params
+
+
+def time_update(opt, params, state, step_ms, tag) -> float:
+    """The optimizer's update alone (zero gradients) on the card, the
+    median of 3, beside the bytes it moves; returns its ms."""
+    n_params = sum(t.numel() for t in iter_leaves(params))
+    nbytes = update_bytes(opt.name, n_params)
+    zeros = tree_map(torch.zeros_like, params)
+    upd_ms = cuda_ms(lambda: opt.update(zeros, state, params), 3)
+    print(f"[{tag}] the {opt.name} update alone: {upd_ms:.3f} ms a step, "
+          f"{nbytes / upd_ms / 1e9:.3f} TB/s of its {nbytes / 1e9:.3f} GB "
+          f"(floor {nbytes / bench_common.PEAK_BYTES * 1e3:.3f} ms); the "
+          f"loss and its gradients the other {step_ms - upd_ms:.3f} ms of "
+          f"the median step", flush=True)
+    return upd_ms
+
+
+def train_steps(step, params, state, batches, tag) -> tuple:
+    """``step`` (a ``make_train_step``) over ``batches`` on the card, each
+    step between two CUDA events; prints each step's loss, grad norm and
+    ms.  Returns (params, state, the run's record: losses, grad norms, ms,
+    the median of steps 2 on and their sorted ms, peak memory, kernel
+    launches, K5's launches a step, the experts' first moments nonzero
+    after step 1)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    metrics, events, nonzero = [], [], {}
+    for i, batch in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, m = step(params, state, batch)
+        end.record()
+        metrics.append(m)
+        events.append((start, end))
+        if i == 0:
+            nonzero = expert_moments_nonzero(state)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    ms = [a.elapsed_time(b) for a, b in events]
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    for i, (l, g, t) in enumerate(zip(losses, norms, ms)):
+        print(f"[{tag}] step {i + 1}: loss {l:.6f}, grad norm {g:.6f}, "
+              f"{t:.3f} ms", flush=True)
+    later = sorted(ms[1:])
+    return params, state, {
+        "losses": losses, "norms": norms, "ms": ms, "later": later,
+        "median": later[len(later) // 2],
+        "peak": torch.cuda.max_memory_allocated(), "launches": launches,
+        "per": {k: launches[k] / len(batches) for k in
+                ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw")},
+        "nonzero": nonzero}
+
+
+def expert_moments_nonzero(state) -> dict:
+    """The nonzero first-moment entries of each expert weight (``...moe.w*``
+    leaves' ``m``, or ``m_q`` codes in 8 bits)."""
+    return {name: int((t != 0).sum())
+            for name, t in iter_named_leaves(state["mu"])
+            if ".moe.w" in f".{name}" and name.rsplit(".", 1)[1] in ("m", "m_q")}
+
+
+def check_train_run(cfg, run, tag, learns: bool = True) -> None:
+    """A ``train_steps`` record: K5's forward / dX / dW launches 6 / 3 / 3 an
+    MoE layer a step (with remat), every loss finite, the experts' first
+    moments nonzero after step 1; where the model ``learns``, every grad
+    norm finite and the last loss below the first."""
+    moe = sum(cfg.uses_moe(i) for i in range(cfg.n_layers))
+    want = {"grouped_matmul": 3 * moe * (2 if cfg.remat else 1),
+            "grouped_matmul_dx": 3 * moe, "grouped_matmul_dw": 3 * moe}
+    per = run["per"]
+    if {k: int(v) for k, v in per.items()} != want or any(
+            v % 1 for v in per.values()):
+        raise SystemExit(f"[{tag}] K5 launches a step {per}, expected {want}")
+    if not all(math.isfinite(v) for v in run["losses"]
+               + (run["norms"] if learns else [])):
+        raise SystemExit(f"[{tag}] a loss or grad norm is not finite")
+    if moe and not (run["nonzero"] and all(v > 0 for v in
+                                           run["nonzero"].values())):
+        raise SystemExit(f"[{tag}] an expert weight got no gradient: "
+                         f"{run['nonzero']}")
+    if learns and not run["losses"][-1] < run["losses"][0]:
+        raise SystemExit(f"[{tag}] the loss did not fall: {run['losses']}")
 
 
 def run_train_phase(smi, dw_fault=None) -> tuple:
@@ -3157,38 +3415,13 @@ def run_train_phase(smi, dw_fault=None) -> tuple:
     n_params = sum(t.numel() for t in iter_leaves(params))
     data = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0))
     batches = [batch_on(data.next_batch(), dev) for _ in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_all_launches()
-    metrics, events = [], []
-    for i, batch in enumerate(batches):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        params, state, m = step(params, state, batch)
-        end.record()
-        metrics.append(m)
-        events.append((start, end))
-        if i == 0:
-            mu = state["mu"]["layers"]["moe"]
-            nonzero = {k: int((mu[k]["m"] != 0).sum()) for k in ("wg", "wu",
-                                                              "wd")}
-    torch.cuda.synchronize()
-    launches = all_launches()
-    peak = torch.cuda.max_memory_allocated()
-    ms = [s.elapsed_time(e) for s, e in events]
-    losses = [float(m["loss"]) for m in metrics]
-    norms = [float(m["grad_norm"]) for m in metrics]
-    for i, (l, g, t) in enumerate(zip(losses, norms, ms)):
-        print(f"[{tag}] step {i + 1}: loss {l:.6f}, grad norm {g:.6f}, "
-              f"{t:.3f} ms", flush=True)
-    later = sorted(ms[1:])
-    med = later[len(later) // 2]
+    params, state, run = train_steps(step, params, state, batches, tag)
+    launches, peak, med, per, nonzero = (
+        run[k] for k in ("launches", "peak", "median", "per", "nonzero"))
+    later = run["later"]
     tokens = TRAIN_B * TRAIN_S
-    per = {k: launches[k] / TRAIN_STEPS for k in
-           ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw")}
     flops = train_flops(cfg, TRAIN_B, TRAIN_S, int(rows.sum()))
-    opt_bytes = 22 * n_params  # AdamW: p, g, m, v read; p, m, v written
+    opt_bytes = update_bytes(opt.name, n_params)
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = opt_bytes / bench_common.PEAK_BYTES * 1e3
     print(f"[{tag}] {MOE_ARCH} at full width, {cfg.n_layers} of "
@@ -3203,27 +3436,10 @@ def run_train_phase(smi, dw_fault=None) -> tuple:
           f"at the bf16 peak {t_ops:.3f} ms; AdamW's {opt_bytes / 1e9:.3f} GB "
           f"at 3.35 TB/s {t_bytes:.3f} ms); experts' first moments nonzero "
           f"after step 1: {nonzero} ({smi})", flush=True)
-    want = {"grouped_matmul": 3 * cfg.n_layers * (2 if cfg.remat else 1),
-            "grouped_matmul_dx": 3 * cfg.n_layers,
-            "grouped_matmul_dw": 3 * cfg.n_layers}
-    if {k: int(v) for k, v in per.items()} != want or any(
-            v % 1 for v in per.values()):
-        raise SystemExit(f"[{tag}] K5 launches a step {per}, expected {want}")
-    if not all(math.isfinite(v) for v in losses + norms):
-        raise SystemExit(f"[{tag}] a loss or grad norm is not finite")
-    if not all(v > 0 for v in nonzero.values()):
-        raise SystemExit(f"[{tag}] an expert weight got no gradient")
-    if not losses[-1] < losses[0]:
-        raise SystemExit(f"[{tag}] the loss did not fall: {losses}")
+    check_train_run(cfg, run, tag)
     profile_train(step, params, state, batches[-1], tag)
-    # AdamW's update alone (zero gradients), beside its bytes
-    zeros = tree_map(torch.zeros_like, params)
-    upd_ms = cuda_ms(lambda: opt.update(zeros, state, params), 3)
-    print(f"[{tag}] the AdamW update alone: {upd_ms:.3f} ms a step, "
-          f"{opt_bytes / upd_ms / 1e9:.3f} TB/s of its {opt_bytes / 1e9:.3f} "
-          f"GB (floor {t_bytes:.3f} ms); the loss and its gradients the "
-          f"other {med - upd_ms:.3f} ms of the median step", flush=True)
-    del params, state, batches, metrics, zeros
+    time_update(opt, params, state, med, tag)
+    del params, state, batches
     torch.cuda.empty_cache()
 
     # (b) the float32 cut against the CPU
@@ -3386,8 +3602,9 @@ def resume_check(cfg, smi, launches) -> dict:
 
 
 def smoke_cpu_check(arch, launches) -> None:
-    """Phase 13 (b): the f32 smoke config's ``Trainer`` on the card from
-    the CPU trainer's initial weights, loss for loss against the CPU."""
+    """Phase 13 (b): the smoke config's ``Trainer`` on the card from the
+    CPU trainer's initial weights, loss for loss against the CPU; with
+    8-bit AdamW also ``smoke_resume_check``."""
     tag = "trainer"
     cfg = smoke_config(arch)
     tcfg = TrainerConfig(steps=TRAINER_SMOKE_STEPS, seed=0)
@@ -3396,6 +3613,7 @@ def smoke_cpu_check(arch, launches) -> None:
     card = Trainer(cfg, tcfg, device=DEVICE, **quiet)
     card.params = tree_map(lambda p: p.to(DEVICE, copy=True), cpu.params)
     card.opt_state = card.opt.init(card.params)
+    init = tree_map(lambda p: p.to(DEVICE, copy=True), cpu.params)
     t0 = time.perf_counter()
     want = [h["loss"] for h in cpu.run()]
     t_cpu = time.perf_counter() - t0
@@ -3405,18 +3623,69 @@ def smoke_cpu_check(arch, launches) -> None:
     t_card = time.perf_counter() - t0
     for k, v in all_launches().items():
         launches[k] = launches.get(k, 0) + v
+    tol = (TRAINER_SMOKE_TOL_8BIT if cfg.optimizer == "adamw8bit"
+           else TRAINER_SMOKE_TOL)
     worst = max(abs(x - y) / abs(y) for x, y in zip(got, want))
     print(f"[{tag}] {arch} smoke config (f32, {cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}{', %d experts' % cfg.n_experts if cfg.n_experts else ''}): "
-          f"{TRAINER_SMOKE_STEPS} steps of {tcfg.global_batch} x "
-          f"{tcfg.seq_len} on the card ({t_card:.2f} s) against the cpu "
-          f"({t_cpu:.2f} s): loss {want[0]:.6f} -> {want[-1]:.6f}, largest "
-          f"|diff| / |loss| {worst:.3e} (tolerance {TRAINER_SMOKE_TOL})",
-          flush=True)
-    if not (worst <= TRAINER_SMOKE_TOL
-            and all(math.isfinite(v) for v in got)):
+          f"d_model {cfg.d_model}{', %d experts' % cfg.n_experts if cfg.n_experts else ''}, "
+          f"{cfg.optimizer}): {TRAINER_SMOKE_STEPS} steps of "
+          f"{tcfg.global_batch} x {tcfg.seq_len} on the card ({t_card:.2f} s) "
+          f"against the cpu ({t_cpu:.2f} s): loss {want[0]:.6f} -> "
+          f"{want[-1]:.6f}, largest |diff| / |loss| {worst:.3e} (tolerance "
+          f"{tol})", flush=True)
+    if not (worst <= tol and all(math.isfinite(v) for v in got)):
         raise SystemExit(f"[{tag}] {arch}: the card's losses differ from "
                          f"the cpu's")
+    if cfg.optimizer == "adamw8bit":
+        smoke_resume_check(cfg, init, got, launches)
+
+
+def smoke_resume_check(cfg, init, want, launches) -> None:
+    """Phase 13 (b), 8-bit AdamW: a smoke ``Trainer`` on the card from
+    ``init`` to ``TRAINER_SMOKE_SAVE_AT`` with a checkpoint, then one
+    resumed from it to ``TRAINER_SMOKE_STEPS``.  Every restored leaf
+    (the int8 ``m_q``/``v_q`` codes and f32 scales too) must equal the
+    first trainer's, and both trainers' losses must lie within
+    ``TRAINER_LOSS_TOL`` of the uninterrupted card run's ``want``."""
+    tag = "trainer"
+    shutil.rmtree(TRAINER_SMOKE_DIR, ignore_errors=True)
+    tcfg = TrainerConfig(steps=TRAINER_SMOKE_SAVE_AT, seed=0,
+                         checkpoint_every=TRAINER_SMOKE_SAVE_AT,
+                         checkpoint_dir=str(TRAINER_SMOKE_DIR))
+    quiet = dict(log_fn=lambda s: None)
+    reset_all_launches()
+    a = Trainer(cfg, tcfg, device=DEVICE, **quiet)
+    a.params = init
+    a.opt_state = a.opt.init(a.params)
+    got = [h["loss"] for h in a.run()]
+    b = Trainer(cfg, dataclasses.replace(tcfg, steps=TRAINER_SMOKE_STEPS),
+                device=DEVICE, **quiet)
+    if b.start_step != TRAINER_SMOKE_SAVE_AT:
+        raise SystemExit(f"[{tag}] the resumed smoke trainer started at step "
+                         f"{b.start_step}, expected {TRAINER_SMOKE_SAVE_AT}")
+    kinds: dict = {}
+    for mine, theirs in ((b.params, a.params), (b.opt_state, a.opt_state)):
+        for (name, x), y in zip(iter_named_leaves(theirs), iter_leaves(mine)):
+            if not (x.dtype == y.dtype and x.device == y.device
+                    and torch.equal(x, y)):
+                raise SystemExit(f"[{tag}] the restored {name} differs from "
+                                 f"the saved trainer's")
+            kinds[str(x.dtype)] = kinds.get(str(x.dtype), 0) + 1
+    if "torch.int8" not in kinds:
+        raise SystemExit(f"[{tag}] the 8-bit checkpoint holds no int8 leaf")
+    got += [h["loss"] for h in b.run()]
+    shutil.rmtree(TRAINER_SMOKE_DIR, ignore_errors=True)
+    for k, v in all_launches().items():
+        launches[k] = launches.get(k, 0) + v
+    worst = max(abs(x - y) / abs(y) for x, y in zip(got, want))
+    print(f"[{tag}] {cfg.name} smoke config: saved at step "
+          f"{TRAINER_SMOKE_SAVE_AT}, resumed by a second trainer: every "
+          f"leaf restored equal ({kinds}); the two trainers' losses against "
+          f"the uninterrupted card run: largest |diff| / |loss| {worst:.3e} "
+          f"(tolerance {TRAINER_LOSS_TOL})", flush=True)
+    if worst > TRAINER_LOSS_TOL or len(got) != len(want):
+        raise SystemExit(f"[{tag}] the resumed 8-bit smoke trainer's losses "
+                         f"differ from the uninterrupted run's")
 
 
 def captured(fn, *args) -> str:
@@ -3787,6 +4056,206 @@ def run_sharded_phase(smi) -> dict:
           flush=True)
     return launches
 
+
+
+# ---------------------------------------------------------------- phase 16
+def zootrain_backward(cfg, params, tokens, backward) -> None:
+    """Phase 16 (a'): K5's backward at jamba's training call, (j) gate/up
+    (d -> f) and (j') down, E experts of C rows with the routing of the
+    cut's first MoE layer on ``tokens``, bf16 (``measure_backward``); the
+    records join phase 12's (dX, dW) ``backward`` records' shapes."""
+    gid, rows = train_tiles(cfg, params, tokens)
+    E = cfg.n_experts
+    C = gid.numel() * GMM_BT // E
+    label = (f"T={E * C} (E={E} x C={C}), {TRAIN_B} x {TRAIN_S} tokens "
+             f"top-{cfg.top_k}, bf16 (jamba's training call)")
+    ff = cfg.moe_d_ff or cfg.d_ff
+    for key, (d, f) in (("j", (cfg.d_model, ff)), ("j'", (ff, cfg.d_model))):
+        dx, dw = measure_backward(key, gid, rows, E, d, f, torch.bfloat16,
+                                  f"d={d} f={f} " + label)
+        backward[0]["shapes"][key] = dx
+        backward[1]["shapes"][key] = dw
+
+
+def sampled_blocks(nb: int) -> torch.Tensor:
+    """Phase 16 (c)'s 256-blocks of a leaf of ``nb`` blocks: the first and
+    last ``ZOOTRAIN_EDGE`` blocks, as many on each side of every boundary
+    of the update's chunks, and every block a stride that takes about
+    ``ZOOTRAIN_SAMPLE`` more."""
+    per = opt_mod._CHUNK // opt_mod._QBLOCK
+    picked = set(range(0, nb, max(1, nb // ZOOTRAIN_SAMPLE)))
+    for edge in [0, nb] + list(range(per, nb, per)):
+        picked.update(range(max(0, edge - ZOOTRAIN_EDGE),
+                            min(nb, edge + ZOOTRAIN_EDGE)))
+    return torch.tensor(sorted(picked), dtype=torch.long)
+
+
+def eightbit_update_check(cut, params, grads, tag) -> None:
+    """Phase 16 (c): one ``adamw8bit`` update of the float32 cut on the
+    card (from a fresh state, with the card's gradients of (b)) against
+    the same update on the CPU, at ``sampled_blocks`` of every leaf (a full
+    update of the cut's 3.7 G elements takes the CPU minutes): each leaf's
+    blocks and their gradients, scaled by the card's clip factor, make a
+    CPU leaf of whole blocks that the CPU's ``adamw8bit`` (clip off)
+    updates; every code and scale of those blocks is computed from the
+    same 256 values as the card's.  Parameters within ``OPT8_TOL``
+    (relative and absolute); m and v codes equal except at most 1 in
+    1,000 off by one; scales within ``OPT8_TOL`` relative
+    (``tests/test_torch_train.py::_compare_state``'s rule)."""
+    t0 = time.perf_counter()
+    leaves = tree_leaves(params)
+    qb = opt_mod._QBLOCK
+    picks = [sampled_blocks(-(-p.numel() // qb)) for p in leaves]
+
+    def blocks(t, pick):  # the picked 256-blocks of a leaf, flat, on the CPU
+        flat = t.detach().reshape(-1)
+        flat = torch.nn.functional.pad(flat, (0, (-flat.numel()) % qb))
+        return flat.view(-1, qb)[pick.to(flat.device)].cpu().reshape(-1)
+
+    before = [blocks(p, k) for p, k in zip(leaves, picks)]
+    gsub = [blocks(g, k) for g, k in zip(grads, picks)]
+    opt = make_optimizer("adamw8bit")
+    state = opt.init(params)
+    it = iter(grads)
+    _, state, metrics = opt.update(tree_map(lambda _: next(it), params),
+                                   state, params)
+    scale = float(torch.clamp_max(1.0 / torch.clamp_min(
+        metrics["grad_norm"], 1e-9), 1.0))
+    names = [n for n, _ in iter_named_leaves(params)]
+    sub = {n: b.clone() for n, b in zip(names, before)}
+    cpu = make_optimizer("adamw8bit", clip_norm=math.inf)
+    cstate = cpu.init(sub)
+    cpu.update({n: g * scale for n, g in zip(names, gsub)}, cstate, sub)
+    card_mu = dict(iter_named_leaves(state["mu"]))
+    n_el = sum(int((torch.clamp(p.numel() - k * qb, 0, qb)).sum())
+               for p, k in zip(leaves, picks))
+    worst, bad, codes_off, codes = 0.0, [], 0, 0
+    for name, p, pick in zip(names, leaves, picks):
+        got = blocks(p, pick)
+        want = sub[name]
+        worst = max(worst, float((got - want).abs().max()))
+        if not torch.allclose(got, want, rtol=OPT8_TOL, atol=OPT8_TOL):
+            bad.append(name)
+        for key in ("m", "v"):
+            q = card_mu[f"{name}.{key}_q"][pick.to(p.device)].cpu()
+            off = (q.int() - cstate["mu"][name][f"{key}_q"].int()).abs()
+            if int(off.max()) > 1:
+                raise SystemExit(f"[{tag}] {name} {key}_q more than one code "
+                                 f"from the cpu's")
+            codes_off += int((off > 0).sum())
+            codes += off.numel()
+            sc = card_mu[f"{name}.{key}_s"][pick.to(p.device)].cpu()
+            ws = cstate["mu"][name][f"{key}_s"]
+            if not torch.allclose(sc, ws, rtol=OPT8_TOL, atol=0):
+                raise SystemExit(f"[{tag}] {name} {key}_s differs from the "
+                                 f"cpu's")
+    print(f"[{tag}] (c) one adamw8bit update of the f32 cut on the card "
+          f"against the cpu at {n_el:,} of "
+          f"{sum(p.numel() for p in leaves):,} elements ({len(leaves)} "
+          f"leaves; every chunk boundary, first and last blocks, a stride): "
+          f"parameters max |diff| {worst:.3e} (tolerance {OPT8_TOL} relative "
+          f"and absolute); {codes_off} of {codes:,} m/v codes one off (at "
+          f"most 1 in 1,000); scales within {OPT8_TOL}; "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    if bad or codes_off > codes / 1000:
+        raise SystemExit(f"[{tag}] the card's 8-bit update differs from the "
+                         f"cpu's")
+
+
+def cut_learns(cfg, tag) -> None:
+    """Phase 16 (a) for ``ZOOTRAIN_STALLS``: ``zoo_cut(cfg)`` (2 layers at
+    full width, bf16, its optimizer) from seed-0 weights on the card,
+    ``ZOOTRAIN_STEPS`` steps on the phase's batches; every loss and grad
+    norm finite, and the first batch's loss after the steps below its
+    loss before them."""
+    cut = zoo_cut(cfg)
+    dev = torch.device(DEVICE)
+    params = models.init_params(cut, torch.Generator(device=DEVICE)
+                                .manual_seed(0))
+    data = TokenPipeline(DataConfig(cut.vocab_size, TRAIN_S, TRAIN_B, seed=0))
+    batches = [to_device(family_batch(cut, data.next_batch(), seed=160 + i),
+                         dev) for i in range(ZOOTRAIN_STEPS)]
+    opt = make_optimizer(cut.optimizer)
+    loss = models.loss_fn(cut)
+    with torch.no_grad():
+        before = float(loss(params, batches[0]))
+    params, state, run = train_steps(make_train_step(cut, opt), params,
+                                     opt.init(params), batches,
+                                     f"{tag} 2-layer cut")
+    with torch.no_grad():
+        after = float(loss(params, batches[0]))
+    print(f"[{tag}] its 2-layer cut (bf16, {opt.name}): the first batch's "
+          f"loss {before:.6f} before the steps, {after:.6f} after", flush=True)
+    if not (all(math.isfinite(v) for v in run["losses"] + run["norms"])
+            and after < before):
+        raise SystemExit(f"[{tag}] the 2-layer cut did not learn")
+    del params, state, batches
+    torch.cuda.empty_cache()
+
+
+def zootrain_model(arch, smi, backward) -> dict:
+    """Phase 16 for one arch: ``ZOOTRAIN_STEPS`` steps of
+    ``make_train_step`` at the arch's cut (``ZOOTRAIN``), bf16, its own
+    optimizer and remat, on ``TokenPipeline(seed=0)`` batches of
+    ``TRAIN_B`` x ``TRAIN_S`` (``family_batch``); with experts K5's
+    backward at the training call first.  Then (b) the float32 cut's loss
+    and gradients against the CPU and, for 8-bit AdamW, (c).  Returns
+    the train run's kernel launches."""
+    cfg = dataclasses.replace(get_config(arch), **ZOOTRAIN[arch])
+    tag = f"zootrain {arch}"
+    dev = torch.device(DEVICE)
+    params = seeded_on_card(cfg, arch, tag)
+    data = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0))
+    batches = [to_device(family_batch(cfg, data.next_batch(), seed=160 + i),
+                         dev) for i in range(ZOOTRAIN_STEPS)]
+    if cfg.n_experts:
+        zootrain_backward(cfg, params, batches[0]["tokens"], backward)
+    opt = make_optimizer(cfg.optimizer)
+    step = make_train_step(cfg, opt)
+    state = opt.init(params)
+    n_params = sum(t.numel() for t in iter_leaves(params))
+    params, state, run = train_steps(step, params, state, batches, tag)
+    per, later = run["per"], run["later"]
+    total = torch.cuda.get_device_properties(dev).total_memory
+    print(f"[{tag}] {cfg.n_layers} of {get_config(arch).n_layers} layers "
+          f"at full width, {n_params / 1e9:.3f} G parameters, bf16, "
+          f"{opt.name}, remat={cfg.remat}, {TRAIN_B} x {TRAIN_S} tokens a "
+          f"step: step {run['median']:.3f} ms median of steps "
+          f"2-{ZOOTRAIN_STEPS} ({later[0]:.3f}-{later[-1]:.3f}), "
+          f"{TRAIN_B * TRAIN_S / run['median'] * 1e3:.1f} tokens/s; peak "
+          f"memory {run['peak'] / 2**30:.3f} GiB of the card's "
+          f"{total / 2**30:.3f}; K5 launches a step: forward "
+          f"{per['grouped_matmul']:.1f}, dX {per['grouped_matmul_dx']:.1f}, "
+          f"dW {per['grouped_matmul_dw']:.1f}; experts' first moments "
+          f"nonzero after step 1: {run['nonzero']} ({smi})", flush=True)
+    stalls = arch in ZOOTRAIN_STALLS
+    check_train_run(cfg, run, tag, learns=not stalls)
+    profile_train(step, params, state, batches[-1], tag)
+    time_update(opt, params, state, run["median"], tag)
+    del params, state, batches
+    torch.cuda.empty_cache()
+    if stalls:
+        cut_learns(cfg, tag)
+    cut, cut_params, grads = train_cpu_check(cfg, tag)
+    if cfg.optimizer == "adamw8bit":
+        eightbit_update_check(cut, cut_params, grads, tag)
+    del cut_params, grads
+    torch.cuda.empty_cache()
+    return run["launches"]
+
+
+def run_zootrain_phase(smi, backward) -> dict:
+    """Phase 16: the SSM, the hybrid with its 8-bit AdamW, the VLM and the
+    encoder-decoder trained on the card; K5's backward at jamba's call
+    joins ``backward``.  Returns the train runs' launches."""
+    total: dict = {}
+    for arch in ZOOTRAIN:
+        t0 = time.perf_counter()
+        for k, v in zootrain_model(arch, smi, backward).items():
+            total[k] = total.get(k, 0) + v
+        print(f"[zootrain] {arch} in {time.perf_counter() - t0:.1f}s ({smi})",
+              flush=True)
+    return total
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-decode-rank"]:

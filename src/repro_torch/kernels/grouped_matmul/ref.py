@@ -13,8 +13,10 @@ adapter bucket).
   as in the Pallas kernel.  Each run of tiles with one group id is one
   float32 product, cast to x's dtype, as the kernel accumulates in f32 and
   casts once.  With ``tile_rows`` the rows of each tile past its count are
-  taken as zero: they come out +0, by a mask on the device, with no host
-  sync for the counts.
+  taken as zero: they come out +0, by a mask on the device, and the
+  product covers a run's rows only up to its last real row (a run with
+  none takes no product), so a decode's few real rows cost what they
+  need.
 * ``grouped_matmul_dw_ref`` is the plain version of K5's weight gradient:
   dw[g] = the sum of x[r]^T dy[r] over the real rows r of g's tiles, in
   float32, cast to x's dtype.  The reference has no such kernel (XLA
@@ -76,6 +78,17 @@ def _runs(gids: list):
         i = j
 
 
+def _run_rows(counts, i: int, j: int, bt: int) -> slice:
+    """The rows of tiles [i, j) a product must cover: all of them without
+    ``counts``; else up to the last real row of the last tile with one
+    (empty if none has), since the rows past the counts are masked."""
+    if counts is None:
+        return slice(i * bt, j * bt)
+    real = [k for k in range(i, j) if counts[k] > 0]
+    end = real[-1] * bt + min(counts[real[-1]], bt) if real else i * bt
+    return slice(i * bt, end)
+
+
 def _past_rows(T: int, bt: int, tile_rows, device) -> torch.Tensor:
     """(T, 1) bool: the rows past their tile's real count."""
     past = torch.arange(bt, device=device) >= tile_rows[:, None]
@@ -96,9 +109,10 @@ def grouped_matmul_tiles_ref(x: torch.Tensor, tile_gid: torch.Tensor,
     gids = tile_gid.tolist()
     if gids and (min(gids) < 0 or max(gids) >= w.shape[0]):
         raise ValueError(f"tile_gid outside [0, {w.shape[0]})")
+    counts = None if tile_rows is None else tile_rows.tolist()
     out = torch.empty((T, w.shape[-1]), dtype=x.dtype, device=x.device)
     for i, j, g in _runs(gids):
-        rows = slice(i * bt, j * bt)
+        rows = _run_rows(counts, i, j, bt)
         out[rows] = (x[rows].float() @ w[g].float()).to(x.dtype)
     if tile_rows is not None:
         out.masked_fill_(_past_rows(T, bt, tile_rows, x.device), 0)
@@ -124,8 +138,9 @@ def grouped_matmul_dw_ref(x: torch.Tensor, dy: torch.Tensor,
         xs, dys = xs.masked_fill(past, 0), dys.masked_fill(past, 0)
     out = torch.zeros((n_groups, d, dy.shape[1]), dtype=torch.float32,
                       device=x.device)
+    counts = None if tile_rows is None else tile_rows.tolist()
     for i, j, g in _runs(tile_gid.tolist()):
         if 0 <= g < n_groups:
-            rows = slice(i * bt, j * bt)
+            rows = _run_rows(counts, i, j, bt)
             out[g] += xs[rows].T @ dys[rows]
     return out.to(x.dtype)

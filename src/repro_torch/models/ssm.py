@@ -3,11 +3,13 @@
 The port of ``repro.models.ssm``.  The full-sequence path runs the
 selective scan as a Python loop over time in f32, in the reference's
 order: ``h = h * dA_t + dBx_t``, then ``y_t = einsum("bin,bn->bi", h,
-C_t)``; ``delta``, ``B``, ``C``, ``dA`` and ``dBx`` are f32, and ``y`` is
-cast to the activation dtype only before the gate.  Decode keeps O(1)
-state per layer, a (conv-1)-sample convolution tail and the (d_inner, N)
-f32 SSM state, and writes both IN PLACE: where the reference returns new
-state arrays, the port writes into the ones it was given and returns them.
+C_t)``, here one product over the stacked states of all steps, so a step
+of the loop is two launches; ``delta``, ``B``, ``C``, ``dA`` and ``dBx``
+are f32, and ``y`` is cast to the activation dtype only before the gate.
+Decode keeps O(1) state per layer, a (conv-1)-sample convolution tail
+and the (d_inner, N) f32 SSM state, and writes both IN PLACE: where the
+reference returns new state arrays, the port writes into the ones it was
+given and returns them.
 The reference's scan is plain ``jnp`` (no Pallas kernel), and so is this.
 
 Within ``scan_steps(n)`` (the multi-pod dry-run) the selective scan runs
@@ -144,6 +146,18 @@ def _ssm_params(cfg, p, xc):
     return delta, B_.float(), C_.float(), A
 
 
+def _time_steps(x: torch.Tensor, n: int):
+    """The first ``n`` time steps of x (B, S, ...), views of (B, ...).  A
+    plain tensor is unbound: the backward of ``unbind`` stacks the steps'
+    gradients once, where indexing's would write each step's into a zeroed
+    tensor of x's whole size (at falcon-mamba's width, 2 GB a step).
+    DTensors are indexed, as the multi-pod dry-run has always traced them,
+    so its recorded costs stay comparable."""
+    if is_dtensor(x):
+        return [x[:, t] for t in range(n)]
+    return x.unbind(1)[:n]
+
+
 def mamba_full(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d)."""
     B, S, d = x.shape
@@ -157,13 +171,15 @@ def mamba_full(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     dBx = delta[..., None] * B_[:, :, None, :] * xc.float()[..., None]
 
     h = torch.zeros_like(dBx[:, 0])  # (B, di, ns) f32
-    ys = []
+    hs = []
     steps = getattr(_SCAN, "steps", None)
     steps = S if steps is None else min(S, steps)
+    dAs, dBxs = (_time_steps(v, steps) for v in (dA, dBx))
     for t in range(steps):
-        h = h * dA[:, t] + dBx[:, t]  # (B, di, ns)
-        ys.append(einsum("bin,bn->bi", h, C_[:, t]))
-    y = torch.stack(ys, dim=1)  # (B, S, di)
+        h = h * dAs[t] + dBxs[t]  # (B, di, ns)
+        hs.append(h)
+    # every step's readout y_t = h_t C_t in one product
+    y = einsum("bsin,bsn->bsi", torch.stack(hs, dim=1), C_[:, :steps])
     if steps < S:
         y = torch.cat([y, y[:, -1:].expand(B, S - steps, y.shape[2])], dim=1)
     y = y + xc.float() * p["D"]
