@@ -4,12 +4,13 @@ cross-match (K1-K3), the LifeRaft serving decode of CodeQwen1.5-7B (K4) and
 of the MoE moonshot-v1-16b-a3b (K4 and the grouped matmul K5), the
 durable service daemon over both (a kill -9 drill on the cross-match),
 the paper's drivers and gates, the rest of the model zoo (the SSM,
-the Jamba hybrid, the encoder-decoder and the VLM), served and
-prefilled, the MoE train step with K5's backward, the trainer with
-its checkpoint and resume, the mesh tools, and CodeQwen's
-sequence-parallel decode over two ranks of the card, and the training of
-the SSM, the hybrid with its 8-bit AdamW, the VLM and the
-encoder-decoder.
+the Jamba hybrid, the encoder-decoder and the VLM, and the four largest
+configs: mixtral-8x22b, qwen1.5-110b, mistral-large-123b and
+nemotron-4-340b, cut in depth), served and prefilled, the MoE train
+step with K5's backward, the trainer with its checkpoint and resume,
+the mesh tools, and CodeQwen's sequence-parallel decode over two ranks
+of the card, and the training of the SSM, the hybrid and mixtral with
+their 8-bit AdamW, the VLM and the encoder-decoder.
 
     python3 chip_smoke.py
 
@@ -85,7 +86,14 @@ Phases; any failure exits non-zero before the last line is printed:
               H=KV=32, page 64 x 64 pages), and phase 11's decode shapes:
               (f) paligemma's (B=8, H=8 on KV=1, D=256, as (a)'s pages),
               (g) seamless's self-attention (H=KV=16, D=64) and (h) its
-              cross-attention (16 slots, one page, every sequence full).
+              cross-attention (16 slots, one page, every sequence full);
+              the four largest configs' decode shapes, 8 KV heads, as
+              (a)'s pages: (i) mixtral-8x22b (H=48, G=6), (j)
+              qwen1.5-110b (H=64, G=8), (k) mistral-large-123b (H=96,
+              G=12), (l) nemotron-4-340b (H=96, G=12, D=192: it must take
+              the scalar instance, every other shape the async one); (m)
+              mixtral's heads over its 4,096-slot window's ring, B=8,
+              every sequence full.
               (p) K4 with its partials (the max score m and softmax sum l
               of each row, for a sequence-sharded cache) at a decode_32k
               shard: B=8, H=KV=32, D=128, 16,384 slots (32 splits), timed
@@ -135,7 +143,10 @@ Phases; any failure exits non-zero before the last line is printed:
               tokens over the 64 experts, computed by the MoE layer's own
               ``expert_tiles``, and x zero past them; (j) and (j') the same
               at jamba's decode call: 8 tokens top-2 over 16 experts of C
-              = 256 rows, d = 4096 -> f = 14336 and back; (e f32) (e) in
+              = 256 rows, d = 4096 -> f = 14336 and back; (x) and (x')
+              at mixtral-8x22b's decode call: 8 tokens top-2 over its 8
+              experts of C = 256 rows, d = 6144 -> f = 16384 (a weight
+              stack of 1.61 GB) and back; (e f32) (e) in
               float32, the decode call of a full-width f32 cut; (b bf16
               elem) (b) with f = 1020, which TMA cannot describe: the bf16
               element-load kernels, forward and dW.  At (b f32) and (e
@@ -208,7 +219,12 @@ Phases; any failure exits non-zero before the last line is printed:
               seamless-m4t-large-v2 (24 + 24 layers) whole, and
               jamba-v0.1-52b cut in depth to 16 of its 32 layers (two
               periods: 2 attention, 14 Mamba, 8 MoE layers; 26.05 G
-              parameters).  Each: the launcher's engine and trace with
+              parameters), and the four largest configs at their
+              published widths cut in depth to fit the card with their
+              cache (``ZOO_LAYERS``): mixtral-8x22b 8 of 56 layers,
+              qwen1.5-110b 16 of 80, mistral-large-123b 16 of 88,
+              nemotron-4-340b 4 of 96.  Each: the launcher's engine and
+              trace with
               ``ZOO_REQUESTS`` (10) of its 40 requests; K4's launches must
               equal (attention + cross-attention layers) x steps and K5's 3
               x MoE layers x steps, from ``cfg.uses_attention`` /
@@ -220,14 +236,22 @@ Phases; any failure exits non-zero before the last line is printed:
               64 decoder tokens): logits finite, the CUDA-event median of
               5, prompt positions a second.  Then a 2-layer cut of the same
               widths in float32 (jamba's: one period of an attention layer
-              with its MLP and a Mamba layer with its MoE), weights drawn on
+              with its MLP and a Mamba layer with its MoE; nemotron's one
+              layer, ``ZOO_CUT_LAYERS``; the host's free memory printed
+              first), weights drawn on
               the card and copied, held to ``ZOO_F32_TOL`` under phase 6's
               rules: the prefill's logits at 2 prompts of 16 tokens (16
               patches / frames) and its greedy tokens; 16 decode steps (4
-              with experts), seamless's after ``prefill_cross_kv`` filled
+              with experts and for the three dense largest configs,
+              ``ZOO_CPU_STEPS``), seamless's after ``prefill_cross_kv`` filled
               the cross K/V; for the token-only families the card's decode
-              over the prompt against its forward's last position.  Each
-              model is freed before the next.
+              over the prompt against its forward's last position;
+              mixtral's cut also decodes across its window's wrap: a
+              cache of 8,192 slots is a ring of 4,096, seeded K/V, 8
+              steps from position 4,092 on the CPU and the card, every
+              step's logits within ``ZOO_F32_TOL``, tokens under phase
+              6's rule, the slots written equal.  Each model is freed
+              before the next.
 12. train  -- training on ``cuda``: moonshot-v1-16b-a3b at its published
               widths cut in depth to ``TRAIN_LAYERS`` (4) of its 48 layers
               (2.95 G parameters; the cut is forced by memory), bf16, its
@@ -336,7 +360,8 @@ Phases; any failure exits non-zero before the last line is printed:
               x 512 tokens (paligemma adds 256 seeded normal patches a row,
               seamless takes 512 seeded normal frames; ``family_batch``):
               jamba-v0.1-52b cut to two periods of 2 layers (attention +
-              MLP, then Mamba + MoE; 8-bit AdamW), falcon-mamba-7b cut to 16
+              MLP, then Mamba + MoE; 8-bit AdamW), mixtral-8x22b cut to 2
+              of 56 layers (8-bit AdamW), falcon-mamba-7b cut to 16
               of 64 layers, paligemma-3b and seamless-m4t-large-v2 whole
               (``ZOOTRAIN`` says why).  (a) Each loss finite and the last
               below the first (paligemma and seamless, whose gradients at
@@ -347,17 +372,21 @@ Phases; any failure exits non-zero before the last line is printed:
               step 1, tokens a second, peak memory against the card's, a
               2-step profile (device busy, launches a step; read from the
               trace's raw events) and the optimizer update alone.  For
-              jamba, first K5's backward at its training call, (j) gate/up
-              (d = 4096 -> f = 14336) and (j') down, 16 experts of C = 768
-              rows with the cut's first MoE layer's routing on the first
-              batch, under phase 12 (a)'s rules (dX bit-equal to K5 on a
-              contiguous w^T, dW within ``TRAIN_DW_TOL``; its records join
-              phase 12's); then K5's forward / dX / dW launches 6 / 3 / 3 an
-              MoE layer a step and the experts' 8-bit m codes nonzero after
-              step 1.  (b) The 2-layer float32 cut (``zoo_cut``) against the
+              jamba and mixtral, first K5 at its training call, gate/up
+              and down with the cut's first MoE layer's routing on the
+              first batch: jamba's (jt) d = 4096 -> f = 14336 and (jt'),
+              16 experts of C = 768 rows, mixtral's (xt) d = 6144 -> f =
+              16384 and (xt'), 8 experts of C = 1,536 rows; its forward
+              under phase 7's rules (the records join phase 7's), its
+              backward under phase 12 (a)'s (dX bit-equal to K5 on a
+              contiguous w^T, dW within ``TRAIN_DW_TOL``; the records join
+              phase 12's); then K5's forward / dX / dW launches 6 / 3
+              / 3 an MoE layer a step and the experts' 8-bit m codes
+              nonzero after step 1.  (b) The 2-layer float32 cut (``zoo_cut``) against the
               CPU under phase 12 (b)'s rules (loss within ``TRAIN_LOSS_TOL``,
               each gradient leaf within ``TRAIN_GRAD_TOL``; the
-              encoder-decoder's within ``ZOO_GRAD_TOL``).  (c) jamba: one
+              encoder-decoder's within ``ZOO_GRAD_TOL``).  (c) jamba and
+              mixtral: one
               ``adamw8bit`` update of that cut on the card against the same
               update on the CPU at sampled 256-blocks of every leaf (each
               chunk boundary, both ends, a stride): parameters within
@@ -482,6 +511,10 @@ K1_BAND = 2  # phase 2's band (tiles of 128 x 512)
 PAGED_SOURCE = "src/repro_torch/csrc/paged_attention.cu"
 PAGED_REPLACES = "src/repro/kernels/paged_attention/kernel.py:102"
 PAGED_TOL = 5e-2  # bf16, the reference's (tests/test_kernels.py:235)
+# The launcher's decode cache, MAX_SEQ slots, as K4 pages it: (page, pages).
+SERVE_PAGES = (math.gcd(serve_launcher.MAX_SEQ, attn_mod.DECODE_PAGE),
+               serve_launcher.MAX_SEQ
+               // math.gcd(serve_launcher.MAX_SEQ, attn_mod.DECODE_PAGE))
 # Phase 5's shapes: (B, H, KV, D, page, pages, longest length).
 PAGED_SHAPES = {
     "a": (8, 32, 32, 128, math.gcd(64, attn_mod.DECODE_PAGE),
@@ -502,8 +535,21 @@ PAGED_SHAPES = {
           serve_launcher.ENC_LEN
           // math.gcd(serve_launcher.ENC_LEN, attn_mod.DECODE_PAGE),
           serve_launcher.ENC_LEN),
+    # the four largest configs' decode shapes, 8 KV heads each: (i)
+    # mixtral-8x22b (G = 6), (j) qwen1.5-110b (G = 8), (k)
+    # mistral-large-123b (G = 12), (l) nemotron-4-340b (G = 12, D = 192:
+    # the scalar instance, PAGED_SCALAR); (m) mixtral's heads over its
+    # 4,096-slot sliding-window ring, every sequence full (the steady
+    # state of a decode past the window)
+    "i": (8, 48, 8, 128, *SERVE_PAGES, 16),
+    "j": (8, 64, 8, 128, *SERVE_PAGES, 16),
+    "k": (8, 96, 8, 128, *SERVE_PAGES, 16),
+    "l": (8, 96, 8, 192, *SERVE_PAGES, 16),
+    "m": (8, 48, 8, 128, math.gcd(4096, attn_mod.DECODE_PAGE),
+          4096 // math.gcd(4096, attn_mod.DECODE_PAGE), 4096),
 }
-PAGED_FULL = {"h"}  # shapes whose every sequence is max_len long
+PAGED_FULL = {"h", "m"}  # shapes whose every sequence is max_len long
+PAGED_SCALAR = {"l"}  # shapes whose row takes the scalar instance
 # Phase 5 (p): K4 with its partials (max and sum) at a decode_32k shard:
 # the 32,768-slot cache of CodeQwen's heads cut in two by a (1, 2) mesh's
 # "model" axis, 8 sequences (decode_32k's 128 over a data axis of 16).
@@ -525,17 +571,22 @@ GMM_SOURCE = "src/repro_torch/csrc/grouped_matmul.cu"
 GMM_REPLACES = "src/repro/kernels/grouped_matmul/kernel.py:48"
 GMM_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-5}  # tests/test_kernels.py:173
 GMM_BT = 128
-# Phase 7 (e), (j): the decode call's routing, B tokens top-k over E
-# experts (moonshot's; jamba's), at the gate/up shape (e), (j) and the down
-# shape (e'), (j') as (routing, d, f).
+# Phase 7 (e), (j), (x): the decode call's routing, B tokens top-k over E
+# experts (moonshot's; jamba's; mixtral-8x22b's, whose C = 256 rows an
+# expert hold about 2 real ones and whose call streams 1.61 GB of expert
+# weights), at the gate/up shape (e), (j), (x) and the down shape (e'),
+# (j'), (x') as (routing, d, f).
 GMM_DECODE = dict(B=8, k=6, E=64, C=256)
 JAMBA_DECODE = dict(B=8, k=2, E=16, C=256)
+MIXTRAL_DECODE = dict(B=8, k=2, E=8, C=256)
 # (e f32): (e) in float32, the decode call of a full-width f32 cut (phase
 # 11's cuts, phase 12 (b)).
 GMM_DECODE_SHAPES = {"e": (GMM_DECODE, 2048, 1408, torch.bfloat16),
                      "e'": (GMM_DECODE, 1408, 2048, torch.bfloat16),
                      "j": (JAMBA_DECODE, 4096, 14336, torch.bfloat16),
                      "j'": (JAMBA_DECODE, 14336, 4096, torch.bfloat16),
+                     "x": (MIXTRAL_DECODE, 6144, 16384, torch.bfloat16),
+                     "x'": (MIXTRAL_DECODE, 16384, 6144, torch.bfloat16),
                      "e f32": (GMM_DECODE, 2048, 1408, torch.float32)}
 # Phase 7's shapes: (T, d, f, group sizes, dtype, weight scale).  The
 # weights of (a)/(a') are the model's init scale, 1/sqrt(d); (b) takes
@@ -568,9 +619,34 @@ PROFILE_STEPS = 4
 # phases 6 and 8 do (their step median and launches a step are the numbers
 # compared; 40 requests took 36 s and 93 s of engine wall on an H100
 # 80GB HBM3 at 700 W).
+# The four largest configs follow at their published widths, cut in depth
+# to fit one 80 GB card with their cache (``ModelConfig.param_count``, bf16):
+# mixtral-8x22b 8 of 56 layers (20.435 G parameters, 40.9 GB),
+# qwen1.5-110b 16 of 80 (24.235 G, 48.5 GB), mistral-large-123b 16 of 88
+# (22.952 G, 45.9 GB), nemotron-4-340b 4 of 96 (23.253 G, 46.5 GB; its
+# embedding and unembedding alone are 9.44 G).
 ZOO_ARCHS = ("falcon-mamba-7b", "paligemma-3b", "seamless-m4t-large-v2",
-             "jamba-v0.1-52b")
-ZOO_LAYERS = {"jamba-v0.1-52b": 16}
+             "jamba-v0.1-52b", "mixtral-8x22b", "qwen1.5-110b",
+             "mistral-large-123b", "nemotron-4-340b")
+ZOO_LAYERS = {"jamba-v0.1-52b": 16, "mixtral-8x22b": 8, "qwen1.5-110b": 16,
+              "mistral-large-123b": 16, "nemotron-4-340b": 4}
+# The float32 cut's depth where it is not CPU_LAYERS: nemotron's 2-layer
+# cut is 16.35 G parameters, 65.4 GB on the card beside the CPU's copy of
+# as much in the host's 96 GiB; one layer is 12.891 G, 51.6 GB.
+ZOO_CUT_LAYERS = {"nemotron-4-340b": 1}
+# Decode steps of the f32 cut on both devices where not CPU_STEPS (or
+# MOE_CPU_STEPS with experts): the CPU reads the whole cut each step, and
+# nemotron's 51.6 GB took its check to 54.9 s at 16 steps, qwen1.5-110b's
+# and mistral-large-123b's 20.8 and 14.3 GB theirs to 25.9 and 22.3 s (an
+# H100 80GB HBM3's host), so the dense three take as many as the MoE cuts.
+ZOO_CPU_STEPS = {"qwen1.5-110b": MOE_CPU_STEPS,
+                 "mistral-large-123b": MOE_CPU_STEPS,
+                 "nemotron-4-340b": MOE_CPU_STEPS}
+# Mixtral's f32 cut also decodes across its sliding window's wrap: a cache
+# of 2 x window slots (a ring of ``sliding_window`` = 4,096), seeded K/V,
+# RING_STEPS steps from position window - RING_LEAD on the CPU and the
+# card, ZOO_CPU_B sequences.
+RING_LEAD, RING_STEPS = 4, 8
 ZOO_REQUESTS = 10
 PREFILL_B, PREFILL_S = 8, 64  # prompts a prefill, tokens (frames) a prompt
 PREFILL_REPS = 5
@@ -701,12 +777,24 @@ SHARDED_TIMEOUT = 600
 # own 8-layer period is 13.30 G, 80.2 GB, and ``hybrid._n_periods`` takes
 # whole periods); paligemma (1.90 G, 22.9 GB) and seamless (1.63 G, 19.6
 # GB) whole.
+# mixtral-8x22b 2 of 56 layers with its 8-bit AdamW (5.411 G parameters:
+# bf16 weights and gradients and the 8-bit moments 32.5 GB; 4 layers would
+# be 10.419 G, 62.5 GB before the step's activations).  The dense three do
+# not train here: qwen1.5-110b's and mistral-large-123b's 2-layer cuts
+# would fit, but this slice serves them only; nemotron-4-340b cannot, one
+# layer with its embeddings being 12.891 G, 77.3 GB with 8-bit moments
+# before their scales and the step's activations.
 ZOOTRAIN = {
     "jamba-v0.1-52b": dict(n_layers=4, attn_period=2, attn_offset=0),
+    "mixtral-8x22b": dict(n_layers=2),
     "falcon-mamba-7b": dict(n_layers=16),
     "paligemma-3b": {},
     "seamless-m4t-large-v2": {},
 }
+# K5's keys at each MoE arch's training call (gate/up; down adds a
+# prime): jamba's C = 768 rows an expert, mixtral's 1,536, 8,192 real
+# rows each.
+ZOOTRAIN_K5 = {"jamba-v0.1-52b": "jt", "mixtral-8x22b": "xt"}
 ZOOTRAIN_STEPS = 4
 # At the reference's init (wq's fan_in is H, so attention logits reach the
 # hundreds) an attention stack's gradient grows several-fold a layer: on
@@ -824,8 +912,9 @@ def main() -> int:
     for key, (routing, d, f, dtype) in GMM_DECODE_SHAPES.items():
         grouped[key] = measure_grouped_decode(key, routing, d, f, dtype, dev)
     grouped_dw = measure_grouped_dw(GMM_DW_ELEM, GMM_SHAPES[GMM_DW_ELEM], dev)
-    records.append(dict(grouped["a"], shapes={
-        k: v for k, v in grouped.items() if k != "a"}))
+    k5 = dict(grouped["a"], shapes={
+        k: v for k, v in grouped.items() if k != "a"})
+    records.append(k5)
     print(f"[grouped] phase 7 in {time.perf_counter() - t0:.1f}s", flush=True)
 
     # -- 8. the MoE serving path ----------------------------------------------
@@ -879,7 +968,7 @@ def main() -> int:
 
     # -- 16. training the rest of the zoo -------------------------------------
     t0 = time.perf_counter()
-    by_run["zootrain"] = run_zootrain_phase(smi, backward)
+    by_run["zootrain"] = run_zootrain_phase(smi, backward, k5["shapes"])
     print(f"[zootrain] phase 16 in {time.perf_counter() - t0:.1f}s",
           flush=True)
 
@@ -1698,8 +1787,10 @@ def measure_paged(key, shape, dev, partials=False) -> dict:
     splits, chunk = PK.split_plan(S)
     ws = PK.workspace_bytes(B, H, KV, D, splits)
     path = PK.kernel_path(q, kp, vp)
-    label = (f"({key}) B={B} H={H} KV={KV} D={D} page={page}x{pages} "
-             f"lens<= {max_len}, {slots} slots"
+    if path != ("scalar" if key in PAGED_SCALAR else "async"):
+        raise SystemExit(f"K4 ({key}): D = {D} took the {path} loads")
+    label = (f"({key}) B={B} H={H} KV={KV} (G={H // KV}) D={D} "
+             f"page={page}x{pages} lens<= {max_len}, {slots} slots"
              + (", with partials" if partials else ""))
     print(f"[paged] {label}: max |diff| {err:.3e} (SDPA {lib_err:.3e}); "
           f"splits {splits} x chunk {chunk}, workspace {ws} B, loads {path}; "
@@ -2143,7 +2234,8 @@ def measure_grouped(key, shape, dev) -> dict:
 
 
 def measure_grouped_decode(key, c, d, f, dtype, dev) -> dict:
-    """Phase 7 (e), (e'), (j), (j'), (e f32): the MoE decode's call.
+    """Phase 7 (e), (e'), (j), (j'), (x), (x'), (e f32): the MoE decode's
+    call.
     tile_rows from a seeded top-k routing ``c`` (the same seed at every
     shape) through ``moe.expert_tiles``; x random in the real rows and zero
     past them, so ``torch.bmm`` on the dense view computes the same
@@ -2151,11 +2243,23 @@ def measure_grouped_decode(key, c, d, f, dtype, dev) -> dict:
     tile_gid and tile_rows read once, y (all T rows) written once, and 2 d
     f operations a real row."""
     E, C = c["E"], c["C"]
-    T = E * C
     gen = torch.Generator(device=dev).manual_seed(75)
     top = torch.rand(c["B"], E, device=dev, generator=gen).argsort(
         dim=1)[:, :c["k"]]
     gid, rows = moe_mod.expert_tiles(top, E, C, GMM_BT)
+    return measure_grouped_routed(key, gid, rows, E, d, f, dtype, gen,
+                                  f"decode: {c['B']} tokens top-{c['k']}")
+
+
+def measure_grouped_routed(key, gid, rows, E, d, f, dtype, gen,
+                           what) -> dict:
+    """K5 (``time_grouped``) at a routed call of E experts: the tiling
+    (gid, rows) of ``moe.expert_tiles``; x drawn from ``gen`` in the real
+    rows and zero past them, w at the init scale; the bound as
+    ``measure_grouped_decode`` says."""
+    T = gid.numel() * GMM_BT
+    C = T // E
+    dev = gid.device
     real = (torch.arange(GMM_BT, device=dev) < rows[:, None]).reshape(T)
     n_real = int(real.sum())
     x = torch.zeros(T, d, device=dev, dtype=dtype)
@@ -2167,9 +2271,8 @@ def measure_grouped_decode(key, c, d, f, dtype, dev) -> dict:
     nbytes = ((active * d * f + n_real * d + T * f) * x.element_size()
               + (gid.numel() + rows.numel()) * 4)
     label = (f"({key}) T={T} d={d} f={f} groups={E} "
-             f"{str(dtype).replace('torch.', '')}, decode: "
-             f"{c['B']} tokens top-{c['k']}, {active} active experts, "
-             f"{n_real} real rows in {used_tiles} row tiles")
+             f"{str(dtype).replace('torch.', '')}, {what}, {active} active "
+             f"experts, {n_real} real rows in {used_tiles} row tiles")
     rec = time_grouped(x, gid, w, rows, grouped_library(x, w, [C] * E),
                        nbytes, 2.0 * n_real * d * f, label)
     rec.update(active_experts=active, real_rows=n_real)
@@ -2633,16 +2736,18 @@ def zoo_config(arch):
 
 
 def zoo_cut(cfg):
-    """A 2-layer cut at full width.  The hybrid's is one period of two:
-    an attention layer with its MLP, then a Mamba mixer with its MoE (the
-    layer kinds jamba pairs); the encoder-decoder cuts both stacks."""
+    """A 2-layer cut at full width (``ZOO_CUT_LAYERS`` where it says
+    otherwise).  The hybrid's is one period of two: an attention layer
+    with its MLP, then a Mamba mixer with its MoE (the layer kinds jamba
+    pairs); the encoder-decoder cuts both stacks."""
     if cfg.family == "hybrid":
         return dataclasses.replace(cfg, n_layers=CPU_LAYERS,
                                    attn_period=CPU_LAYERS, attn_offset=0)
     if cfg.family == "encdec":
         return dataclasses.replace(cfg, n_layers=CPU_LAYERS,
                                    n_enc_layers=CPU_LAYERS)
-    return dataclasses.replace(cfg, n_layers=CPU_LAYERS)
+    return dataclasses.replace(
+        cfg, n_layers=ZOO_CUT_LAYERS.get(cfg.name, CPU_LAYERS))
 
 
 def prefill_batch(cfg, B, S, dev, seed, n_prefix=None) -> tuple:
@@ -2722,6 +2827,11 @@ def zoo_cpu_check(cfg, tag) -> None:
     cut = dataclasses.replace(zoo_cut(cfg), dtype="float32")
     tol = ZOO_F32_TOL
     t0 = time.perf_counter()
+    n = cut.param_count()
+    print(f"[{tag}] the {cut.n_layers}-layer float32 cut: {n / 1e9:.3f} G "
+          f"parameters, {4 * n / 1e9:.1f} GB on the card and as much copied "
+          f"to the host, whose free memory is {host_free_gb():.1f} GB",
+          flush=True)
     params = cut_weights(cut)
     batch, _ = prefill_batch(cut, ZOO_CPU_B, ZOO_CPU_S, torch.device("cpu"),
                              seed=91, n_prefix=ZOO_CPU_S)
@@ -2755,7 +2865,8 @@ def zoo_cpu_check(cfg, tag) -> None:
             cache["cross_k"].copy_(ck)
             cache["cross_v"].copy_(cv)
 
-    steps = MOE_CPU_STEPS if cut.n_experts else CPU_STEPS
+    steps = ZOO_CPU_STEPS.get(cut.name,
+                              MOE_CPU_STEPS if cut.n_experts else CPU_STEPS)
     decode_cpu_vs_card(cut, params, steps, tag, prime, tol)
 
     if cut.family not in ("encdec", "vlm"):
@@ -2773,8 +2884,76 @@ def zoo_cpu_check(cfg, tag) -> None:
             raise SystemExit(f"{tag}: the decode tail differs from the "
                              f"forward's last position")
         sure_tokens_agree(lg[:, -1], ld, f"{tag} decode tail", tol)
+    if cut.sliding_window is not None:
+        ring_cpu_vs_card(cut, params, tag)
     print(f"[{tag}] cpu vs card in {time.perf_counter() - t0:.1f}s",
           flush=True)
+
+
+def host_free_gb() -> float:
+    """The host's free physical memory, GB."""
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+def ring_cpu_vs_card(cut, params, tag) -> None:
+    """Phase 11, mixtral: ``cut`` (f32, ``params`` by device) decoding
+    across its sliding window's wrap.  A cache of 2 x window slots is a
+    ring of ``window`` slots; both devices start from the same seeded K/V
+    (drawn on the card, copied) at position window - ``RING_LEAD`` and take
+    ``RING_STEPS`` steps from zero tokens, each fed the CPU's greedy
+    tokens.  Every step's logits within ``ZOO_F32_TOL`` and its greedy
+    tokens equal where the CPU's margin exceeds it; the slots the steps
+    wrote (the ring's last ``RING_LEAD`` and its first) equal within the
+    same tolerance, and slot 0 rewritten."""
+    W = cut.sliding_window
+    max_seq = 2 * W
+    layout = attn_mod.cache_layout(cut, max_seq)
+    if not (layout.ring and layout.seq == W):
+        raise SystemExit(f"{tag}: a {max_seq}-slot cache is not a ring of "
+                         f"{W}: {layout}")
+    B, tol = ZOO_CPU_B, ZOO_F32_TOL
+    gen = torch.Generator(device=DEVICE).manual_seed(93)
+    card = models.make_cache(cut, B, max_seq, device=DEVICE)
+    for name in ("k", "v"):
+        card[name].normal_(generator=gen)
+    card["pos"] = W - RING_LEAD
+    caches = {DEVICE: card,
+              "cpu": dict(card, k=card["k"].to("cpu", copy=True),
+                          v=card["v"].to("cpu", copy=True))}
+    seeded = caches["cpu"]["k"][:, :, 0].clone()
+    step = models.decode_fn(cut, max_seq)
+    tok = torch.zeros((B, 1), dtype=torch.int32)
+    worst, checked, agree = 0.0, 0, 0
+    for i in range(RING_STEPS):
+        lc, caches["cpu"] = step(params["cpu"], tok, caches["cpu"])
+        lg, caches[DEVICE] = step(params[DEVICE], tok.to(DEVICE),
+                                  caches[DEVICE])
+        lc, lg = lc[:, -1].float(), lg[:, -1].float().cpu()
+        err = float((lc - lg).abs().max())
+        worst = max(worst, err)
+        if not (err <= tol and torch.isfinite(lg).all()):
+            raise SystemExit(f"{tag}: ring step at position "
+                             f"{W - RING_LEAD + i}: cpu and card logits "
+                             f"differ by {err}")
+        n, ok, _ = sure_tokens_agree(lc, lg, f"{tag} ring step {i + 1}", tol)
+        checked, agree = checked + n, agree + ok
+        tok = lc.argmax(-1).to(torch.int32)[:, None]
+    slots = [(W - RING_LEAD + i) % W for i in range(RING_STEPS)]
+    kv_err = max(float((caches[DEVICE][n][:, :, slots].cpu()
+                        - caches["cpu"][n][:, :, slots]).abs().max())
+                 for n in ("k", "v"))
+    end = W - RING_LEAD + RING_STEPS
+    if not (caches["cpu"]["pos"] == caches[DEVICE]["pos"] == end
+            and kv_err <= tol
+            and not torch.equal(caches["cpu"]["k"][:, :, 0], seeded)):
+        raise SystemExit(f"{tag}: the ring's written slots differ (max "
+                         f"|diff| {kv_err}) or slot 0 was not rewritten")
+    print(f"[{tag}] ring: window {W}, a {max_seq}-slot cache is a ring of "
+          f"{layout.seq}; B={B}, positions {W - RING_LEAD}-{end - 1} (slots "
+          f"{slots[0]}-{W - 1}, then 0-{slots[-1]}): logits max |diff| "
+          f"{worst:.5f} over {RING_STEPS} steps (tolerance {tol}); greedy "
+          f"tokens agree on {agree} of {checked} checked rows; the written "
+          f"slots' K/V max |diff| {kv_err:.2e}, slot 0 rewritten", flush=True)
 
 
 def run_zoo_model(arch) -> dict:
@@ -4059,18 +4238,26 @@ def run_sharded_phase(smi) -> dict:
 
 
 # ---------------------------------------------------------------- phase 16
-def zootrain_backward(cfg, params, tokens, backward) -> None:
-    """Phase 16 (a'): K5's backward at jamba's training call, (j) gate/up
-    (d -> f) and (j') down, E experts of C rows with the routing of the
-    cut's first MoE layer on ``tokens``, bf16 (``measure_backward``); the
-    records join phase 12's (dX, dW) ``backward`` records' shapes."""
+def zootrain_backward(cfg, params, tokens, backward, forward) -> None:
+    """Phase 16 (a'): K5 at the arch's training call, gate/up (d -> f) and
+    down, E experts of C rows with the routing of the cut's first MoE
+    layer on ``tokens``, bf16, keys from ``ZOOTRAIN_K5``: its forward
+    (``measure_grouped_routed``), the records joining phase 7's K5
+    record's shapes (``forward``), and its backward
+    (``measure_backward``), joining phase 12's (dX, dW) ``backward``
+    records' shapes."""
     gid, rows = train_tiles(cfg, params, tokens)
     E = cfg.n_experts
     C = gid.numel() * GMM_BT // E
-    label = (f"T={E * C} (E={E} x C={C}), {TRAIN_B} x {TRAIN_S} tokens "
-             f"top-{cfg.top_k}, bf16 (jamba's training call)")
+    what = (f"{TRAIN_B} x {TRAIN_S} tokens top-{cfg.top_k}, {cfg.name}'s "
+            f"training call")
+    label = f"T={E * C} (E={E} x C={C}), {what}, bf16"
     ff = cfg.moe_d_ff or cfg.d_ff
-    for key, (d, f) in (("j", (cfg.d_model, ff)), ("j'", (ff, cfg.d_model))):
+    k = ZOOTRAIN_K5[cfg.name]
+    gen = torch.Generator(device=gid.device).manual_seed(76)
+    for key, (d, f) in ((k, (cfg.d_model, ff)), (k + "'", (ff, cfg.d_model))):
+        forward[key] = measure_grouped_routed(key, gid, rows, E, d, f,
+                                              torch.bfloat16, gen, what)
         dx, dw = measure_backward(key, gid, rows, E, d, f, torch.bfloat16,
                                   f"d={d} f={f} " + label)
         backward[0]["shapes"][key] = dx
@@ -4193,7 +4380,7 @@ def cut_learns(cfg, tag) -> None:
     torch.cuda.empty_cache()
 
 
-def zootrain_model(arch, smi, backward) -> dict:
+def zootrain_model(arch, smi, backward, forward) -> dict:
     """Phase 16 for one arch: ``ZOOTRAIN_STEPS`` steps of
     ``make_train_step`` at the arch's cut (``ZOOTRAIN``), bf16, its own
     optimizer and remat, on ``TokenPipeline(seed=0)`` batches of
@@ -4209,7 +4396,8 @@ def zootrain_model(arch, smi, backward) -> dict:
     batches = [to_device(family_batch(cfg, data.next_batch(), seed=160 + i),
                          dev) for i in range(ZOOTRAIN_STEPS)]
     if cfg.n_experts:
-        zootrain_backward(cfg, params, batches[0]["tokens"], backward)
+        zootrain_backward(cfg, params, batches[0]["tokens"], backward,
+                          forward)
     opt = make_optimizer(cfg.optimizer)
     step = make_train_step(cfg, opt)
     state = opt.init(params)
@@ -4244,14 +4432,16 @@ def zootrain_model(arch, smi, backward) -> dict:
     return run["launches"]
 
 
-def run_zootrain_phase(smi, backward) -> dict:
-    """Phase 16: the SSM, the hybrid with its 8-bit AdamW, the VLM and the
-    encoder-decoder trained on the card; K5's backward at jamba's call
-    joins ``backward``.  Returns the train runs' launches."""
+def run_zootrain_phase(smi, backward, forward) -> dict:
+    """Phase 16: the SSM, the hybrid and mixtral with their 8-bit AdamW,
+    the VLM and the encoder-decoder trained on the card; K5's backward at
+    jamba's and mixtral's training calls joins ``backward``, its forward
+    there ``forward`` (phase 7's K5 record's shapes).  Returns the train
+    runs' launches."""
     total: dict = {}
     for arch in ZOOTRAIN:
         t0 = time.perf_counter()
-        for k, v in zootrain_model(arch, smi, backward).items():
+        for k, v in zootrain_model(arch, smi, backward, forward).items():
             total[k] = total.get(k, 0) + v
         print(f"[zootrain] {arch} in {time.perf_counter() - t0:.1f}s ({smi})",
               flush=True)

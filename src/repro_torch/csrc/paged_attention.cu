@@ -17,11 +17,13 @@
 //
 // Bound on this card: memory.  Each valid slot is 2 D elements of K and V
 // read once for the G queries of its KV head, 4 G D flops: G / esize flops
-// a byte, at most 1 in bf16 on every shape the repo runs (G = 1 for
-// CodeQwen and moonshot, 2 for kernel_bench).  An H100 turns compute-bound
+// a byte, at most 6 in bf16 on every shape the repo runs (G = 1 for
+// CodeQwen, moonshot and seamless, 2 for kernel_bench, 4 for jamba, 6 for
+// mixtral-8x22b, 8 for paligemma and qwen1.5-110b, 12 for
+// mistral-large-123b and nemotron-4-340b).  An H100 turns compute-bound
 // only near 295 flops a byte in bf16 on its tensor cores, and near 20 in
 // f32 on its CUDA cores.  So tensor cores (wgmma) would not shorten the
-// kernel: a wgmma product needs 64 query rows and G <= 2 fills 2 of them.
+// kernel: a wgmma product needs 64 query rows and a KV head has G <= 12.
 // What sets the time is how many bytes are in flight and how many SMs
 // take part; the design is about those two.
 //
@@ -57,6 +59,11 @@
 //    bytes) and the pools are 16-byte aligned.  Any other D (D = 40 or 192
 //    in bf16, D = 16) takes the scalar instance of the same template:
 //    VEC = 1, 32 lanes a slot, element loads into registers (!ASYNC).
+//    Nemotron-4-340b's D = 192 (24 vectors in bf16, 48 in f32) is one:
+//    PER = 8 elements a lane cover 256, and a lane's elements at or past
+//    D load nothing and hold zeros in K, V and q (load_regs' and the q
+//    load's e < D), so they add 0 to every dot and are never written
+//    (the merge's e < D).
 //  * Each lane group keeps its own online softmax (m, l, acc for its part
 //    of D) over the slots it takes; a dot ends in a shuffle tree over the
 //    group's lanes.  q is scaled by log2(e) / sqrt(D) once, so scores are
@@ -67,9 +74,14 @@
 //    through shared memory in a fixed order.  Each probability is rounded
 //    to v's type against its lane group's running max: the only place
 //    where the split changes the arithmetic.
-//  * GR = 1 or 2 query rows are held in registers at a time; G > 2 runs
-//    the chunk again for each further pair of rows (no shape of the repo
-//    has G > 2).
+//  * GR = 1 (G = 1) or 2 query rows are held in registers at a time.
+//    G > 2 runs the block's whole chunk once for each pair of rows, G / 2
+//    passes (rounded up; a last odd row's pair has a masked second row),
+//    each with its own online softmax, ring and merge: the chunk's K/V
+//    are read G / 2 times.  Jamba (G = 4), mixtral-8x22b (6), paligemma
+//    and qwen1.5-110b (8), mistral-large-123b and nemotron-4-340b (12)
+//    take this path; at G = 12 the chunk is read six times, the later
+//    reads from L2 where it still holds them.
 // The kernel does no synchronisation with the host and allocates nothing.
 // A page index outside [0, n_pages) met below seq_lens[b] makes the rows of
 // that (b, kv) NaN instead of a read out of bounds, whichever split meets

@@ -106,7 +106,12 @@ def kernel_path(q: torch.Tensor, k_pages: torch.Tensor,
     """The loads a CUDA call takes, by dtype, shape and alignment: "async"
     (16-byte cp.async copies through a shared-memory ring) when a K/V row
     is 8, 16, 32 or 64 16-byte vectors and the pools' bases are 16-byte
-    aligned, else "scalar" (element loads)."""
+    aligned, else "scalar" (element loads).  Nemotron-4-340b's D = 192 (24
+    vectors in bf16) takes "scalar": 32 lanes a slot, 8 elements a lane,
+    the 64 past D held at zero.  Either path takes the G = H / KV query
+    heads of a KV head two at a time, running the chunk G / 2 times for G
+    > 2 (jamba 4, mixtral-8x22b 6, paligemma and qwen1.5-110b 8,
+    mistral-large-123b and nemotron-4-340b 12; the source's note)."""
     D = q.shape[-1]
     vecs, rest = divmod(D * q.element_size(), 16)
     if (rest == 0 and vecs in _VEC_ROWS and k_pages.data_ptr() % 16 == 0

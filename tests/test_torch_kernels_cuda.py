@@ -831,6 +831,41 @@ def test_k4_zoo_decode_shapes_match_plain(card, shape, full, dtype):
                                want.float().numpy(), rtol=tol, atol=tol)
 
 
+# (H, KV, D): the four largest configs' groupings on 2 KV heads
+# (tests/test_torch_gqa_zoo.py's variants): mixtral-8x22b G = 6,
+# qwen1.5-110b G = 8, mistral-large-123b G = 12, nemotron-4-340b G = 12 at
+# D = 192 (the scalar instance in both dtypes).
+HEAD_GROUPS = [(12, 2, 128), (16, 2, 128), (24, 2, 128), (24, 2, 192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("h,kv,d", HEAD_GROUPS,
+                         ids=[f"h{h}_kv{kv}_d{d}" for h, kv, d in HEAD_GROUPS])
+def test_k4_head_groups_match_plain(card, h, kv, d, dtype):
+    """K4 with G = H / KV > 2 query heads a KV head (the block runs its
+    chunk once for each pair of rows) and at D = 192 (the scalar instance,
+    its lanes past D at zero), at one split (64 slots) and at two (640
+    slots, merged in the launch)."""
+    for pages, max_len in ((4, 64), (40, 600)):
+        args = _paged_case(np.random.default_rng(h + d + pages), 3, h, kv, d,
+                           16, pages, max_len, dtype)
+        want = pops.paged_attention(*args)
+        on_card = [x.to(card) for x in args]
+        vecs = d * on_card[0].element_size() // 16
+        assert pkernel.kernel_path(*on_card[:3]) == (
+            "async" if vecs in (8, 16, 32, 64) else "scalar")
+        assert pkernel.split_plan(pages * 16)[0] == (1 if pages == 4 else 2)
+        before = pkernel.LAUNCHES["paged_attention"]
+        got = pops.paged_attention(*on_card)
+        torch.cuda.synchronize()
+        assert pkernel.LAUNCHES["paged_attention"] == before + 1
+        tol = PAGED_TOL[dtype]
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().numpy(), rtol=tol, atol=tol)
+
+
 GMM_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-5}
 
 
@@ -1011,11 +1046,29 @@ def test_k5_jamba_decode_call_matches_plain(card, d, f):
     the init scale; x is noise past each tile's real rows.  Held to the
     plain version on the card (the CPU's would take minutes at this
     size)."""
+    _k5_decode_call_matches_plain(card, 16, d, f, seed=5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f", [(6144, 16384), (16384, 6144)],
+                         ids=["gate_up", "down"])
+def test_k5_mixtral_decode_call_matches_plain(card, d, f):
+    """K5 at mixtral-8x22b's decode call: 8 tokens top-2 over its 8
+    experts of C = 256 rows, d = 6144 and f = 16384 (a weight stack of
+    805 M elements, 1.61 GB), as at jamba's call."""
+    _k5_decode_call_matches_plain(card, 8, d, f, seed=6)
+
+
+def _k5_decode_call_matches_plain(card, E, d, f, seed):
+    """8 tokens routed top-2 over E experts of C = 256 rows
+    (``moe.expert_tiles``), bf16 at the init scale, x noise past each
+    tile's real rows: K5 against its plain version on the card, the rows
+    past the counts +0."""
     from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_tiles_ref
     from repro_torch.models import moe as tmoe
 
-    E, C, bt = 16, 256, tmoe.EXPERT_BT
-    gen = torch.Generator(device=card).manual_seed(5)
+    C, bt = 256, tmoe.EXPERT_BT
+    gen = torch.Generator(device=card).manual_seed(seed)
     top = torch.rand(8, E, device=card, generator=gen).argsort(dim=1)[:, :2]
     gid, rows = tmoe.expert_tiles(top, E, C, bt)
     x = torch.randn(E * C, d, device=card, generator=gen).to(torch.bfloat16)

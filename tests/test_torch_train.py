@@ -301,14 +301,16 @@ def _step_batch(cfg, data, rng) -> dict:
 
 
 def _steps_match_reference(jcfg, tcfg, opt, seed=2, gn_tol=STEP_TOL,
-                           forced=False):
+                           forced=False, params=None):
     """3 steps of ``make_train_step`` against the reference's jitted step
     from the same carried weights, on ``TokenPipeline`` batches of 4 x 8
     (``_step_batch``): each step's loss and grad norm (within
     ``STEP_TOL``; the grad norm within ``gn_tol``), and the parameters
     after each step.  With ``forced`` each step starts from the
     reference's parameters and optimizer state, carried into the port
-    anew.  Returns the port's parameters before (as numpy) and after.
+    anew.  ``params``: the reference's parameters to start from (default
+    ``init_params`` from key ``seed``).  Returns the port's parameters
+    before (as numpy) and after.
 
     8-bit AdamW (the reference's scheme) is chaotic where a block's v code
     rounds to 0 while m's does not: the update there is m / eps, some 1e4
@@ -319,7 +321,8 @@ def _steps_match_reference(jcfg, tcfg, opt, seed=2, gn_tol=STEP_TOL,
     parameters for 8-bit AdamW (none for the others; with ``forced``, at
     each step); every other element within 8 lr; after a step with such
     elements the grad norm within 1e-3 (measured 3.0e-4)."""
-    jp = JR.init_params(jcfg, jax.random.PRNGKey(seed))
+    jp = (JR.init_params(jcfg, jax.random.PRNGKey(seed)) if params is None
+          else params)
     tp = params_from_numpy(tcfg, _numpy_tree(jp), "cpu")
     start = state_to_numpy(tp)
     jo, to = jopt.make_optimizer(opt, lr=LR), topt.make_optimizer(opt, lr=LR)
