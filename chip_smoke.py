@@ -21,7 +21,8 @@ Phases; any failure exits non-zero before the last line is printed:
               five copies of the first with one planted fault each
               (``PLANTED_FAULTS``, under ``build/planted/``) with nvcc (one
               process each, started together, into ``build/kernels/``) and
-              load them.
+              load them; the main path's catalog and trace are made on the
+              host while nvcc runs.
 2. kernels -- each cross-match join (K1 single bucket, K2 fused, K3 shared
               plan: instances of one CUDA kernel) against its plain PyTorch
               version on the card, at the main path's shapes: a bucket of
@@ -62,8 +63,9 @@ Phases; any failure exits non-zero before the last line is printed:
               (K3, and K1 for indexed members).  Each run's kernel launches
               must be > 0 and add up to its device dispatches; its decision
               log and per-query results must match a ``device="cpu"`` run of
-              the same engine on the first 50 queries (the plain fused join
-              takes minutes on the host for the whole trace), under the
+              the same engine on the first ``CPU_QUERIES`` (15) queries
+              (the plain fused join takes minutes on the host for the
+              whole trace), under the
               tolerance above.  Each run's drain is run once more under
               ``torch.profiler`` for the device's busy share; the trace
               must hold every cross-match launch of the drain.
@@ -90,10 +92,12 @@ Phases; any failure exits non-zero before the last line is printed:
               the four largest configs' decode shapes, 8 KV heads, as
               (a)'s pages: (i) mixtral-8x22b (H=48, G=6), (j)
               qwen1.5-110b (H=64, G=8), (k) mistral-large-123b (H=96,
-              G=12), (l) nemotron-4-340b (H=96, G=12, D=192: it must take
-              the scalar instance, every other shape the async one); (m)
+              G=12), (l) nemotron-4-340b (H=96, G=12, D=192); (m)
               mixtral's heads over its 4,096-slot window's ring, B=8,
-              every sequence full.
+              every sequence full; (n) nemotron's heads and (o)
+              qwen1.5-110b's over 4,096 full slots (pages of 16 x 256).
+              Each shape must take its instance (``PAGED_MMA``: the
+              tensor-core one at G > 2, the ring's pair instance else).
               (p) K4 with its partials (the max score m and softmax sum l
               of each row, for a sequence-sharded cache) at a decode_32k
               shard: B=8, H=KV=32, D=128, 16,384 slots (32 splits), timed
@@ -124,11 +128,11 @@ Phases; any failure exits non-zero before the last line is printed:
               the chunk and breaks the wrapper's host time into parts.
 6. serve   -- the port's ``launch/serve.py`` on ``cuda`` at CodeQwen1.5-7B's
               full config (32 layers, bf16) with the launcher's defaults but
-              ``ZOO_REQUESTS`` (10) of its 40 requests (4 tenants, rate 50,
+              ``ZOO_REQUESTS`` (5) of its 40 requests (4 tenants, rate 50,
               ``liferaft``).  K4's launches must equal 32 x the decode steps;
               the engine summary must equal the ``--no-decode`` run's; a
               2-layer cut of the same widths, with the same seeded weights
-              (drawn on the card and copied to the CPU), must decode 16 steps
+              (drawn on the card and copied to the CPU), must decode 8 steps
               on the card as on the CPU (step-1 logits within
               ``BF16_LOGIT_TOL``; greedy tokens equal wherever the CPU's top-2
               margin exceeds it).  CodeQwen's weights are freed before phase
@@ -166,7 +170,7 @@ Phases; any failure exits non-zero before the last line is printed:
               bf16) with phase 6's requests.  K5's launches must equal
               3 x 48 x the decode steps and K4's 48 x the steps; the engine
               summary must equal the ``--no-decode`` run's; a 2-layer cut at
-              full width decodes 4 steps on the card as on the CPU under
+              full width decodes 2 steps on the card as on the CPU under
               phase 6's rules.
 9. daemon  -- the durable service tier (``serving/daemon.py``) on the card.
               (a) The kill -9 drill (``benchmarks/smoke_recovery.py``) over
@@ -181,8 +185,9 @@ Phases; any failure exits non-zero before the last line is printed:
               up to its device dispatches.  Prints the rounds replayed, the
               recovery's seconds, and the daemon's intake (fsync'd acks of
               JSON payloads) beside phase 3's engine intake.  (b) The card
-              daemon on the first 50 queries writes segment files equal byte
-              for byte to a ``device="cpu"`` daemon's.  (c) The launcher's
+              daemon on the first ``CPU_QUERIES`` (15) queries writes
+              segment files equal byte for byte to a ``device="cpu"``
+              daemon's.  (c) The launcher's
               trace and engine behind the daemon, decoding moonshot's 2-layer
               cut at full width on the card (seeded weights): journal equal
               to a ``--no-decode`` daemon's, K4 launches 2 x the steps and K5
@@ -225,7 +230,7 @@ Phases; any failure exits non-zero before the last line is printed:
               qwen1.5-110b 16 of 80, mistral-large-123b 16 of 88,
               nemotron-4-340b 4 of 96.  Each: the launcher's engine and
               trace with
-              ``ZOO_REQUESTS`` (10) of its 40 requests; K4's launches must
+              ``ZOO_REQUESTS`` (5) of its 40 requests; K4's launches must
               equal (attention + cross-attention layers) x steps and K5's 3
               x MoE layers x steps, from ``cfg.uses_attention`` /
               ``uses_moe``; the summary must equal the ``--no-decode``
@@ -236,12 +241,12 @@ Phases; any failure exits non-zero before the last line is printed:
               64 decoder tokens): logits finite, the CUDA-event median of
               5, prompt positions a second.  Then a 2-layer cut of the same
               widths in float32 (jamba's: one period of an attention layer
-              with its MLP and a Mamba layer with its MoE; nemotron's one
-              layer, ``ZOO_CUT_LAYERS``; the host's free memory printed
-              first), weights drawn on
+              with its MLP and a Mamba layer with its MoE; the four largest
+              configs' one layer, ``ZOO_CUT_LAYERS``; the host's free
+              memory printed first), weights drawn on
               the card and copied, held to ``ZOO_F32_TOL`` under phase 6's
               rules: the prefill's logits at 2 prompts of 16 tokens (16
-              patches / frames) and its greedy tokens; 16 decode steps (4
+              patches / frames) and its greedy tokens; 8 decode steps (2
               with experts and for the three dense largest configs,
               ``ZOO_CPU_STEPS``), seamless's after ``prefill_cross_kv`` filled
               the cross K/V; for the token-only families the card's decode
@@ -361,7 +366,7 @@ Phases; any failure exits non-zero before the last line is printed:
               seamless takes 512 seeded normal frames; ``family_batch``):
               jamba-v0.1-52b cut to two periods of 2 layers (attention +
               MLP, then Mamba + MoE; 8-bit AdamW), mixtral-8x22b cut to 2
-              of 56 layers (8-bit AdamW), falcon-mamba-7b cut to 16
+              of 56 layers (8-bit AdamW), falcon-mamba-7b cut to 8
               of 64 layers, paligemma-3b and seamless-m4t-large-v2 whole
               (``ZOOTRAIN`` says why).  (a) Each loss finite and the last
               below the first (paligemma and seamless, whose gradients at
@@ -382,9 +387,10 @@ Phases; any failure exits non-zero before the last line is printed:
               contiguous w^T, dW within ``TRAIN_DW_TOL``; the records join
               phase 12's); then K5's forward / dX / dW launches 6 / 3
               / 3 an MoE layer a step and the experts' 8-bit m codes
-              nonzero after step 1.  (b) The 2-layer float32 cut (``zoo_cut``) against the
-              CPU under phase 12 (b)'s rules (loss within ``TRAIN_LOSS_TOL``,
-              each gradient leaf within ``TRAIN_GRAD_TOL``; the
+              nonzero after step 1.  (b) The float32 cut (``zoo_cut``; 2
+              layers, mixtral's 1) against the CPU under phase 12 (b)'s
+              rules (loss within ``TRAIN_LOSS_TOL``, each gradient leaf
+              within ``TRAIN_GRAD_TOL``; the
               encoder-decoder's within ``ZOO_GRAD_TOL``).  (c) jamba and
               mixtral: one
               ``adamw8bit`` update of that cut on the card against the same
@@ -474,7 +480,7 @@ from repro_torch.serving import ServiceDaemon, ServingHost  # noqa: E402
 ULPS = 2
 PROBE_COUNTS = (256, 4096, 32768)  # kernel-check probe counts (M)
 REPS = 20  # CUDA-event timing repetitions (median)
-CPU_QUERIES = 50  # the cpu run of each engine takes the first 50 queries
+CPU_QUERIES = 15  # the cpu run of each engine takes the first 15 queries
 DEVICE = "cuda"  # the device the main path runs on
 
 SOURCE = "src/repro_torch/csrc/crossmatch.cu"
@@ -515,6 +521,9 @@ PAGED_TOL = 5e-2  # bf16, the reference's (tests/test_kernels.py:235)
 SERVE_PAGES = (math.gcd(serve_launcher.MAX_SEQ, attn_mod.DECODE_PAGE),
                serve_launcher.MAX_SEQ
                // math.gcd(serve_launcher.MAX_SEQ, attn_mod.DECODE_PAGE))
+# A 4,096-slot cache (mixtral's window) as K4 pages it: (page, pages).
+RING_PAGES = (math.gcd(4096, attn_mod.DECODE_PAGE),
+              4096 // math.gcd(4096, attn_mod.DECODE_PAGE))
 # Phase 5's shapes: (B, H, KV, D, page, pages, longest length).
 PAGED_SHAPES = {
     "a": (8, 32, 32, 128, math.gcd(64, attn_mod.DECODE_PAGE),
@@ -537,19 +546,22 @@ PAGED_SHAPES = {
           serve_launcher.ENC_LEN),
     # the four largest configs' decode shapes, 8 KV heads each: (i)
     # mixtral-8x22b (G = 6), (j) qwen1.5-110b (G = 8), (k)
-    # mistral-large-123b (G = 12), (l) nemotron-4-340b (G = 12, D = 192:
-    # the scalar instance, PAGED_SCALAR); (m) mixtral's heads over its
-    # 4,096-slot sliding-window ring, every sequence full (the steady
-    # state of a decode past the window)
+    # mistral-large-123b (G = 12), (l) nemotron-4-340b (G = 12, D = 192);
+    # (m) mixtral's heads over its 4,096-slot sliding-window ring, every
+    # sequence full (the steady state of a decode past the window); (n)
+    # nemotron's and (o) qwen1.5-110b's heads over 4,096 full slots
     "i": (8, 48, 8, 128, *SERVE_PAGES, 16),
     "j": (8, 64, 8, 128, *SERVE_PAGES, 16),
     "k": (8, 96, 8, 128, *SERVE_PAGES, 16),
     "l": (8, 96, 8, 192, *SERVE_PAGES, 16),
-    "m": (8, 48, 8, 128, math.gcd(4096, attn_mod.DECODE_PAGE),
-          4096 // math.gcd(4096, attn_mod.DECODE_PAGE), 4096),
+    "m": (8, 48, 8, 128, *RING_PAGES, 4096),
+    "n": (8, 96, 8, 192, *RING_PAGES, 4096),
+    "o": (8, 64, 8, 128, *RING_PAGES, 4096),
 }
-PAGED_FULL = {"h", "m"}  # shapes whose every sequence is max_len long
-PAGED_SCALAR = {"l"}  # shapes whose row takes the scalar instance
+PAGED_FULL = {"h", "m", "n", "o"}  # shapes whose every sequence is max_len long
+# Shapes that must take the tensor-core instance (bf16, G > 2); every
+# other phase-5 shape takes the pair instance's cp.async ring ("async").
+PAGED_MMA = {"f", "i", "j", "k", "l", "m", "n", "o"}
 # Phase 5 (p): K4 with its partials (max and sum) at a decode_32k shard:
 # the 32,768-slot cache of CodeQwen's heads cut in two by a (1, 2) mesh's
 # "model" axis, 8 sequences (decode_32k's 128 over a data axis of 16).
@@ -564,9 +576,14 @@ MANY = 20  # launches between one pair of CUDA events
 SERVE_ARCH = "codeqwen1.5-7b"
 MOE_ARCH = "moonshot-v1-16b-a3b"
 CPU_LAYERS = 2  # the CPU comparison's cut in depth
-CPU_STEPS = 16
-# The MoE cut's CPU expert products are 567 GFLOP a step: 4 steps.
-MOE_CPU_STEPS = 4
+# Decode steps of the CPU comparisons without experts: 8 (at 16 steps
+# CodeQwen's 2-layer bf16 cut took 18.8 s and 36.1 s of phase 6 on two
+# H100 80GB HBM3 hosts, and the script has 1,200 s).
+CPU_STEPS = 8
+# The MoE cut's CPU expert products are 567 GFLOP a step: 2 steps (the
+# script has 1,200 s, and the largest cuts' CPU reads the whole cut each
+# step).
+MOE_CPU_STEPS = 2
 GMM_SOURCE = "src/repro_torch/csrc/grouped_matmul.cu"
 GMM_REPLACES = "src/repro/kernels/grouped_matmul/kernel.py:48"
 GMM_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-5}  # tests/test_kernels.py:173
@@ -618,7 +635,8 @@ PROFILE_STEPS = 4
 # cache.  The engine runs ZOO_REQUESTS of the launcher's 40 requests, as
 # phases 6 and 8 do (their step median and launches a step are the numbers
 # compared; 40 requests took 36 s and 93 s of engine wall on an H100
-# 80GB HBM3 at 700 W).
+# 80GB HBM3 at 700 W, 10 requests 9.4 s and 23.3 s; 5 requests still
+# make 80 decode steps a model).
 # The four largest configs follow at their published widths, cut in depth
 # to fit one 80 GB card with their cache (``ModelConfig.param_count``, bf16):
 # mixtral-8x22b 8 of 56 layers (20.435 G parameters, 40.9 GB),
@@ -632,8 +650,16 @@ ZOO_LAYERS = {"jamba-v0.1-52b": 16, "mixtral-8x22b": 8, "qwen1.5-110b": 16,
               "mistral-large-123b": 16, "nemotron-4-340b": 4}
 # The float32 cut's depth where it is not CPU_LAYERS: nemotron's 2-layer
 # cut is 16.35 G parameters, 65.4 GB on the card beside the CPU's copy of
-# as much in the host's 96 GiB; one layer is 12.891 G, 51.6 GB.
-ZOO_CUT_LAYERS = {"nemotron-4-340b": 1}
+# as much in the host's 96 GiB; one layer is 12.891 G, 51.6 GB.  The other
+# three largest configs' cuts are one layer too, for the script's time:
+# their 2-layer checks took 26.5 s (mixtral, with its ring), 15.3 s and
+# 11.5 s of phase 11 and mixtral's 61.5 s of phase 16 on an H100 80GB
+# HBM3's host; one layer is 2.907 G (mixtral), 3.850 G (qwen1.5-110b)
+# and 2.189 G (mistral-large-123b) parameters against 5.411, 5.209 and
+# 3.574 G at two.  Every layer of theirs is of one kind, so one layer
+# holds each kind the served model runs.
+ZOO_CUT_LAYERS = {"mixtral-8x22b": 1, "qwen1.5-110b": 1,
+                  "mistral-large-123b": 1, "nemotron-4-340b": 1}
 # Decode steps of the f32 cut on both devices where not CPU_STEPS (or
 # MOE_CPU_STEPS with experts): the CPU reads the whole cut each step, and
 # nemotron's 51.6 GB took its check to 54.9 s at 16 steps, qwen1.5-110b's
@@ -647,7 +673,7 @@ ZOO_CPU_STEPS = {"qwen1.5-110b": MOE_CPU_STEPS,
 # RING_STEPS steps from position window - RING_LEAD on the CPU and the
 # card, ZOO_CPU_B sequences.
 RING_LEAD, RING_STEPS = 4, 8
-ZOO_REQUESTS = 10
+ZOO_REQUESTS = 5
 PREFILL_B, PREFILL_S = 8, 64  # prompts a prefill, tokens (frames) a prompt
 PREFILL_REPS = 5
 # The 2-layer cut's prefill against the CPU: B prompts of S tokens (S
@@ -770,8 +796,10 @@ SHARDED_TIMEOUT = 600
 # at their published widths in bf16 with their own optimizer and remat,
 # TRAIN_B x TRAIN_S tokens a step.  The cuts in depth, from
 # ``ModelConfig.param_count`` (bf16 weights and gradients, the optimizer's
-# state; activations not counted): falcon-mamba 16 of 64 layers (2.22 G
-# parameters, 26.6 GB; all 64 with AdamW's f32 moments 87.3 GB); jamba
+# state; activations not counted): falcon-mamba 8 of 64 layers (1.38 G
+# parameters, 16.5 GB; 16 layers, 2.22 G, took 32.6 s of the phase on an
+# H100 80GB HBM3, the script's time limit is the cut; all 64 with AdamW's
+# f32 moments 87.3 GB); jamba
 # two periods of 2 layers, attention + MLP then Mamba + MoE, the period
 # of phase 11's f32 cut (6.82 G, 41.1 GB with the 8-bit moments; jamba's
 # own 8-layer period is 13.30 G, 80.2 GB, and ``hybrid._n_periods`` takes
@@ -787,7 +815,7 @@ SHARDED_TIMEOUT = 600
 ZOOTRAIN = {
     "jamba-v0.1-52b": dict(n_layers=4, attn_period=2, attn_offset=0),
     "mixtral-8x22b": dict(n_layers=2),
-    "falcon-mamba-7b": dict(n_layers=16),
+    "falcon-mamba-7b": dict(n_layers=8),
     "paligemma-3b": {},
     "seamless-m4t-large-v2": {},
 }
@@ -832,7 +860,16 @@ def main() -> int:
     builds = [m.build for m in (K, PK, GK)] + [
         lib.load for lib in (*faults.values(), counting, dw_fault)]
     with ThreadPoolExecutor(len(builds)) as pool:
-        for fut in [pool.submit(b) for b in builds]:
+        futures = [pool.submit(b) for b in builds]
+        # -- data: the main path's catalog, made on the host while nvcc runs
+        t1 = time.perf_counter()
+        cat = make_skyquery_catalog()
+        trace = trace_records(cat)
+        n_probes = sum(len(r["payload"]["positions"]) for r in trace)
+        print(f"[data] catalog {cat.n_objects} objects, {cat.n_buckets} "
+              f"buckets; {len(trace)} queries, {n_probes} probe objects; "
+              f"{time.perf_counter() - t1:.2f}s beside the builds", flush=True)
+        for fut in futures:
             fut.result()
     print(f"[build] three libraries, {len(faults)} planted-fault copies of "
           f"the cross-match kernel, its counting build and a planted-fault "
@@ -847,15 +884,6 @@ def main() -> int:
                     or "spill" in line):
                 print(f"[build]   {line.strip()}")
     print(f"[build] phase 1 in {time.perf_counter() - t0:.1f}s", flush=True)
-
-    # -- data: the main path's catalog --------------------------------------
-    t0 = time.perf_counter()
-    cat = make_skyquery_catalog()
-    trace = trace_records(cat)
-    n_probes = sum(len(r["payload"]["positions"]) for r in trace)
-    print(f"[data] catalog {cat.n_objects} objects, {cat.n_buckets} buckets; "
-          f"{len(trace)} queries, {n_probes} probe objects; "
-          f"{time.perf_counter() - t0:.2f}s", flush=True)
 
     # -- 2. kernels against their plain versions ----------------------------
     t0 = time.perf_counter()
@@ -885,17 +913,7 @@ def main() -> int:
 
     # -- 5. K4 against its plain version -------------------------------------
     t0 = time.perf_counter()
-    paged = {key: measure_paged(key, shape, dev)
-             for key, shape in PAGED_SHAPES.items()}
-    check_paged_partials(dev)
-    paged["p"] = measure_paged("p", PARTIALS_SHAPE, dev, partials=True)
-    # every shape's kernel in one profiler session (each session makes the
-    # later ones of the process lose device events)
-    traced = profiled_runs([r.pop("kernel_fn") for r in paged.values()],
-                           "paged_attention")
-    for (key, rec), (ms, _) in zip(paged.items(), traced):
-        rec["profiled_ms"] = ms
-        print(f"[paged] ({key}) profiled {fmt_ms(ms)} ms", flush=True)
+    paged = run_paged_phase(dev)
     k4 = dict(paged["a"], shapes={k: v for k, v in paged.items() if k != "a"})
     records.append(k4)
     print(f"[paged] phase 5 in {time.perf_counter() - t0:.1f}s", flush=True)
@@ -1735,6 +1753,24 @@ def paged_inputs(B, H, KV, D, page, pages, max_len, dev, seed):
     return q, kp, vp, table.view(B, pages), lens
 
 
+def run_paged_phase(dev) -> dict:
+    """Phase 5: K4 at every shape of ``PAGED_SHAPES`` and with its partials
+    at (p), each against its plain version and timed; its records by
+    shape, each with its ``profiled_ms``."""
+    paged = {key: measure_paged(key, shape, dev)
+             for key, shape in PAGED_SHAPES.items()}
+    check_paged_partials(dev)
+    paged["p"] = measure_paged("p", PARTIALS_SHAPE, dev, partials=True)
+    # every shape's kernel in one profiler session (each session makes the
+    # later ones of the process lose device events)
+    traced = profiled_runs([r.pop("kernel_fn") for r in paged.values()],
+                           "paged_attention")
+    for (key, rec), (ms, _) in zip(paged.items(), traced):
+        rec["profiled_ms"] = ms
+        print(f"[paged] ({key}) profiled {fmt_ms(ms)} ms", flush=True)
+    return paged
+
+
 def measure_paged(key, shape, dev, partials=False) -> dict:
     """Phase 5, one shape: K4 against its plain version on the same card
     inputs, then its times (the module docstring says how each is taken;
@@ -1787,8 +1823,9 @@ def measure_paged(key, shape, dev, partials=False) -> dict:
     splits, chunk = PK.split_plan(S)
     ws = PK.workspace_bytes(B, H, KV, D, splits)
     path = PK.kernel_path(q, kp, vp)
-    if path != ("scalar" if key in PAGED_SCALAR else "async"):
-        raise SystemExit(f"K4 ({key}): D = {D} took the {path} loads")
+    if path != ("mma" if key in PAGED_MMA else "async"):
+        raise SystemExit(f"K4 ({key}): G = {H // KV}, D = {D} took the "
+                         f"{path} instance")
     label = (f"({key}) B={B} H={H} KV={KV} (G={H // KV}) D={D} "
              f"page={page}x{pages} lens<= {max_len}, {slots} slots"
              + (", with partials" if partials else ""))
@@ -2146,6 +2183,18 @@ def serve_on_card(cfg, params, arch, tag, *extra) -> dict:
     if stats.steps <= 0 or got != want:
         raise SystemExit(f"{tag}: launches {got} for {stats.steps} steps of "
                          f"{cfg.n_layers} layers; expected {want}")
+    # bf16 query-head groups (G > 2) take the tensor-core instance, the rest
+    # the ring's pair instance (every config's head_dim is 64-256)
+    if got["paged_attention"]:
+        k4_path = ("mma" if cfg.dtype == "bfloat16"
+                   and cfg.n_heads > 2 * cfg.n_kv_heads else "async")
+        if PK.PATH_LAUNCHES[k4_path] != got["paged_attention"]:
+            raise SystemExit(f"{tag}: K4 launches by instance "
+                             f"{PK.PATH_LAUNCHES}; expected all "
+                             f"{got['paged_attention']} on {k4_path}")
+        print(f"[{tag}] K4: {got['paged_attention']} launches, all on the "
+              f"{k4_path} instance (G = {cfg.n_heads // cfg.n_kv_heads}, "
+              f"D = {cfg.head_dim})", flush=True)
     dry, dry_stats = serve_launcher.serve(serve_args(arch, *extra,
                                                      "--no-decode"))
     if dry != summary or dry_stats.calls:

@@ -12,6 +12,7 @@ payloads live in a ``BucketStore`` that the engines read through the
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 from typing import Sequence
 
@@ -62,6 +63,8 @@ class Partitioner:
         starts = np.arange(self.n_buckets) * self.objects_per_bucket
         self._start_idx = starts
         self._boundary_keys = self.sorted_keys[starts]
+        # the same boundaries as Python ints, for the per-range lookup
+        self._boundary_list = [int(k) for k in self._boundary_keys]
         self._layout_pos: dict[int, float] = {}  # layout_position cache
         self.specs: list[BucketSpec] = []
         for b in range(self.n_buckets):
@@ -90,10 +93,16 @@ class Partitioner:
         idx = np.searchsorted(self._boundary_keys, keys, side="right") - 1
         return np.clip(idx, 0, self.n_buckets - 1).astype(np.int64)
 
+    def _bucket_of_key(self, key: int) -> int:
+        """``bucket_of_keys`` for one key, without numpy's per-call cost
+        (the intake asks once for each end of every probe's range)."""
+        idx = bisect.bisect_right(self._boundary_list, int(key)) - 1
+        return min(max(idx, 0), self.n_buckets - 1)
+
     def buckets_for_range(self, key_lo: int, key_hi: int) -> np.ndarray:
         """All bucket ids whose key range overlaps [key_lo, key_hi]."""
-        b0 = int(self.bucket_of_keys(np.array([key_lo]))[0])
-        b1 = int(self.bucket_of_keys(np.array([key_hi]))[0])
+        b0 = self._bucket_of_key(key_lo)
+        b1 = self._bucket_of_key(key_hi)
         return np.arange(b0, b1 + 1, dtype=np.int64)
 
     def object_slice(self, bucket_id: int) -> np.ndarray:

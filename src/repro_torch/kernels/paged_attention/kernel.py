@@ -6,8 +6,10 @@ kernel ``paged_attention_pallas`` of the JAX reference
 and bfloat16 with f32 arithmetic inside.  It is bound by the bytes of the
 valid K/V slots.  A long cache is split across blocks (``split_plan``) and
 the splits' partial softmaxes are merged in the same launch, in split
-order; K and V come in 16-byte copies where the row allows it
-(``kernel_path``).  See the source's note.
+order.  ``kernel_path`` names the instance a call takes: bf16 query-head
+groups (G > 2) go through tensor cores, every row of a KV head in one
+pass over the chunk; the rest through the pair instance, in 16-byte
+copies where the row allows it.  See the source's note.
 
 A wrapper given CPU tensors runs the plain PyTorch version from ``ref``;
 given CUDA tensors it launches the kernel on the current stream, or
@@ -18,7 +20,8 @@ no lengths).  With ``partials=True`` it returns (out, m, l), the row's
 max score and softmax sum beside the output, for a sequence-sharded
 cache: the same launch with two more (B, H) f32 outputs.
 ``LAUNCHES["paged_attention"]`` counts kernel launches (one a call, the
-merge included).  The source is compiled at first use
+merge included), and ``PATH_LAUNCHES`` the same launches by the path
+each took.  The source is compiled at first use
 (``nvcc.CudaLibrary``); nothing is built when this module is imported.
 """
 from __future__ import annotations
@@ -38,6 +41,7 @@ __all__ = [
     "CHUNK",
     "LAUNCHES",
     "MAX_HEAD_DIM",
+    "PATH_LAUNCHES",
     "reset_launches",
     "build",
     "build_info",
@@ -49,9 +53,11 @@ __all__ = [
 
 MAX_HEAD_DIM = 256  # the source's limit
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_PATHS = {"scalar": 0, "async": 1}
+_PATHS = {"scalar": 0, "async": 1, "mma": 2}
 # A row of 8, 16, 32 or 64 16-byte vectors takes the cp.async ring.
 _VEC_ROWS = (8, 16, 32, 64)
+# The head_dims of the tensor-core instance (bf16, G > 2).
+_MMA_HEAD_DIMS = (64, 128, 192, 256)
 
 # Slots a block takes when a sequence is split (``k4_tune.py``'s sweep on
 # the card: 512 beat 128, 256 and 1024 at chip_smoke.py's (b), (c) and (e);
@@ -60,12 +66,14 @@ CHUNK = 512
 _MAX_SPLITS = 65535  # gridDim.z
 
 LAUNCHES = {"paged_attention": 0}
+PATH_LAUNCHES = dict.fromkeys(_PATHS, 0)
 _count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
     with _count_lock:
         LAUNCHES["paged_attention"] = 0
+        PATH_LAUNCHES.update(dict.fromkeys(_PATHS, 0))
 
 
 # The launch entry's one argument: PagedAttentionArgs in the source, 22
@@ -103,19 +111,26 @@ def build_info() -> dict:
 
 def kernel_path(q: torch.Tensor, k_pages: torch.Tensor,
                 v_pages: torch.Tensor) -> str:
-    """The loads a CUDA call takes, by dtype, shape and alignment: "async"
-    (16-byte cp.async copies through a shared-memory ring) when a K/V row
-    is 8, 16, 32 or 64 16-byte vectors and the pools' bases are 16-byte
-    aligned, else "scalar" (element loads).  Nemotron-4-340b's D = 192 (24
-    vectors in bf16) takes "scalar": 32 lanes a slot, 8 elements a lane,
-    the 64 past D held at zero.  Either path takes the G = H / KV query
-    heads of a KV head two at a time, running the chunk G / 2 times for G
-    > 2 (jamba 4, mixtral-8x22b 6, paligemma and qwen1.5-110b 8,
-    mistral-large-123b and nemotron-4-340b 12; the source's note)."""
+    """The instance a CUDA call takes, by dtype, shape and alignment (the
+    pools' bases 16-byte aligned in the first two):
+
+    * "mma": bf16 with G = H / KV > 2 query heads a KV head and D = 64,
+      128, 192 or 256 -- jamba (G = 4), mixtral-8x22b (6), paligemma and
+      qwen1.5-110b (8), mistral-large-123b and nemotron-4-340b (12, D =
+      192).  Tensor cores (mma.sync) take the G rows, padded to 16, through
+      the chunk in one pass; G > 16 runs the chunk once for each 16 rows.
+    * "async": the pair instance through a cp.async ring, where a K/V row
+      is 8, 16, 32 or 64 16-byte vectors: f32 at any G, bf16 at G <= 2.
+      At G > 2 (f32 only) it runs the chunk once for each pair of rows.
+    * "scalar": the pair instance with element loads, for any other row
+      (D = 40 or 16; f32 at D = 192) or unaligned pools."""
     D = q.shape[-1]
+    aligned = k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0
+    if (aligned and q.dtype == torch.bfloat16 and D in _MMA_HEAD_DIMS
+            and q.shape[1] > 2 * k_pages.shape[2]):
+        return "mma"
     vecs, rest = divmod(D * q.element_size(), 16)
-    if (rest == 0 and vecs in _VEC_ROWS and k_pages.data_ptr() % 16 == 0
-            and v_pages.data_ptr() % 16 == 0):
+    if rest == 0 and vecs in _VEC_ROWS and aligned:
         return "async"
     return "scalar"
 
@@ -276,4 +291,5 @@ def paged_attention_kernel(
     LIBRARY.check(code, "paged_attention")
     with _count_lock:
         LAUNCHES["paged_attention"] += 1
+        PATH_LAUNCHES[path] += 1
     return (out, m, l_) if partials else out

@@ -130,6 +130,32 @@ class TestStateCarriedAcross:
             for k in ("positions", "mags", "htm"):
                 np.testing.assert_array_equal(t[k], r[k])
 
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_buckets_for_range_matches_reference(self, catalogs, seed):
+        """The intake's per-range lookup (a bisect over the boundaries)
+        gives the reference's numpy answer at every boundary key, one
+        either side of it, the key space's ends and random ranges."""
+        ref, port = catalogs
+        bounds = [int(k) for k in ref.partitioner._boundary_keys]
+        top = int(ref.partitioner.sorted_keys[-1])
+        rng = np.random.default_rng(seed)
+        keys = sorted({0, top, top + 1, 2**63, *bounds,
+                       *(b - 1 for b in bounds if b), *(b + 1 for b in bounds),
+                       *(int(k) for k in rng.integers(0, top + 2, 64))})
+        for k in keys:
+            want = int(ref.partitioner.bucket_of_keys(np.array([k]))[0])
+            assert port.partitioner._bucket_of_key(k) == want, k
+        for _ in range(256):
+            lo, hi = sorted(int(k) for k in rng.choice(keys, 2))
+            np.testing.assert_array_equal(
+                port.partitioner.buckets_for_range(lo, hi),
+                ref.partitioner.buckets_for_range(lo, hi))
+        for q in _trace(ref, n=8, seed=seed):
+            for lo, hi in zip(q.keys_lo, q.keys_hi):
+                np.testing.assert_array_equal(
+                    port.partitioner.buckets_for_range(int(lo), int(hi)),
+                    ref.partitioner.buckets_for_range(int(lo), int(hi)))
+
     def test_queries_from_records_copies(self, catalogs):
         ref, _ = catalogs
         trace = _trace(ref, n=4)

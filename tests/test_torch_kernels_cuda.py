@@ -27,7 +27,12 @@ f32 dot of D = 128 unit normals is good to 128 * 2**-24 * sum|q k| /
 sqrt(D), ~6e-5) and l within 2e-4 relative (exp of that); an empty row
 gives m = -1e30, l = 0 and out = 0 exactly, a bad page NaN in all three.
 Merging the two halves of a 32,768-slot cache with
-``attention._local_decode``'s formula equals K4 on the whole cache.
+``attention._local_decode``'s formula equals K4 on the whole cache.  K4's
+tensor-core instance (bf16, G = H / KV > 2 query heads a KV head, D =
+64-256) is held the same way at G = 3, 4, 6, 8, 12 and each D, at one
+split and at two, with its partials, an empty row and a bad page; f32
+calls with G > 2 take the pair instance, and G > 16 runs the chunk once
+for each 16 rows.
 
 The grouped matmul (K5) is held to its plain version at the reference's
 tolerances for it, rtol = atol = 5e-2 in bfloat16 and 1e-5 in float32
@@ -811,9 +816,9 @@ def test_k4_partials_of_two_halves_merge_to_the_whole(card):
     ((8, 16, 16, 64, 16, 1, 16), True),  # its cross-attention: 16 slots, full
 ], ids=["paligemma", "seamless_self", "seamless_cross"])
 def test_k4_zoo_decode_shapes_match_plain(card, shape, full, dtype):
-    """K4 at the decode shapes of the families the zoo adds: the instances
-    of a 32-vector row with eight query heads on one KV head (bf16 D = 256)
-    and of an 8-vector row (bf16 D = 64)."""
+    """K4 at the decode shapes of the families the zoo adds: eight query
+    heads on one KV head at D = 256 (the tensor-core instance in bf16) and
+    an 8-vector row (bf16 D = 64)."""
     B, H, KV, D, page, pages, max_len = shape
     args = _paged_case(np.random.default_rng(D + H), B, H, KV, D, page,
                        pages, max_len, dtype)
@@ -821,7 +826,8 @@ def test_k4_zoo_decode_shapes_match_plain(card, shape, full, dtype):
         args[4].fill_(max_len)
     want = pops.paged_attention(*args)
     on_card = [x.to(card) for x in args]
-    assert pkernel.kernel_path(*on_card[:3]) == "async"
+    assert pkernel.kernel_path(*on_card[:3]) == (
+        "mma" if dtype == torch.bfloat16 and H // KV > 2 else "async")
     before = pkernel.LAUNCHES["paged_attention"]
     got = pops.paged_attention(*on_card)
     torch.cuda.synchronize()
@@ -831,39 +837,104 @@ def test_k4_zoo_decode_shapes_match_plain(card, shape, full, dtype):
                                want.float().numpy(), rtol=tol, atol=tol)
 
 
-# (H, KV, D): the four largest configs' groupings on 2 KV heads
-# (tests/test_torch_gqa_zoo.py's variants): mixtral-8x22b G = 6,
-# qwen1.5-110b G = 8, mistral-large-123b G = 12, nemotron-4-340b G = 12 at
-# D = 192 (the scalar instance in both dtypes).
-HEAD_GROUPS = [(12, 2, 128), (16, 2, 128), (24, 2, 128), (24, 2, 192)]
+# Query-head groups (G = H / KV > 2) on 2 KV heads: jamba G = 4,
+# mixtral-8x22b 6, paligemma and qwen1.5-110b 8, mistral-large-123b and
+# nemotron-4-340b 12 (D = 192), and G = 3, at each head_dim the
+# tensor-core instance takes.
+HEAD_GROUP_GS = (3, 4, 6, 8, 12)
+HEAD_GROUP_DS = (64, 128, 192, 256)
+
+
+def _pair_path(d, dtype):
+    """The pair instance a row of ``d`` elements takes (f32 at any G)."""
+    vecs = d * torch.tensor([], dtype=dtype).element_size() // 16
+    return "async" if vecs in (8, 16, 32, 64) else "scalar"
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-@pytest.mark.parametrize("h,kv,d", HEAD_GROUPS,
-                         ids=[f"h{h}_kv{kv}_d{d}" for h, kv, d in HEAD_GROUPS])
-def test_k4_head_groups_match_plain(card, h, kv, d, dtype):
-    """K4 with G = H / KV > 2 query heads a KV head (the block runs its
-    chunk once for each pair of rows) and at D = 192 (the scalar instance,
-    its lanes past D at zero), at one split (64 slots) and at two (640
-    slots, merged in the launch)."""
+@pytest.mark.parametrize("d", HEAD_GROUP_DS, ids=[f"d{d}" for d in HEAD_GROUP_DS])
+@pytest.mark.parametrize("g", HEAD_GROUP_GS, ids=[f"g{g}" for g in HEAD_GROUP_GS])
+def test_k4_head_groups_match_plain(card, g, d, dtype):
+    """K4 with G = H / KV > 2 query heads a KV head, at one split (64
+    slots) and at two (640 slots, merged in the launch): bf16 on the
+    tensor-core instance (all G rows in one pass over the chunk), f32 on
+    the pair instance; one launch a call, counted under its path, and the
+    same bits from two calls."""
+    h, kv = 2 * g, 2
+    path = "mma" if dtype == torch.bfloat16 else _pair_path(d, dtype)
     for pages, max_len in ((4, 64), (40, 600)):
         args = _paged_case(np.random.default_rng(h + d + pages), 3, h, kv, d,
                            16, pages, max_len, dtype)
         want = pops.paged_attention(*args)
         on_card = [x.to(card) for x in args]
-        vecs = d * on_card[0].element_size() // 16
-        assert pkernel.kernel_path(*on_card[:3]) == (
-            "async" if vecs in (8, 16, 32, 64) else "scalar")
+        assert pkernel.kernel_path(*on_card[:3]) == path
         assert pkernel.split_plan(pages * 16)[0] == (1 if pages == 4 else 2)
         before = pkernel.LAUNCHES["paged_attention"]
+        by_path = pkernel.PATH_LAUNCHES[path]
         got = pops.paged_attention(*on_card)
+        again = pops.paged_attention(*on_card)
         torch.cuda.synchronize()
-        assert pkernel.LAUNCHES["paged_attention"] == before + 1
+        assert pkernel.LAUNCHES["paged_attention"] == before + 2
+        assert pkernel.PATH_LAUNCHES[path] == by_path + 2
+        assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
         tol = PAGED_TOL[dtype]
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (3, 40, 2, 128, 16, 40, 600),  # G = 20: the chunk once a 16 rows
+    (2, 48, 1, 64, 8, 3, 24),  # G = 48, one split, a page of 8
+], ids=["g20_two_splits", "g48"])
+def test_k4_more_than_16_query_rows(card, shape):
+    """G > 16 (no config of the repo): the tensor-core instance runs the
+    chunk once for each 16 rows and holds every row to the plain version."""
+    B, H, KV, D, page, pages, max_len = shape
+    args = _paged_case(np.random.default_rng(H), B, H, KV, D, page, pages,
+                       max_len, torch.bfloat16)
+    on_card = [x.to(card) for x in args]
+    assert pkernel.kernel_path(*on_card[:3]) == "mma"
+    got = pops.paged_attention(*on_card)
+    tol = PAGED_TOL[torch.bfloat16]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               pops.paged_attention(*args).float().numpy(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", HEAD_GROUP_DS, ids=[f"d{d}" for d in HEAD_GROUP_DS])
+@pytest.mark.parametrize("pages", [4, 40], ids=["one_split", "two_splits"])
+def test_k4_head_groups_partials_empty_row_and_bad_page(card, d, pages):
+    """The tensor-core instance (bf16, G = 6) with its partials against
+    ``paged_attention_partials_ref``, bit-equal to the call without them;
+    a row of seq_len 0 gives out 0, m -1e30, l 0; a bad page met by the
+    last split makes that sequence's out, m and l NaN and no other's."""
+    B, H, KV, page = 3, 12, 2, 16
+    args = [x.to(card) for x in _paged_case(
+        np.random.default_rng(d + pages), B, H, KV, d, page, pages,
+        page * pages, torch.bfloat16)]
+    q, kp, vp, pt, lens = args
+    assert pkernel.kernel_path(q, kp, vp) == "mma"
+    lens[0] = 0
+    got = pops.paged_attention_partials(*args)
+    torch.cuda.synchronize()
+    out, m, l_ = got
+    assert torch.count_nonzero(out[0]).item() == 0
+    assert bool((m[0] == -1e30).all()) and bool((l_[0] == 0).all())
+    _partials_close(got, paged_attention_partials_ref(*args), torch.bfloat16)
+    assert torch.equal(out.view(torch.uint8),
+                       pops.paged_attention(*args).view(torch.uint8))
+    splits, chunk = _splits(args)
+    lens[1] = page * pages
+    pt[1, (splits - 1) * chunk // page] = kp.shape[0]  # the last split's
+    out, m, l_ = pops.paged_attention_partials(*args)
+    torch.cuda.synchronize()
+    for x in (out, m, l_):
+        assert torch.isnan(x[1]).all() and not torch.isnan(x[0]).any()
+        assert not torch.isnan(x[2:]).any()
 
 
 GMM_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-5}

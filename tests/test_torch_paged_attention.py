@@ -228,18 +228,39 @@ def test_split_plan_from_shapes(B, KV, slots, want):
         tkernel.split_plan(65535 * tkernel.CHUNK + 1)
 
 
-@pytest.mark.parametrize("D,dtype,path", [
-    (128, torch.bfloat16, "async"), (64, torch.bfloat16, "async"),
-    (256, torch.float32, "async"), (32, torch.float32, "async"),
-    (40, torch.bfloat16, "scalar"), (192, torch.bfloat16, "scalar"),
-    (16, torch.bfloat16, "scalar"), (40, torch.float32, "scalar"),
+@pytest.mark.parametrize("D,dtype,G,path", [
+    (128, torch.bfloat16, 2, "async"), (64, torch.bfloat16, 2, "async"),
+    (256, torch.float32, 2, "async"), (32, torch.float32, 2, "async"),
+    (40, torch.bfloat16, 2, "scalar"), (192, torch.bfloat16, 2, "scalar"),
+    (16, torch.bfloat16, 2, "scalar"), (40, torch.float32, 2, "scalar"),
+    # query-head groups: bf16 at G > 2 and D = 64-256 on the tensor cores
+    (128, torch.bfloat16, 6, "mma"), (192, torch.bfloat16, 6, "mma"),
+    (64, torch.bfloat16, 3, "mma"), (256, torch.bfloat16, 8, "mma"),
+    (192, torch.bfloat16, 12, "mma"), (128, torch.bfloat16, 20, "mma"),
+    (128, torch.bfloat16, 1, "async"), (128, torch.float32, 6, "async"),
+    (192, torch.float32, 12, "scalar"), (40, torch.bfloat16, 6, "scalar"),
+    (16, torch.bfloat16, 6, "scalar"), (32, torch.bfloat16, 4, "scalar"),
 ])
-def test_kernel_path_by_shape(D, dtype, path):
-    """The 16-byte instances take rows of 8, 16, 32 or 64 16-byte vectors;
-    every other head_dim takes the scalar instance."""
-    q = torch.zeros(2, 4, D, dtype=dtype)
+def test_kernel_path_by_shape(D, dtype, G, path):
+    """bf16 with G = H / KV > 2 query heads a KV head at D = 64, 128, 192
+    or 256 takes the tensor-core instance; the rest the pair instance: the
+    16-byte one for rows of 8, 16, 32 or 64 16-byte vectors, the scalar one
+    for every other head_dim."""
+    q = torch.zeros(2, 2 * G, D, dtype=dtype)
     pool = torch.zeros(4, 8, 2, D, dtype=dtype)
     assert tkernel.kernel_path(q, pool, pool) == path
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_path_of_unaligned_pools(dtype):
+    """Pools whose base is off 16 bytes take element loads, whatever G."""
+    q = torch.zeros(2, 12, 128, dtype=dtype)
+    flat = torch.zeros(4 * 8 * 2 * 128 + 1, dtype=dtype)
+    pool = flat[1:].view(4, 8, 2, 128)
+    assert pool.data_ptr() % 16 != 0
+    assert tkernel.kernel_path(q, pool, pool) == "scalar"
+    assert tkernel.kernel_path(q, pool.clone(), pool.clone()) == (
+        "mma" if dtype == torch.bfloat16 else "async")
 
 
 def test_dense_to_pages_is_a_view_with_the_references_table():

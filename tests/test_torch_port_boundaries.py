@@ -200,7 +200,7 @@ def test_both_kernel_modules_share_one_build_helper():
         "crossmatch.cu", "grouped_matmul.cu", "paged_attention.cu"]
     assert nvcc.NVCC_FLAGS == (
         "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",
     )
 
 
