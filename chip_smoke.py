@@ -153,7 +153,18 @@ Phases; any failure exits non-zero before the last line is printed:
               stack of 1.61 GB) and back; (e f32) (e) in
               float32, the decode call of a full-width f32 cut; (b bf16
               elem) (b) with f = 1020, which TMA cannot describe: the bf16
-              element-load kernels, forward and dW.  At (b f32) and (e
+              async kernels (the TMA kernels' consumers, their ring filled
+              through cp.async; x in 16-byte copies, w and y in 8-byte
+              ones), forward, dW and dX; (b bf16 odd) f = 1021 (w and y
+              in 2-byte loads and stores), forward and dW; (dx1020) dX
+              with an output width of 1020, on w as it is (the peak
+              memory of the call holds no w^T).  At (b bf16) the async
+              forward, dX and dW on copies of x and dy 8 bytes past 16
+              must equal the TMA kernels' bit for bit; (o) the port's
+              public op, ``ops.grouped_matmul`` with its backward, at (b
+              bf16 elem), (b bf16 odd) and (dx1020)'s widths, counted by
+              kernel (``KERNEL_LAUNCHES``: the async kernels, no other).
+              At (b f32) and (e
               f32) the TMA-fed f32 kernel must equal the element-load one
               (``gmm_f32``, on a misaligned copy of x) bit for bit; both
               are timed.  Tolerance: the
@@ -608,8 +619,9 @@ GMM_DECODE_SHAPES = {"e": (GMM_DECODE, 2048, 1408, torch.bfloat16),
 # Phase 7's shapes: (T, d, f, group sizes, dtype, weight scale).  The
 # weights of (a)/(a') are the model's init scale, 1/sqrt(d); (b) takes
 # kernel_bench's 0.02.  (b bf16 elem) is (b) with f = 1020, which TMA
-# cannot describe (rows of 2040 bytes): the bf16 element-load kernels'
-# row, forward and dW (``GMM_DW_ELEM``).
+# cannot describe (rows of 2040 bytes): the bf16 async kernels' row,
+# forward, dW and dX (``GMM_ASYNC``); (b bf16 odd) the same at f = 1021,
+# rows of 2042 bytes, the 2-byte tier.
 GMM_SHAPES = {
     "a": (16384, 2048, 1408, [256] * 64, torch.bfloat16, 2048 ** -0.5),
     "a'": (16384, 1408, 2048, [256] * 64, torch.bfloat16, 1408 ** -0.5),
@@ -617,8 +629,29 @@ GMM_SHAPES = {
     "b f32": (4096, 1024, 1024, [512, 1024, 512, 2048], torch.float32, 0.02),
     "b bf16 elem": (4096, 1024, 1020, [512, 1024, 512, 2048],
                     torch.bfloat16, 0.02),
+    "b bf16 odd": (4096, 1024, 1021, [512, 1024, 512, 2048],
+                   torch.bfloat16, 0.02),
 }
 GMM_DW_ELEM = "b bf16 elem"
+# The async kernels' shapes (``measure_async``): dW at both tiers, dX at
+# (b bf16 elem) and at (dx1020), the forward's output 1020 wide: dy (T,
+# 1024) against w (G, 1020, 1024).  GMM_TWIN: the aligned shape whose
+# offset copies the async kernels must run to the TMA kernels' bits.
+GMM_ASYNC = ("b bf16 elem", "b bf16 odd")
+GMM_DX1020 = (4096, 1020, 1024, [512, 1024, 512, 2048], torch.bfloat16,
+              0.02)
+GMM_TWIN, GMM_TWIN_BYTES = "b bf16", 8
+# The earlier element-load wmma kernels (gmm_bf16_elem, gmm_dw_bf16; dX
+# on a copy of w^T, the copy included) at these shapes, one-call medians
+# in ms, as ``benchmarks/async_tune.py --against`` measured them beside
+# the async kernels on an H100 80GB HBM3 at 700 W (PERF.md): printed
+# beside this run's times, not measured here (the kernels are gone).
+ELEM_EARLIER_MS = {("b bf16 elem", "fwd"): 0.1494,
+                   ("b bf16 odd", "fwd"): 0.1635,
+                   ("b bf16 elem", "dW"): 0.2036,
+                   ("b bf16 odd", "dW"): 0.1994,
+                   ("b bf16 elem", "dX"): 0.1840,
+                   ("dx1020", "dX"): 0.1962}
 # K5's float32 kernels fed by TMA ("f32") are held bit for bit to the
 # element-load ones ("f32_elem") at every f32 shape of phases 7 and 12:
 # each output of both is one fmaf chain in the same order.  The element-
@@ -933,6 +966,9 @@ def main() -> int:
     k5 = dict(grouped["a"], shapes={
         k: v for k, v in grouped.items() if k != "a"})
     records.append(k5)
+    async_records, by_run["public"] = run_async_phase(grouped, grouped_dw,
+                                                      dev, smi)
+    records.extend(async_records)
     print(f"[grouped] phase 7 in {time.perf_counter() - t0:.1f}s", flush=True)
 
     # -- 8. the MoE serving path ----------------------------------------------
@@ -2245,6 +2281,18 @@ def grouped_library(x, w, sizes):
     return None, "none"
 
 
+def library_run(fn, name):
+    """(fn's output, name) where the PyTorch call takes these operands, or
+    (None, why not): ``torch._grouped_mm`` refuses some widths TMA cannot
+    describe either.  The call is the yardstick, never the port's path."""
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out, name
+    except RuntimeError as exc:
+        return None, f"none: {name} refused ({str(exc).splitlines()[0]})"
+
+
 def grouped_dw_library(x, dy, sizes):
     """One PyTorch call computing K5's weight gradient on the same inputs:
     ``torch.bmm`` of the (G, C, d) view transposed with the (G, C, f) one
@@ -2361,8 +2409,10 @@ def time_grouped(x, gid, w, rows, library, nbytes, flops, label) -> dict:
     lib_fn, lib_name = library
     lib_ms, lib_err = None, None
     if lib_fn is not None:
-        lib_err = float((lib_fn().float() - want.float()).abs().max())
-        lib_ms = cuda_ms(lib_fn, REPS)
+        lib_out, lib_name = library_run(lib_fn, lib_name)
+        if lib_out is not None:
+            lib_err = float((lib_out.float() - want.float()).abs().max())
+            lib_ms = cuda_ms(lib_fn, REPS)
     k_ms = cuda_ms(lambda: GK.grouped_matmul_kernel(x, gid, w, GMM_BT, rows),
                    REPS)
     k_dev = many_ms(lambda: GK.grouped_matmul_kernel(x, gid, w, GMM_BT, rows))
@@ -2424,7 +2474,10 @@ def measure_grouped_dw(key, shape, dev) -> dict:
                          f"max |diff| {err} of {scale}")
     path = GK.dw_kernel_path(x, dy)
     lib_fn, lib_name = grouped_dw_library(x, dy, sizes)
-    lib_ms = cuda_ms(lib_fn, REPS) if lib_fn is not None else None
+    lib_ms = None
+    if lib_fn is not None:
+        lib_out, lib_name = library_run(lib_fn, lib_name)
+        lib_ms = cuda_ms(lib_fn, REPS) if lib_out is not None else None
     k_ms, p_ms = cuda_ms(kern, REPS), cuda_ms(plain, REPS)
     nbytes = (T * (d + f) + G * d * f) * x.element_size() + gid.numel() * 4
     flops = 2.0 * T * d * f
@@ -2447,6 +2500,203 @@ def measure_grouped_dw(key, shape, dev) -> dict:
         library=lib_name, shape=label, kernel_path=path,
         kernel=GK.DW_KERNELS[path],
     )
+
+
+def measure_grouped_dx(key, shape, dev) -> dict:
+    """K5's dX on the async kernel: dy (T, f) against the forward's w (G,
+    d, f), read K-major as it is, out (T, d), every row real; against its
+    plain version (w^T as a view) within the forward's tolerance.  The
+    call's peak memory must hold no copy of w^T.  The library call is
+    ``torch._grouped_mm`` on w^T as a view, where the card's torch has
+    it.  The bound counts dy, w and the ids read once, out written once,
+    2 T d f operations."""
+    T, d, f, sizes, dtype, scale = shape
+    G = len(sizes)
+    gen = torch.Generator(device=dev).manual_seed(79 + d)
+    dy = torch.randn(T, f, device=dev, generator=gen).to(dtype)
+    w = (torch.randn(G, d, f, device=dev, generator=gen) * scale).to(dtype)
+    gid = gmm_ops.tile_groups(torch.tensor(sizes, device=dev), T, GMM_BT, G)
+
+    def kern():
+        return GK._k5(dy, gid, w, GMM_BT, None, "grouped_matmul_dx",
+                      w_transposed=True)
+
+    def plain():
+        return grouped_matmul_tiles_ref(dy, gid, w.transpose(1, 2), GMM_BT)
+
+    kern()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = kern()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    want = plain()
+    err = float((got.float() - want.float()).abs().max())
+    tol = GMM_TOL[dtype]
+    out_bytes = got.numel() * got.element_size()
+    w_bytes = w.numel() * w.element_size()
+    if not (torch.isfinite(got).all()
+            and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)):
+        raise SystemExit(f"K5 dX ({key}) differs from its plain version: "
+                         f"max |diff| {err}")
+    if peak >= out_bytes + w_bytes // 2:
+        raise SystemExit(f"K5 dX ({key}) held {peak} bytes over its "
+                         f"{out_bytes}-byte output: a copy of w^T")
+    path = GK.kernel_path(dy, w)
+    lib_ms, lib_name = None, "none: the card's torch has no _grouped_mm"
+    if hasattr(torch, "_grouped_mm"):
+        offs = torch.tensor(np.cumsum(sizes), dtype=torch.int32, device=dev)
+
+        def lib_fn():
+            return torch._grouped_mm(dy, w.transpose(-2, -1), offs=offs)
+
+        lib_out, lib_name = library_run(lib_fn,
+                                        "torch._grouped_mm on w^T as a view")
+        if lib_out is not None:
+            lib_ms = cuda_ms(lib_fn, REPS)
+    k_ms, p_ms = cuda_ms(kern, REPS), cuda_ms(plain, REPS)
+    k_dev = many_ms(kern)
+    nbytes = (T * f + G * d * f + T * d) * dy.element_size() + gid.numel() * 4
+    flops = 2.0 * T * d * f
+    bound, bound_by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    label = (f"({key}) dX T={T} d={d} <- f={f} groups={G} "
+             f"{str(dtype).replace('torch.', '')}")
+    lib_txt = (f"{lib_name} {lib_ms:.4f} ms" if lib_ms is not None
+               else f"library {lib_name}")
+    print(f"[grouped] {label}: dX path {path} ({GK.KERNELS[path]}, w read "
+          f"K-major), max |diff| {err:.3e} (tolerance {tol}); peak "
+          f"{peak} bytes over the {out_bytes}-byte output (w^T would be "
+          f"{w_bytes}); kernel {k_ms:.4f} ms (device {k_dev:.4f}, "
+          f"{bound / k_ms:.2f} of the bound), plain {p_ms:.4f} ms, "
+          f"{lib_txt}, bound {bound:.4f} ms ({bound_by})", flush=True)
+    return dict(
+        name="grouped_matmul_dx", route="cuda", source=GMM_SOURCE,
+        replaces=GMM_REPLACES, launches=0, max_abs_err=err, ms=k_ms,
+        plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
+        library=lib_name, shape=label, path=path, kernel=GK.KERNELS[path],
+        device_ms=k_dev, peak_bytes=peak,
+    )
+
+
+def check_async_twins(dev) -> dict:
+    """At (GMM_TWIN), which TMA describes, the async kernels on copies of x
+    and dy whose bases lie GMM_TWIN_BYTES past 16 bytes: their forward, dX
+    and dW must equal the TMA kernels' bit for bit (the same consumers on
+    the same bytes).  Both are timed.  Returns {product: (tma ms, async
+    ms)}."""
+    T, d, f, sizes, dtype, scale = GMM_SHAPES[GMM_TWIN]
+    G = len(sizes)
+    gen = torch.Generator(device=dev).manual_seed(80)
+    x = torch.randn(T, d, device=dev, generator=gen).to(dtype)
+    dy = torch.randn(T, f, device=dev, generator=gen).to(dtype)
+    w = (torch.randn(G, d, f, device=dev, generator=gen) * scale).to(dtype)
+    gid = gmm_ops.tile_groups(torch.tensor(sizes, device=dev), T, GMM_BT, G)
+    xm, dym = misaligned(x, GMM_TWIN_BYTES), misaligned(dy, GMM_TWIN_BYTES)
+    calls = {
+        "forward": (lambda a: GK.grouped_matmul_kernel(a, gid, w, GMM_BT),
+                    x, xm),
+        "dX": (lambda a: GK._k5(a, gid, w, GMM_BT, None, "grouped_matmul_dx",
+                                w_transposed=True), dy, dym),
+        "dW": (lambda a: GK.grouped_matmul_dw_kernel(
+            a[0], a[1], gid, G, GMM_BT), (x, dy), (xm, dym)),
+    }
+    out = {}
+    for product, (fn, aligned, off) in calls.items():
+        before = dict(GK.KERNEL_LAUNCHES)
+        a, b = fn(aligned), fn(off)
+        torch.cuda.synchronize()
+        ran = sorted(k for k, v in GK.KERNEL_LAUNCHES.items()
+                     if v != before[k])
+        if len(ran) != 2 or not any("async" in k for k in ran):
+            raise SystemExit(f"K5 twins ({GMM_TWIN}) {product}: ran {ran}")
+        if not same_bits(a, b):
+            raise SystemExit(f"K5 ({GMM_TWIN}) {product}: the async kernel "
+                             f"on a copy {GMM_TWIN_BYTES} bytes off differs "
+                             f"from the TMA kernel in its bits")
+        out[product] = (cuda_ms(lambda: fn(aligned), REPS),
+                        cuda_ms(lambda: fn(off), REPS))
+        print(f"[grouped] ({GMM_TWIN}) {product}: {' = '.join(ran)} bit for bit "
+              f"(the async one on copies {GMM_TWIN_BYTES} bytes past 16); "
+              f"TMA {out[product][0]:.4f} ms, async {out[product][1]:.4f} "
+              f"ms", flush=True)
+    return out
+
+
+def run_public_op(dev) -> dict:
+    """(o): the port's public op, ``ops.grouped_matmul`` with its backward
+    (``grouped_matmul_fn``), at (b bf16 elem)'s, (b bf16 odd)'s and
+    (dx1020)'s widths, counted from 0: every launch must be an async
+    kernel's (forward and dX ``gmm_bf16_async``, dW
+    ``gmm_dw_bf16_async``) and every gradient finite.  Returns the run's
+    launches by wrapper and by kernel."""
+    shapes = [GMM_SHAPES[k] for k in GMM_ASYNC] + [GMM_DX1020]
+    gen = torch.Generator(device=dev).manual_seed(81)
+    reset_all_launches()
+    for T, d, f, sizes, dtype, scale in shapes:
+        x = torch.randn(T, d, device=dev, generator=gen).to(dtype)
+        w = (torch.randn(len(sizes), d, f, device=dev, generator=gen)
+             * scale).to(dtype)
+        dy = torch.randn(T, f, device=dev, generator=gen).to(dtype)
+        x.requires_grad_()
+        w.requires_grad_()
+        y = gmm_ops.grouped_matmul(x, torch.tensor(sizes, device=dev), w)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(y).all() and torch.isfinite(x.grad).all()
+                and torch.isfinite(w.grad).all()):
+            raise SystemExit(f"ops.grouped_matmul at d={d} f={f}: a "
+                             f"non-finite output or gradient")
+    launched = {k: v for k, v in GK.KERNEL_LAUNCHES.items() if v}
+    want = {GK.KERNELS["elem"]: 2 * len(shapes),
+            GK.DW_KERNELS["elem"]: len(shapes)}
+    if launched != want:
+        raise SystemExit(f"ops.grouped_matmul at widths TMA cannot describe "
+                         f"launched {launched}, expected {want}")
+    print(f"[grouped] (o) ops.grouped_matmul with its backward at "
+          f"{[(s[1], s[2]) for s in shapes]}: {launched}", flush=True)
+    return {**GK.LAUNCHES, **GK.KERNEL_LAUNCHES}
+
+
+def run_async_phase(grouped, grouped_dw, dev, smi) -> tuple:
+    """Phase 7's async kernels: dW at (b bf16 odd), dX at (b bf16 elem) and
+    (dx1020), the twins at (b bf16) and the public op (o).  Returns the
+    records of ``gmm_bf16_async`` (forward at (b bf16 elem), the rest as
+    shapes) and ``gmm_dw_bf16_async``, and (o)'s launches."""
+    dws = {GMM_DW_ELEM: grouped_dw}
+    for key in GMM_ASYNC[1:]:
+        dws[key] = measure_grouped_dw(key, GMM_SHAPES[key], dev)
+    dxs = {"b bf16 elem": measure_grouped_dx(
+        "b bf16 elem", GMM_SHAPES["b bf16 elem"], dev),
+        "dx1020": measure_grouped_dx("dx1020", GMM_DX1020, dev)}
+    fwds = {key: grouped[key] for key in GMM_ASYNC}
+    for rec in (*fwds.values(), *dxs.values()):
+        need(rec["kernel"] == GK.KERNELS["elem"],
+             f"{rec['shape']} took {rec['kernel']}")
+    for rec in dws.values():
+        need(rec["kernel"] == GK.DW_KERNELS["elem"],
+             f"{rec['shape']} took {rec['kernel']}")
+    twins = check_async_twins(dev)
+    public = run_public_op(dev)
+    earlier = "; ".join(f"{k} {p} [{ms:.4f}]" for (k, p), ms in
+                        ELEM_EARLIER_MS.items())
+    print(f"[grouped] async kernels on {smi}: forward "
+          + ", ".join(f"({k}) {r['ms']:.4f} ms" for k, r in fwds.items())
+          + "; dW " + ", ".join(f"({k}) {r['ms']:.4f} ms"
+                                for k, r in dws.items())
+          + "; dX " + ", ".join(f"({k}) {r['ms']:.4f} ms"
+                                for k, r in dxs.items())
+          + f"; at ({GMM_TWIN}) TMA / async "
+          + ", ".join(f"{p} {a:.4f} / {b:.4f}" for p, (a, b) in
+                      twins.items())
+          + f"; the earlier element-load kernels, recorded: {earlier}",
+          flush=True)
+    fwd = dict(fwds["b bf16 elem"], name=GK.KERNELS["elem"], shapes={
+        "b bf16 odd": fwds["b bf16 odd"],
+        **{f"dX {k}": v for k, v in dxs.items()}})
+    dw = dict(dws["b bf16 elem"], name=GK.DW_KERNELS["elem"], shapes={
+        k: v for k, v in dws.items() if k != "b bf16 elem"})
+    return [fwd, dw], public
 
 
 # ---------------------------------------------------------------- phase 9

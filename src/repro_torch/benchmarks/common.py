@@ -198,11 +198,14 @@ def write_report(path, report: dict) -> None:
     pathlib.Path(path).write_text(json.dumps(report, indent=2) + "\n")
 
 
-def misaligned(t: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy of ``t`` one element past a 16-byte boundary:
-    TMA cannot describe it, so K5 takes its element-load kernel."""
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    out = buf[1:].view(t.shape)
+def misaligned(t: torch.Tensor, nbytes: int | None = None) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose base lies ``nbytes`` (one element
+    by default) past a 16-byte boundary: TMA cannot describe it, so K5
+    takes the kernel of the path "f32_elem" (float32) or "elem" (bf16,
+    whose copies of it are then ``nbytes`` wide at most)."""
+    k = 1 if nbytes is None else nbytes // t.element_size()
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    out = buf[k:].view(t.shape)
     out.copy_(t)
     return out
 

@@ -45,10 +45,24 @@
 //    reads the forward's w through a tensor map over the same memory,
 //    boxes 64 deep x 64 columns along w's contiguous f, as a K-major B
 //    (transpose bit clear), so no transposed copy of the weights is made.
-//  * bfloat16 that TMA cannot describe (d or f not a multiple of 8, or an
-//    unaligned base; gmm_bf16_elem): tensor cores through nvcuda::wmma,
-//    16x16x16 fragments, 8 warps on a 128 x 128 tile, element loads with
-//    the ragged edges zeroed, double-buffered shared-memory slices.
+//  * bfloat16 that TMA cannot describe (d or f not a multiple of 8, or a
+//    base off 16 bytes; gmm_bf16_async): the same consumers, the same
+//    products in the same order, on a ring filled by a warpgroup of
+//    producer threads through cp.async in the exact bytes TMA's boxes
+//    would hold (each operand at the widest copy of 16, 8 or 4 bytes that
+//    divides its row pitch and base; at 2 bytes, the aligned 16-byte
+//    chunks that hold a row, realigned in shared memory a stage behind;
+//    zeros past the edges and past the tile's real rows), so its results
+//    equal gmm_bf16_tma's bit for bit wherever both can run.  The
+//    producers hand registers to the consumers (setmaxnreg), and the
+//    consumers fence the generic proxy's writes from wgmma's reads after
+//    each stage's barrier.  Its dX instance reads the forward's w K-major
+//    in place at any width, so no call copies w^T in bf16.  Bound at (b)
+//    with f = 1020 (T = 4096, d = 1024): 8.6 GFLOP, 0.0087 ms of
+//    tensor-core work against 0.0075 ms of bytes; what the copies add is
+//    producer instructions, which bound the ring's rate (on copies 8
+//    bytes off, the async forward at (b) took 1.7x the TMA kernel's time;
+//    PERF.md).
 //  * float32 that TMA can describe (d and f multiples of 4, 16-byte aligned
 //    bases; gmm_f32_tma): CUDA-core FMA, no TF32 and no split of the depth
 //    (the reference checks f32 to 1e-5, and this is the path that proves
@@ -105,15 +119,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
-#include <mma.h>
 #include <stdint.h>
 #include <stdio.h>
 
 #include <algorithm>
 
 namespace {
-
-using namespace nvcuda;
 
 constexpr int kBM = 128;  // rows of a bf16 block's tile (divides bt)
 constexpr int kBN = 128;  // its columns (one wgmma's n in gmm_bf16_tma)
@@ -131,27 +142,68 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&t);
 }
 
+// The unsigned type of kBytes (16, 8, 4 or 2): one copy or store.
+template <int kBytes>
+struct Bits;
+template <>
+struct Bits<16> {
+  using T = uint4;
+  static __device__ __forceinline__ T of(uint32_t b2) {
+    return make_uint4(b2, b2, b2, b2);
+  }
+};
+template <>
+struct Bits<8> {
+  using T = uint2;
+  static __device__ __forceinline__ T of(uint32_t b2) {
+    return make_uint2(b2, b2);
+  }
+};
+template <>
+struct Bits<4> {
+  using T = uint32_t;
+  static __device__ __forceinline__ T of(uint32_t b2) { return b2; }
+};
+template <>
+struct Bits<2> {
+  using T = uint16_t;
+  static __device__ __forceinline__ T of(uint32_t b2) {
+    return static_cast<uint16_t>(b2);
+  }
+};
+
+template <int N>
+struct Width {
+  static constexpr int value = N;
+};
+
+// Calls fn(Width<b>{}) for b = `bytes`, one of 16, 8, 4 and 2, picked on
+// the host: each width is an instance of its own of whatever loop fn
+// runs, so no loop branches on it.
+template <class Fn>
+__device__ __forceinline__ void with_width(int bytes, Fn&& fn) {
+  switch (bytes) {
+    case 16: fn(Width<16>{}); break;
+    case 8: fn(Width<8>{}); break;
+    case 4: fn(Width<4>{}); break;
+    default: fn(Width<2>{}); break;
+  }
+}
+
 // Rows [r0, r1) x columns [n0, n0 + kBN) of a bf16 y set to `bits` (a bf16
-// bit pattern), columns past f left alone.  kVec: f % 8 == 0 and y is
-// 16-byte aligned, so eight columns go in one store.
-template <bool kVec>
+// bit pattern), columns past f left alone, kBytes a store: kBytes divides
+// y's row pitch (2 f) and base, so a store lies wholly on one side of f.
+template <int kBytes>
 __device__ __forceinline__ void fill_bf16(__nv_bfloat16* y, int r0, int r1,
                                           int n0, int f, uint16_t bits,
                                           int tid, int nthreads) {
-  if (kVec) {
-    const uint32_t b2 = bits | (uint32_t(bits) << 16);
-    const uint4 v = make_uint4(b2, b2, b2, b2);
-    for (int e = tid; e < (r1 - r0) * (kBN / 8); e += nthreads) {
-      const int c = n0 + (e % (kBN / 8)) * 8;
-      if (c < f)
-        *reinterpret_cast<uint4*>(y + size_t(r0 + e / (kBN / 8)) * f + c) = v;
-    }
-  } else {
-    const __nv_bfloat16 v = __ushort_as_bfloat16(bits);
-    for (int e = tid; e < (r1 - r0) * kBN; e += nthreads) {
-      const int c = n0 + (e % kBN);
-      if (c < f) y[size_t(r0 + e / kBN) * f + c] = v;
-    }
+  constexpr int kPer = kBN * 2 / kBytes;  // stores a row of the tile
+  const auto v = Bits<kBytes>::of(bits | (uint32_t(bits) << 16));
+  for (int e = tid; e < (r1 - r0) * kPer; e += nthreads) {
+    const int c = n0 + (e % kPer) * (kBytes / 2);
+    if (c < f)
+      *reinterpret_cast<typename Bits<kBytes>::T*>(
+          y + size_t(r0 + e / kPer) * f + c) = v;
   }
 }
 
@@ -294,34 +346,436 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(1), "n"(kTransA), "n"(kTransB));
 }
 
-// tmx: x as (T rows, d) with 64 x 64 boxes; tmw: w with 1 x 64 x 64 boxes;
-// both 128-byte swizzled with zero fill past the edges.  kWKMajor false:
+// ------------------------------------ bf16: the producers of the ring
+// The wgmma kernels (forward, dX and dW) read their operands from a ring
+// of stages in dynamic shared memory, each operand as 64-row boxes of 128
+// bytes a row in the layout of TMA's SWIZZLE_128B: row r of a box at r x
+// 128 bytes, its 16-byte chunk c at (c ^ (r & 7)) x 16 (the box on a
+// 1024-byte boundary), which the consumers' descriptors (gmma_desc)
+// assume.  Two producers fill it.  TMA, where it can describe the
+// operands (rows of a whole number of 16 bytes on 16-byte aligned bases):
+// one lane issues the boxes and each stage completes on its full barrier
+// by the bytes written.  cp.async elsewhere (the "async" instances): a
+// warpgroup of producer threads writes the same bytes to the same
+// addresses, each operand in copies of its own width, the widest of 16, 8,
+// 4 or 2 bytes that divides its row pitch and its base (picked on the
+// host, an instance of the copy loop each).  Edges and rows past a count
+// are zeros (cp.async's src-size 0); a copy never straddles an edge, since
+// its width divides the pitch.  cp.async takes no 2-byte copy, so a
+// 2-byte operand moves in the aligned 16-byte chunks that hold its rows
+// and is realigned in shared memory (copy_chunks, realign_chunks).  So the
+// consumers run the same products on the same bytes in the same order,
+// and the async instances give the TMA instances' bits.  The producers
+// write through the generic proxy and wgmma reads through the async one,
+// so a consumer runs fence.proxy.async after each full barrier's wait.
+constexpr int kAsyncProducerWarps = 4;  // a warpgroup
+constexpr int kAsyncProducers = kAsyncProducerWarps * 32;
+constexpr int kAsyncThreads = kConsumers * 128 + kAsyncProducers;
+// Registers a producer thread keeps through setmaxnreg, the consumers
+// taking the rest (0: none moved): a block of 384 threads has 168 a
+// thread at launch, and 128 x 96 + 256 x 200 fit in them.  The consumers
+// need no more than 168, as the TMA kernels' do; producers held to 96 ran
+// as fast as with none moved, or faster (the 2-byte dW), and to 56
+// spilled (benchmarks/async_tune.py).
+constexpr int kProducerRegs = 96;
+constexpr int kConsumerRegs = 200;
+static_assert(kProducerRegs == 0 ||
+                  (kAsyncProducerWarps == 4 &&
+                   128 * kProducerRegs + kConsumers * 128 * kConsumerRegs <=
+                       kAsyncThreads * ((65536 / kAsyncThreads) & ~7)),
+              "setmaxnreg asks for more registers than the block holds");
+
+template <bool kDec>
+__device__ __forceinline__ void set_max_regs() {
+  if constexpr (kProducerRegs > 0) {
+    if (kDec)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    else
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  }
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// One copy of kBytes (16, 8 or 4) from global src to shared dst, whose
+// first n bytes (kBytes or 0) are read and the rest written as zeros.
+template <int kBytes>
+__device__ __forceinline__ void copy_async(uint32_t dst, const void* src,
+                                           int n) {
+  if (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+                 "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(dst),
+                 "l"(src), "n"(kBytes), "r"(n)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_shared_u32(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;" ::"r"(a), "r"(v) : "memory");
+}
+
+// Ends a producer thread's part of a stage of direct copies.  The first
+// arrive waits for the thread's cp.async copies without counting as one
+// of the barrier's arrivals (the pending count goes up now and down when
+// they land); the second is an ordinary arrive, whose release covers what
+// the thread wrote with st.shared (dW's info word).  The barrier counts
+// one arrival a producer thread.
+__device__ __forceinline__ void stage_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(bar)
+               : "memory");
+  mbar_arrive(bar);
+}
+
+// One box's source: rows [r0, r0 + 64) x columns [c0, c0 + 64) of the
+// row-major bf16 matrix at `base`, `pitch` elements a row; rows at or past
+// nrows and columns at or past ncols are zeros.
+struct BoxSrc {
+  const uint16_t* base;
+  int pitch, r0, nrows, c0, ncols;
+
+  // A 16-byte aligned address the copies of zeros name (they read none).
+  __device__ __forceinline__ const char* dummy() const {
+    return reinterpret_cast<const char*>(
+        reinterpret_cast<uintptr_t>(base) & ~uintptr_t(15));
+  }
+};
+
+// The box at `dst` in kBytes (16, 8 or 4) copies.  Producer thread p makes
+// copies p, p + kAsyncProducers, ... of the box's 8192 / kBytes in row
+// order (neighbouring threads on neighbouring bytes of a row): a column q
+// of kBytes and every kRowStep-th row from p / kPer.
+template <int kBytes>
+__device__ __forceinline__ void copy_box(uint32_t dst, const BoxSrc& b,
+                                         int p) {
+  constexpr int kPer = 128 / kBytes;  // copies a box row
+  constexpr int kRowStep = kAsyncProducers / kPer;  // rows between a thread's
+  static_assert(kAsyncProducers % kPer == 0, "producers cover whole rows");
+  const int q = p % kPer, r_first = p / kPer;
+  const int col = b.c0 + q * (kBytes / 2);
+  // this thread's copy i is real while i x kRowStep < rows
+  const int rows = col < b.ncols ? b.nrows - b.r0 - r_first : 0;
+  const char* src = reinterpret_cast<const char*>(
+      b.base + (size_t(b.r0 + r_first) * b.pitch + col));
+  const size_t step = size_t(kRowStep) * b.pitch * 2;  // bytes
+  const uint32_t at = dst + r_first * 128 + ((q * kBytes) & 15);
+  const int chunk = (q * kBytes) >> 4;
+#pragma unroll
+  for (int i = 0; i < 64 / kRowStep; ++i) {
+    const int r = r_first + i * kRowStep;
+    const int swz = kRowStep % 8 == 0 ? r_first & 7 : r & 7;
+    const bool in = i * kRowStep < rows;
+    copy_async<kBytes>(at + i * kRowStep * 128 + ((chunk ^ swz) << 4),
+                       in ? src + i * step : b.dummy(), in ? kBytes : 0);
+  }
+}
+
+// The 2-byte tier, a warp for rows warp, warp + kAsyncProducerWarps, ...
+// of a box, in two passes.  A row's 64 elements (128 bytes) start s = 0,
+// 2, ..., 14 bytes into an aligned 16-byte chunk, so they lie in its 8
+// aligned chunks from there (9 where s > 0).  copy_chunks: the warp copies
+// four rows at a time, lane l chunk l % 8 of the (l / 8)-th row, through
+// cp.async to the box row, unswizzled, and chunk 8 of each row to the
+// row's 16 bytes in `side`; a chunk with no element below ncols, and a row
+// at or past nrows, is zeros.
+constexpr int kWordRows = 64 / kAsyncProducerWarps;  // a warp's rows a box
+static_assert(kWordRows % 4 == 0, "a warp copies four rows at a time");
+
+// The byte address of element c0 of the warp's first row.
+__device__ __forceinline__ const char* row_start(const BoxSrc& b, int warp) {
+  return reinterpret_cast<const char*>(
+      b.base + (size_t(b.r0 + warp) * b.pitch + b.c0));
+}
+
+__device__ __forceinline__ void copy_chunks(uint32_t dst, uint32_t side,
+                                            const BoxSrc& b, int p) {
+  const int warp = p >> 5, lane = p & 31;
+  const int c = lane & 7, sub = lane >> 3;  // chunk, row of the four
+  const char* a0 = row_start(b, warp);
+  const size_t step = size_t(kAsyncProducerWarps) * b.pitch * 2;
+  const int rows = b.nrows - b.r0 - warp;  // row i is real while i kW < rows
+#pragma unroll
+  for (int i4 = 0; i4 < kWordRows; i4 += 4) {
+    const int i = i4 + sub;
+    const int r = warp + i * kAsyncProducerWarps;
+    const char* a = a0 + i * step;
+    const int s = reinterpret_cast<uintptr_t>(a) & 15;
+    const char* ch = a - s;  // the row's first aligned chunk
+    const bool row = i * kAsyncProducerWarps < rows;
+    // chunk c holds the row's elements from (16 c - s) / 2 on
+    const bool in = row && b.c0 + max((16 * c - s) / 2, 0) < b.ncols;
+    copy_async<16>(dst + r * 128 + 16 * c, in ? ch + 16 * c : b.dummy(),
+                   in ? 16 : 0);
+    if (c == 0) {
+      const bool end = row && s != 0 && b.c0 + (128 - s) / 2 < b.ncols;
+      copy_async<16>(side + 16 * r, end ? ch + 128 : b.dummy(),
+                     end ? 16 : 0);
+    }
+  }
+}
+
+// realign_chunks, once the warp's copy_chunks have landed: lane t takes
+// the row's bytes [s + 4 t, s + 4 t + 4) -- words q = (s + 4 t) / 4 and q
+// + 1 of the 144 copied (words 32-35 in `side`), funnel-shifted by 8 (s %
+// 4) bits: the pair of elements 2 t, 2 t + 1 -- and zeroes those at or
+// past ncols; once the warp has read all its rows, it stores each pair
+// where TMA's box has it (16-byte chunk t / 4, swizzled, 4 bytes (t % 4)
+// in).
+__device__ __forceinline__ void realign_chunks(uint32_t dst, uint32_t side,
+                                               const BoxSrc& b, int p) {
+  const int warp = p >> 5, lane = p & 31;
+  const int e = b.c0 + 2 * lane;  // the pair's first element
+  const char* a0 = row_start(b, warp);
+  const size_t step = size_t(kAsyncProducerWarps) * b.pitch * 2;
+  __syncwarp();  // the other lanes' copies, landed, are seen
+  uint32_t lo[kWordRows], hi[kWordRows];
+  int shift[kWordRows];
+#pragma unroll
+  for (int i = 0; i < kWordRows; ++i) {
+    const int r = warp + i * kAsyncProducerWarps;
+    const int s = reinterpret_cast<uintptr_t>(a0 + i * step) & 15;
+    const int q = (s >> 2) + lane;
+    auto word = [&](int k) {
+      return k < 32 ? dst + r * 128 + 4 * k : side + 16 * r + 4 * (k - 32);
+    };
+    lo[i] = ld_shared_u32(word(q));
+    hi[i] = ld_shared_u32(word(q + 1));
+    shift[i] = 8 * (s & 3);
+  }
+  uint32_t out[kWordRows];
+#pragma unroll
+  for (int i = 0; i < kWordRows; ++i) {
+    out[i] = __funnelshift_r(lo[i], hi[i], shift[i]);
+    if (e + 1 >= b.ncols) out[i] = e < b.ncols ? out[i] & 0xFFFFu : 0u;
+  }
+  __syncwarp();  // every lane has read the rows it overwrites
+#pragma unroll
+  for (int i = 0; i < kWordRows; ++i) {
+    const int r = warp + i * kAsyncProducerWarps;
+    st_shared_u32(dst + r * 128 + (((lane >> 2) ^ (r & 7)) << 4) +
+                      4 * (lane & 3),
+                  out[i]);
+  }
+}
+
+// A box's copies at kBytes (2: the first pass), and its second pass.
+template <int kBytes>
+__device__ __forceinline__ void load_box(uint32_t dst, uint32_t side,
+                                         const BoxSrc& b, int p) {
+  if constexpr (kBytes == 2)
+    copy_chunks(dst, side, b, p);
+  else
+    copy_box<kBytes>(dst, b, p);
+}
+template <int kBytes>
+__device__ __forceinline__ void finish_box(uint32_t dst, uint32_t side,
+                                           const BoxSrc& b, int p) {
+  if constexpr (kBytes == 2) realign_chunks(dst, side, b, p);
+}
+
+// The forward's ring: stage s holds kConsumers x boxes (64 rows x 64 deep)
+// and kBN / 64 w boxes (64 deep x 64 columns, or 64 columns x 64 deep
+// read K-major), then the full and empty barriers of each stage, then
+// (async) each box's ninth chunks of its rows for the 2-byte tier.
+constexpr int kFwdBoxes = kConsumers + kBN / 64;
+constexpr int kSideBytes = 64 * 16;  // a box's 64 rows' ninth chunks
+constexpr int kBarBytes = 128;      // a ring's barriers (and info words)
+constexpr int kAsyncSmem =
+    kStages * kStageBytes + 1024 + kBarBytes + kStages * kFwdBoxes * kSideBytes;
+static_assert(2 * kStages * 8 <= kBarBytes, "the barriers fit");
+__device__ __forceinline__ uint32_t fwd_xbox(uint32_t ring, int s, int h) {
+  return ring + s * kStageBytes + h * kXBox;
+}
+__device__ __forceinline__ uint32_t fwd_wbox(uint32_t ring, int s, int j) {
+  return ring + s * kStageBytes + kConsumers * kXBox + j * kWBox;
+}
+__device__ __forceinline__ uint32_t fwd_full(uint32_t ring, int s) {
+  return ring + kStages * kStageBytes + 8u * s;
+}
+__device__ __forceinline__ uint32_t fwd_empty(uint32_t ring, int s) {
+  return ring + kStages * kStageBytes + 8u * (kStages + s);
+}
+__device__ __forceinline__ uint32_t fwd_side(uint32_t ring, int s, int box) {
+  return ring + kStages * kStageBytes + kBarBytes +
+         (s * kFwdBoxes + box) * kSideBytes;
+}
+
+// A forward block's loads: its tile's group g, real rows `rows` from row0
+// (x boxes for the nwg warpgroups with real rows), columns from n0, nk
+// stages of kBK deep.
+struct FwdTile {
+  uint32_t ring;
+  int nk, nwg, rows, row0, n0, g, d, f;
+};
+
+// TMA: x as (T rows, d) with 64 x 64 boxes, w with 1 x 64 x 64 boxes, zero
+// fill past the edges.  One lane of the producer warp keeps the ring full.
+struct TmaFwd {
+  static constexpr int kThreads = 32, kArrivals = 1;
+  static constexpr bool kAsync = false;
+  const CUtensorMap* tmx;
+  const CUtensorMap* tmw;
+
+  template <bool kWKMajor>
+  __device__ __forceinline__ void load(const FwdTile& b, int p) const {
+    if (p != 0) return;
+    asm volatile("prefetch.tensormap [%0];" ::"l"(
+                     reinterpret_cast<uint64_t>(tmx))
+                 : "memory");
+    asm volatile("prefetch.tensormap [%0];" ::"l"(
+                     reinterpret_cast<uint64_t>(tmw))
+                 : "memory");
+    const int bytes = b.nwg * kXBox + (kBN / 64) * kWBox;
+    for (int kt = 0; kt < b.nk; ++kt) {
+      const int s = kt % kStages;
+      const uint32_t full = fwd_full(b.ring, s);
+      mbar_wait(fwd_empty(b.ring, s), ((kt / kStages) & 1) ^ 1);
+      mbar_expect_tx(full, bytes);
+      for (int h = 0; h < b.nwg; ++h)
+        tma_load_2d(fwd_xbox(b.ring, s, h), tmx, kt * kBK, b.row0 + 64 * h,
+                    full);
+      for (int j = 0; j < kBN / 64; ++j) {
+        if (kWKMajor)
+          tma_load_3d(fwd_wbox(b.ring, s, j), tmw, kt * kBK, b.n0 + 64 * j,
+                      b.g, full);
+        else
+          tma_load_3d(fwd_wbox(b.ring, s, j), tmw, b.n0 + 64 * j, kt * kBK,
+                      b.g, full);
+      }
+    }
+  }
+};
+
+// cp.async: x (T, d) and w, (G, d, f) or, read K-major, stored (G, f, d);
+// xbytes and wbytes their copy widths.  The rows of x past the block's
+// real rows are zeros: they feed only output rows the epilogue writes as
+// +0, so TMA's noise there and these zeros give the same bits.  With a
+// 2-byte operand a stage's copies are one cp.async group, and the stage is
+// realigned and handed over kFwdLag stages later, its copies landing
+// while the next ones are issued.  The consumers hand a stage back once
+// they hold the next, so the producers, waiting for a free stage, have
+// handed over every stage but the last kStages - 2 before they wait: the
+// lag cannot stall the ring.
+constexpr int kFwdLag = kStages - 2;
+struct AsyncFwd {
+  static constexpr int kThreads = kAsyncProducers, kArrivals = kAsyncProducers;
+  static constexpr bool kAsync = true;
+  const uint16_t* x;
+  const uint16_t* w;
+  int xbytes, wbytes;
+
+  template <bool kWKMajor>
+  __device__ __forceinline__ void load(const FwdTile& b, int p) const {
+    with_width(xbytes, [&](auto xw) {
+      with_width(wbytes, [&](auto ww) {
+        this->template stages<kWKMajor, decltype(xw)::value,
+                              decltype(ww)::value>(b, p);
+      });
+    });
+    cp_async_wait<0>();
+  }
+
+  template <bool kWKMajor, int kX, int kW>
+  __device__ __forceinline__ void stages(const FwdTile& b, int p) const {
+    constexpr bool kRealign = kX == 2 || kW == 2;
+    const uint16_t* wg = w + size_t(b.g) * b.d * b.f;
+    auto xsrc = [&](int kt, int h) {
+      return BoxSrc{x, b.d, b.row0 + 64 * h, b.row0 + b.rows, kt * kBK, b.d};
+    };
+    auto wsrc = [&](int kt, int j) {
+      // K-major: rows are w's f (the output), columns its d
+      return kWKMajor ? BoxSrc{wg, b.d, b.n0 + 64 * j, b.f, kt * kBK, b.d}
+                      : BoxSrc{wg, b.f, kt * kBK, b.d, b.n0 + 64 * j, b.f};
+    };
+    constexpr int kLag = kRealign ? kFwdLag : 0;
+    for (int kt = 0; kt < b.nk + kLag; ++kt) {
+      if (kt < b.nk) {
+        const int s = kt % kStages;
+        mbar_wait(fwd_empty(b.ring, s), ((kt / kStages) & 1) ^ 1);
+        for (int h = 0; h < b.nwg; ++h)
+          load_box<kX>(fwd_xbox(b.ring, s, h), fwd_side(b.ring, s, h),
+                       xsrc(kt, h), p);
+        for (int j = 0; j < kBN / 64; ++j)
+          load_box<kW>(fwd_wbox(b.ring, s, j),
+                       fwd_side(b.ring, s, kConsumers + j), wsrc(kt, j), p);
+        if constexpr (kRealign)
+          cp_async_commit();
+        else
+          stage_arrive(fwd_full(b.ring, s));
+      }
+      const int kf = kt - kLag;  // the stage to realign and hand over
+      if (kRealign && kf >= 0) {
+        const int s = kf % kStages;
+        if (kt < b.nk)
+          cp_async_wait<kLag>();
+        else
+          cp_async_wait<0>();
+        for (int h = 0; h < b.nwg; ++h)
+          finish_box<kX>(fwd_xbox(b.ring, s, h), fwd_side(b.ring, s, h),
+                         xsrc(kf, h), p);
+        for (int j = 0; j < kBN / 64; ++j)
+          finish_box<kW>(fwd_wbox(b.ring, s, j),
+                         fwd_side(b.ring, s, kConsumers + j), wsrc(kf, j),
+                         p);
+        mbar_arrive(fwd_full(b.ring, s));
+      }
+    }
+  }
+};
+
+// The forward and dX: one block a 128 x 128 tile of y, the ring filled by
+// `loads` (TmaFwd or AsyncFwd), two consumer warpgroups.  kWKMajor false:
 // w is (G, d, f), a box 64 deep x 64 columns, read MN-major (the forward).
 // kWKMajor true: w is stored (G, f, d), the transpose of the weights this
 // call multiplies by (dX = dy w^T reads the forward's w untransposed), a
 // box 64 columns (rows of the stored w) x 64 deep, read K-major: the same
 // products in the same order, so the result equals the call on a
-// contiguous copy of w^T bit for bit.
-template <bool kWKMajor>
-__global__ void __launch_bounds__(kTmaThreads, 1)
-    gmm_bf16_tma(const __grid_constant__ CUtensorMap tmx,
-                 const __grid_constant__ CUtensorMap tmw,
-                 const int* __restrict__ tile_gid,
-                 const int* __restrict__ tile_rows,
-                 __nv_bfloat16* __restrict__ y, int d, int f, int G, int bt) {
+// contiguous copy of w^T bit for bit.  ybytes: y's store width (16 with
+// TMA; the async instances store two columns at a time where y's width is
+// 4 bytes or more, else one).
+template <bool kWKMajor, class Loads>
+__device__ __forceinline__ void gmm_bf16_wgmma(
+    const Loads& loads, const int* __restrict__ tile_gid,
+    const int* __restrict__ tile_rows, __nv_bfloat16* __restrict__ y, int d,
+    int f, int G, int bt, int ybytes) {
+  constexpr int kThreadsAll = kConsumers * 128 + Loads::kThreads;
   extern __shared__ uint8_t smem_raw[];
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * kBN;
   const int row0 = blockIdx.y * kBM;
   const int t = row0 / bt;
   const int g = tile_gid[t];
+  auto fill = [&](int r0, int r1, uint16_t bits, int i, int n) {
+    if constexpr (!Loads::kAsync)
+      fill_bf16<16>(y, r0, r1, n0, f, bits, i, n);
+    else
+      with_width(ybytes, [&](auto yw) {
+        fill_bf16<decltype(yw)::value>(y, r0, r1, n0, f, bits, i, n);
+      });
+  };
   if (g < 0 || g >= G) {
-    fill_bf16<true>(y, row0, row0 + kBM, n0, f, kBf16Nan, tid, kTmaThreads);
+    fill(row0, row0 + kBM, kBf16Nan, tid, kThreadsAll);
     return;
   }
   const int rows = block_rows(tile_rows, t, row0, bt, kBM);
   if (rows == 0) {
-    fill_bf16<true>(y, row0, row0 + kBM, n0, f, 0, tid, kTmaThreads);
+    fill(row0, row0 + kBM, 0, tid, kThreadsAll);
     return;
   }
   const int nwg = rows > 64 ? 2 : 1;  // consumer warpgroups with real rows
@@ -330,17 +784,10 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   // the full and empty barriers of each stage.
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
-  const uint32_t bars = ring + kStages * kStageBytes;
-  auto full = [&](int s) { return bars + 8u * s; };
-  auto empty = [&](int s) { return bars + 8u * (kStages + s); };
-  auto xbox = [&](int s, int h) { return ring + s * kStageBytes + h * kXBox; };
-  auto wbox = [&](int s, int j) {
-    return ring + s * kStageBytes + kConsumers * kXBox + j * kWBox;
-  };
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(full(s), 1);
-      mbar_init(empty(s), nwg);
+      mbar_init(fwd_full(ring, s), Loads::kArrivals);
+      mbar_init(fwd_empty(ring, s), nwg);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -349,38 +796,18 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   const int nk = (d + kBK - 1) / kBK;
   const int wg = tid / 128;
   if (wg == kConsumers) {
-    // Producer warp: one lane keeps the ring full.
-    if (tid == kConsumers * 128) {
-      asm volatile("prefetch.tensormap [%0];" ::"l"(
-                       reinterpret_cast<uint64_t>(&tmx))
-                   : "memory");
-      asm volatile("prefetch.tensormap [%0];" ::"l"(
-                       reinterpret_cast<uint64_t>(&tmw))
-                   : "memory");
-      const int bytes = nwg * kXBox + (kBN / 64) * kWBox;
-      for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % kStages;
-        mbar_wait(empty(s), ((kt / kStages) & 1) ^ 1);
-        mbar_expect_tx(full(s), bytes);
-        for (int h = 0; h < nwg; ++h)
-          tma_load_2d(xbox(s, h), &tmx, kt * kBK, row0 + 64 * h, full(s));
-        for (int j = 0; j < kBN / 64; ++j) {
-          if (kWKMajor)
-            tma_load_3d(wbox(s, j), &tmw, kt * kBK, n0 + 64 * j, g, full(s));
-          else
-            tma_load_3d(wbox(s, j), &tmw, n0 + 64 * j, kt * kBK, g, full(s));
-        }
-      }
-    }
+    if constexpr (Loads::kAsync) set_max_regs<true>();
+    loads.template load<kWKMajor>(
+        FwdTile{ring, nk, nwg, rows, row0, n0, g, d, f}, tid - kConsumers * 128);
     return;
   }
+  if constexpr (Loads::kAsync) set_max_regs<false>();
 
   // Consumer warpgroup wg: rows [64 wg, 64 wg + 64) of the tile.
   const int lane = tid & 31, warp = (tid & 127) >> 5;
   const int r_lo = 64 * wg + 16 * warp + (lane >> 2);  // and r_lo + 8
   if (wg >= nwg) {
-    fill_bf16<true>(y, row0 + 64 * wg, row0 + 64 * wg + 64, n0, f, 0,
-                    tid & 127, 128);
+    fill(row0 + 64 * wg, row0 + 64 * wg + 64, 0, tid & 127, 128);
     return;
   }
   float acc[64];
@@ -389,33 +816,37 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   acc_fence(acc);
   for (int kt = 0; kt < nk; ++kt) {
     const int s = kt % kStages;
-    mbar_wait(full(s), (kt / kStages) & 1);
+    mbar_wait(fwd_full(ring, s), (kt / kStages) & 1);
+    if constexpr (Loads::kAsync) fence_proxy_async();
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint64_t a = gmma_desc(xbox(s, wg) + 32 * kk, kALbo, kASbo);
+      const uint64_t a = gmma_desc(fwd_xbox(ring, s, wg) + 32 * kk, kALbo, kASbo);
       // K-major w: each of the 128 columns one 128-byte line of depth, as
       // x's rows (the two boxes adjoin, so 8-column atoms stay 1 KB apart)
       if (kWKMajor)
-        wgmma_m64n128k16<0, 0>(acc, a,
-                               gmma_desc(wbox(s, 0) + 32 * kk, kALbo, kASbo));
+        wgmma_m64n128k16<0, 0>(
+            acc, a, gmma_desc(fwd_wbox(ring, s, 0) + 32 * kk, kALbo, kASbo));
       else
-        wgmma_m64n128k16<0, 1>(acc, a,
-                               gmma_desc(wbox(s, 0) + 2048 * kk, kBLbo, kBSbo));
+        wgmma_m64n128k16<0, 1>(
+            acc, a, gmma_desc(fwd_wbox(ring, s, 0) + 2048 * kk, kBLbo, kBSbo));
     }
     wgmma_commit();
     acc_fence(acc);
     // The previous stage's products are done: hand its buffers back.
     wgmma_wait<1>();
     acc_fence(acc);
-    if (kt > 0 && (tid & 127) == 0) mbar_arrive(empty((kt - 1) % kStages));
+    if (kt > 0 && (tid & 127) == 0) mbar_arrive(fwd_empty(ring, (kt - 1) % kStages));
   }
   wgmma_wait<0>();
   acc_fence(acc);
 
   // Epilogue: accumulator 4 i + {0, 1} of lane l holds row r_lo, columns
   // 8 i + 2 (l % 4) + {0, 1}; 4 i + {2, 3} row r_lo + 8.  Rows past the
-  // count are written as +0; one cast to bf16.
+  // count are written as +0; one cast to bf16.  A pair of columns goes in
+  // one 4-byte store where y's width allows (f even: a pair lies wholly
+  // on one side of f), else one column a store.
+  const bool pairs = !Loads::kAsync || ybytes >= 4;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r_lo + 8 * half;
@@ -424,164 +855,43 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 #pragma unroll
     for (int i = 0; i < kBN / 8; ++i) {
       const int col = n0 + 8 * i + 2 * (lane & 3);
-      if (col < f) {
-        const float a = real ? acc[4 * i + 2 * half] : 0.0f;
-        const float b = real ? acc[4 * i + 2 * half + 1] : 0.0f;
-        *reinterpret_cast<uint32_t*>(out + col) = pack2(a, b);
+      const float a = real ? acc[4 * i + 2 * half] : 0.0f;
+      const float b = real ? acc[4 * i + 2 * half + 1] : 0.0f;
+      if (pairs) {
+        if (col < f) *reinterpret_cast<uint32_t*>(out + col) = pack2(a, b);
+      } else {
+        if (col < f) out[col] = __float2bfloat16(a);
+        if (col + 1 < f) out[col + 1] = __float2bfloat16(b);
       }
     }
   }
 }
 
-// ------------------------------------------------ bf16: element loads
-constexpr int kEK = 32;  // depth of a shared-memory slice
-constexpr int kWarpsM = 2;
-constexpr int kWarpsN = 4;
-constexpr int kThreads = kWarpsM * kWarpsN * 32;
-constexpr int kWM = kBM / kWarpsM;  // 64 rows a warp
-constexpr int kWN = kBN / kWarpsN;  // 32 columns a warp
-constexpr int kFM = kWM / 16;
-constexpr int kFN = kWN / 16;
-constexpr int kALd = kEK + 8;  // row pitch (elements) of the x slice
-constexpr int kBLd = kBN + 8;  // of the w slice
-constexpr int kAVecs = kBM * kEK / 8 / kThreads;  // 8-element groups a thread
-constexpr int kBVecs = kEK * kBN / 8 / kThreads;
-
-// bf16 bit patterns; wmma reads them as __nv_bfloat16.
-struct __align__(128) BfTiles {
-  uint16_t a[2][kBM * kALd];
-  uint16_t b[2][kEK * kBLd];
-  float stage[kThreads / 32][16 * 16];  // one accumulator tile a warp
-};
-
-__device__ __forceinline__ const __nv_bfloat16* as_bf16(const uint16_t* p) {
-  return reinterpret_cast<const __nv_bfloat16*>(p);
+// bf16 that TMA can describe: the ring filled by TMA (see gmm_bf16_wgmma).
+template <bool kWKMajor>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    gmm_bf16_tma(const __grid_constant__ CUtensorMap tmx,
+                 const __grid_constant__ CUtensorMap tmw,
+                 const int* __restrict__ tile_gid,
+                 const int* __restrict__ tile_rows,
+                 __nv_bfloat16* __restrict__ y, int d, int f, int G, int bt) {
+  gmm_bf16_wgmma<kWKMajor>(TmaFwd{&tmx, &tmw}, tile_gid, tile_rows, y, d, f,
+                           G, bt, 16);
 }
 
-// Eight consecutive bf16 of p, of which the first `valid` are read and the
-// rest are zero.
-__device__ __forceinline__ uint4 load8(const uint16_t* p, int valid) {
-  uint16_t h[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) h[e] = e < valid ? p[e] : uint16_t(0);
-  return make_uint4(h[0] | (uint32_t(h[1]) << 16), h[2] | (uint32_t(h[3]) << 16),
-                    h[4] | (uint32_t(h[5]) << 16), h[6] | (uint32_t(h[7]) << 16));
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
-    gmm_bf16_elem(const uint16_t* __restrict__ x,
-                  const int* __restrict__ tile_gid,
-                  const int* __restrict__ tile_rows,
-                  const uint16_t* __restrict__ w,
-                  __nv_bfloat16* __restrict__ y, int d, int f, int G, int bt) {
-  __shared__ BfTiles s;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
-  const int n0 = blockIdx.x * kBN;
-  const int row0 = blockIdx.y * kBM;
-  const int t = row0 / bt;
-  const int g = tile_gid[t];
-  if (g < 0 || g >= G) {
-    fill_bf16<false>(y, row0, row0 + kBM, n0, f, kBf16Nan, tid, kThreads);
-    return;
-  }
-  const int rows = block_rows(tile_rows, t, row0, bt, kBM);
-  if (rows == 0) {
-    fill_bf16<false>(y, row0, row0 + kBM, n0, f, 0, tid, kThreads);
-    return;
-  }
-  const uint16_t* wg = w + size_t(g) * d * f;
-
-  uint4 ra[kAVecs], rb[kBVecs];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < kAVecs; ++i) {
-      const int v = tid + i * kThreads;
-      const int r = v / (kEK / 8), c = (v % (kEK / 8)) * 8;
-      ra[i] = load8(x + size_t(row0 + r) * d + k0 + c, d - (k0 + c));
-    }
-#pragma unroll
-    for (int i = 0; i < kBVecs; ++i) {
-      const int v = tid + i * kThreads;
-      const int r = v / (kBN / 8), c = (v % (kBN / 8)) * 8;
-      const int valid = k0 + r < d ? f - (n0 + c) : 0;
-      rb[i] = load8(wg + size_t(k0 + r) * f + n0 + c, valid);
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < kAVecs; ++i) {
-      const int v = tid + i * kThreads;
-      const int r = v / (kEK / 8), c = (v % (kEK / 8)) * 8;
-      *reinterpret_cast<uint4*>(&s.a[buf][r * kALd + c]) = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < kBVecs; ++i) {
-      const int v = tid + i * kThreads;
-      const int r = v / (kBN / 8), c = (v % (kBN / 8)) * 8;
-      *reinterpret_cast<uint4*>(&s.b[buf][r * kBLd + c]) = rb[i];
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kFM][kFN];
-#pragma unroll
-  for (int i = 0; i < kFM; ++i)
-#pragma unroll
-    for (int j = 0; j < kFN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int nk = (d + kEK - 1) / kEK;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) load((kt + 1) * kEK);
-#pragma unroll
-    for (int kk = 0; kk < kEK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-          af[kFM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-          bf[kFN];
-#pragma unroll
-      for (int i = 0; i < kFM; ++i)
-        wmma::load_matrix_sync(
-            af[i], as_bf16(&s.a[cur][(wm * kWM + i * 16) * kALd + kk]), kALd);
-#pragma unroll
-      for (int j = 0; j < kFN; ++j)
-        wmma::load_matrix_sync(
-            bf[j], as_bf16(&s.b[cur][kk * kBLd + wn * kWN + j * 16]), kBLd);
-#pragma unroll
-      for (int i = 0; i < kFM; ++i)
-#pragma unroll
-        for (int j = 0; j < kFN; ++j)
-          wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-    }
-    // The other buffer was last read before the previous barrier.
-    if (kt + 1 < nk) store(cur ^ 1);
-    __syncthreads();
-  }
-
-  // Epilogue: each accumulator tile through the warp's staging tile, cast
-  // to bf16 once, eight columns a lane; rows past the count get +0.
-  float* st = s.stage[warp];
-  const int r = lane >> 1, c = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < kFM; ++i) {
-#pragma unroll
-    for (int j = 0; j < kFN; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int rr = wm * kWM + i * 16 + r;
-      const int col = n0 + wn * kWN + j * 16 + c;
-      __nv_bfloat16* out = y + size_t(row0 + rr) * f + col;
-      const float* v = st + r * 16 + c;
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        if (col + e < f) out[e] = __float2bfloat16(rr < rows ? v[e] : 0.0f);
-      __syncwarp();
-    }
-  }
+// bf16 that TMA cannot describe (a width not a multiple of 8, a base off
+// 16 bytes): the same consumers, the ring filled through cp.async at each
+// operand's own width.
+template <bool kWKMajor>
+__global__ void __launch_bounds__(kAsyncThreads, 1)
+    gmm_bf16_async(const uint16_t* __restrict__ x,
+                   const uint16_t* __restrict__ w,
+                   const int* __restrict__ tile_gid,
+                   const int* __restrict__ tile_rows,
+                   __nv_bfloat16* __restrict__ y, int d, int f, int G, int bt,
+                   int xbytes, int wbytes, int ybytes) {
+  gmm_bf16_wgmma<kWKMajor>(AsyncFwd{x, w, xbytes, wbytes}, tile_gid,
+                           tile_rows, y, d, f, G, bt, ybytes);
 }
 
 // ---------------------------------------------------------------- f32
@@ -937,8 +1247,15 @@ __global__ void __launch_bounds__(kF32Threads, 1)
 //    L2.  TMA's zero fill covers the ragged d and f edges on the loads,
 //    and the stores clip there.  What is left between this kernel and
 //    its bound is not broken down (PERF.md).
-//  * other bfloat16 (gmm_dw_bf16): wmma 16x16x16 fragments from
-//    double-buffered shared-memory slices with element-wise masked loads.
+//  * other bfloat16 (gmm_dw_bf16_async): the same consumers on a ring
+//    filled through cp.async at x's and dy's own widths (see
+//    gmm_bf16_async), the rows past a tile's count zero-filled as they are
+//    copied (so the consumers' zeroing step is skipped); each f-tile is
+//    stored from registers at dw's width, so the 64 KB staging tile gives
+//    the ring a fourth stage, and a block takes as many f-tiles as the
+//    grid's size allows (one at small grids, where kDwFTiles would leave
+//    most SMs idle: at (b), 32 blocks).  Its results equal
+//    gmm_dw_bf16_tma's bit for bit.
 //  * float32 that TMA can describe (d and f multiples of 4, 16-byte
 //    aligned bases; gmm_dw_f32_tma): the forward's FMA microkernel turned
 //    over.  Each output is one fmaf chain over the group's real rows in
@@ -964,16 +1281,6 @@ __global__ void __launch_bounds__(kF32Threads, 1)
 //    streaming; at the ragged case (4 groups, d = 192, f = 160) it is
 //    operations and latency.
 //  * other float32 (gmm_dw_f32): CUDA-core FMA from 16-row slices.
-constexpr int kDEK = 32;  // rows of a bf16 dW slice
-constexpr int kDALd = kBM + 8;  // pitch of the x slice (d columns)
-constexpr int kDBLd = kBN + 8;  // of the dy slice (f columns)
-constexpr int kDVecs = kDEK * kBM / 8 / kThreads;  // 8-element groups a thread
-
-struct __align__(128) DwTiles {
-  uint16_t a[2][kDEK * kDALd];
-  uint16_t b[2][kDEK * kDBLd];
-  float stage[kThreads / 32][16 * 16];
-};
 
 // Real rows of tile t for group g: 0 unless the tile is g's.
 __device__ __forceinline__ int dw_rows(const int* tile_gid,
@@ -999,121 +1306,6 @@ __device__ __forceinline__ bool dw_next(const int* tile_gid,
   return t < ntiles;
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-    gmm_dw_bf16(const uint16_t* __restrict__ x, const uint16_t* __restrict__ dy,
-                const int* __restrict__ tile_gid,
-                const int* __restrict__ tile_rows,
-                __nv_bfloat16* __restrict__ dw, int d, int f, int ntiles,
-                int bt) {
-  __shared__ DwTiles s;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
-  const int n0 = blockIdx.x * kBN;  // f columns
-  const int m0 = blockIdx.y * kBM;  // d rows of dw
-  const int g = blockIdx.z;
-  __nv_bfloat16* out = dw + size_t(g) * d * f;
-
-  int t = -1, k0 = 0, rt = 0;
-  if (!dw_next(tile_gid, tile_rows, ntiles, g, bt, kDEK, t, k0, rt)) {
-    for (int e = tid; e < kBM * kBN; e += kThreads) {
-      const int r = m0 + e / kBN, c = n0 + e % kBN;
-      if (r < d && c < f) out[size_t(r) * f + c] = __float2bfloat16(0.0f);
-    }
-    return;
-  }
-
-  uint4 ra[kDVecs], rb[kDVecs];
-  // Slice rows [t bt + k0, + kDEK): those at or past rt are zero.
-  auto load = [&](int tt, int kk0, int rtt) {
-#pragma unroll
-    for (int i = 0; i < kDVecs; ++i) {
-      const int v = tid + i * kThreads;
-      const int r = v / (kBM / 8), c = (v % (kBM / 8)) * 8;
-      const bool real = kk0 + r < rtt;
-      const size_t row = size_t(tt) * bt + kk0 + r;
-      ra[i] = load8(x + row * d + m0 + c, real ? d - (m0 + c) : 0);
-      rb[i] = load8(dy + row * f + n0 + c, real ? f - (n0 + c) : 0);
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < kDVecs; ++i) {
-      const int v = tid + i * kThreads;
-      const int r = v / (kBM / 8), c = (v % (kBM / 8)) * 8;
-      *reinterpret_cast<uint4*>(&s.a[buf][r * kDALd + c]) = ra[i];
-      *reinterpret_cast<uint4*>(&s.b[buf][r * kDBLd + c]) = rb[i];
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kFM][kFN];
-#pragma unroll
-  for (int i = 0; i < kFM; ++i)
-#pragma unroll
-    for (int j = 0; j < kFN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  load(t, k0, rt);
-  store(0);
-  __syncthreads();
-  for (int cur = 0;; cur ^= 1) {
-    int nt = t, nk0 = k0, nrt = rt;
-    const bool more =
-        dw_next(tile_gid, tile_rows, ntiles, g, bt, kDEK, nt, nk0, nrt);
-    if (more) load(nt, nk0, nrt);
-#pragma unroll
-    for (int kk = 0; kk < kDEK; kk += 16) {
-      // A = x^T: the slice holds x's rows, so A is column-major in it.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major>
-          af[kFM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-          bf[kFN];
-#pragma unroll
-      for (int i = 0; i < kFM; ++i)
-        wmma::load_matrix_sync(
-            af[i], as_bf16(&s.a[cur][kk * kDALd + wm * kWM + i * 16]), kDALd);
-#pragma unroll
-      for (int j = 0; j < kFN; ++j)
-        wmma::load_matrix_sync(
-            bf[j], as_bf16(&s.b[cur][kk * kDBLd + wn * kWN + j * 16]), kDBLd);
-#pragma unroll
-      for (int i = 0; i < kFM; ++i)
-#pragma unroll
-        for (int j = 0; j < kFN; ++j)
-          wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-    }
-    // The other buffer was last read before the previous barrier.
-    if (more) store(cur ^ 1);
-    __syncthreads();
-    if (!more) break;
-    t = nt;
-    k0 = nk0;
-    rt = nrt;
-  }
-
-  // Epilogue: each accumulator tile through the warp's staging tile, cast
-  // to bf16 once.
-  float* st = s.stage[warp];
-  const int r = lane >> 1, c = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < kFM; ++i) {
-#pragma unroll
-    for (int j = 0; j < kFN; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int rr = m0 + wm * kWM + i * 16 + r;
-      const int col = n0 + wn * kWN + j * 16 + c;
-      if (rr < d) {
-        const float* v = st + r * 16 + c;
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          if (col + e < f)
-            out[size_t(rr) * f + col + e] = __float2bfloat16(v[e]);
-      }
-      __syncwarp();
-    }
-  }
-}
-
 // -------------------------------------------------- dW: TMA + wgmma
 constexpr int kDwBN = 256;     // f columns of a dW tile: one m64n256 wgmma
 constexpr int kDwStages = 3;   // ring depth: 144 KB of the SM's 227 KB
@@ -1125,6 +1317,9 @@ constexpr int kDwStageBytes = (kConsumers + kDwBN / 64) * kXBox;  // 48 KB
 constexpr int kDwOutBytes = kConsumers * (kDwBN / 64) * kXBox;
 constexpr int kDwSmem = kDwStages * kDwStageBytes + kDwOutBytes + 1024 +
                         2 * kDwStages * 8 + kDwStages * 4;
+constexpr int kDwBoxes = kConsumers + kDwBN / 64;  // a stage's boxes
+static_assert(2 * kDwStages * 8 + kDwStages * 4 <= kBarBytes,
+              "the barriers and info words fit");
 // A stage's info word (written by the producer before its TMA, read by the
 // consumers once the stage is full): the real rows of its boxes, and
 // whether it is the last box of its f-tile and of the block.
@@ -1219,124 +1414,302 @@ __device__ __forceinline__ int warp_next_tile(const int* tile_gid,
   return ntiles;
 }
 
+// A dW block's walk: d-tile m0 of group g's dw, the f columns [n_lo,
+// n_hi) of its chunk, the group's first tile with a real row.  Stage s of
+// the ring holds x's kConsumers boxes (d columns m0 + 64 h) and dy's kDwBN
+// / 64 (f columns n0 + 64 j), 8 KB each and adjoining; `bars` the full and
+// empty barriers of the kStages stages, then their info words, then (the
+// async instance) each box's ninth row chunks for the 2-byte tier.
+template <int kStages>
+struct DwTile {
+  uint32_t ring, bars;
+  volatile int* info;
+  const int* tile_gid;
+  const int* tile_rows;
+  int ntiles, bt, g, m0, n_lo, n_hi, first, d, f;
+
+  __device__ __forceinline__ int rows_of(int t) const {
+    return tile_rows == nullptr ? bt : min(max(tile_rows[t], 0), bt);
+  }
+  __device__ __forceinline__ uint32_t box(int s, int b) const {
+    return ring + s * kDwStageBytes + b * kXBox;
+  }
+  __device__ __forceinline__ uint32_t full(int s) const {
+    return bars + 8u * s;
+  }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return bars + 8u * (kStages + s);
+  }
+  __device__ __forceinline__ uint32_t side(int s, int b) const {
+    return bars + kBarBytes + (s * kDwBoxes + b) * kSideBytes;
+  }
+};
+
+// The producer's walk, the same in every producer warp: the group's real
+// rows once for each f-tile, a 64-row box at a time.  stage(s, it, row,
+// valid, n0, word) fills ring stage s (the it-th) with rows [row, row +
+// 64) of x and dy, of which `valid` are real, for the f-tile at n0, and
+// publishes `word` (the stage's info) with it.
+template <int kStages, class Stage>
+__device__ __forceinline__ void dw_walk(const DwTile<kStages>& b, int lane,
+                                        Stage&& stage) {
+  int n0 = b.n_lo, t = b.first, k0 = 0, rt = b.rows_of(b.first);
+  for (int it = 0;; ++it) {
+    const int s = it % kStages;
+    const int valid = min(rt - k0, kBK);
+    int nt = t, nk0 = k0 + kBK;
+    if (nk0 >= rt) {
+      nt = warp_next_tile(b.tile_gid, b.tile_rows, b.ntiles, b.g, t + 1,
+                          lane);
+      nk0 = 0;
+    }
+    const bool tile_end = nt >= b.ntiles;
+    const bool last = tile_end && n0 + kDwBN >= b.n_hi;
+    stage(s, it, t * b.bt + k0, valid, n0,
+          valid | (tile_end ? kDwTileEnd : 0) | (last ? kDwLast : 0));
+    if (last) break;
+    if (tile_end) {
+      n0 += kDwBN;
+      t = b.first;
+      k0 = 0;
+      rt = b.rows_of(b.first);
+    } else {
+      if (nt != t) rt = b.rows_of(nt);
+      t = nt;
+      k0 = nk0;
+    }
+  }
+}
+
+// TMA: x as (T rows, d), dy as (T rows, f), dw as (G, d, f), 64 x 64
+// boxes, 128-byte swizzled, zero fill past the edges (a store clips
+// there).  The producer warp walks; lane 0 issues the loads of whole
+// 64-row boxes, whose rows past a tile's count the consumers zero.  Each
+// f-tile is staged in shared memory and stored by TMA.
+struct TmaDw {
+  static constexpr int kThreads = 32, kArrivals = 1, kStages = kDwStages;
+  static constexpr bool kAsync = false;
+  const CUtensorMap* tmx;
+  const CUtensorMap* tmdy;
+  const CUtensorMap* tmdw;
+
+  __device__ __forceinline__ void load(const DwTile<kStages>& b,
+                                       int p) const {
+    if (p == 0) {
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(tmx))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(tmdy))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(tmdw))
+                   : "memory");
+    }
+    dw_walk(b, p, [&](int s, int it, int row, int, int n0, int word) {
+      if (p == 0) {
+        mbar_wait(b.empty(s), ((it / kStages) & 1) ^ 1);
+        b.info[s] = word;
+        mbar_expect_tx(b.full(s), kDwStageBytes);
+        for (int h = 0; h < kConsumers; ++h)
+          tma_load_2d(b.box(s, h), tmx, b.m0 + 64 * h, row, b.full(s));
+        for (int j = 0; j < kDwBN / 64; ++j)
+          tma_load_2d(b.box(s, kConsumers + j), tmdy, n0 + 64 * j, row,
+                      b.full(s));
+      }
+      __syncwarp();
+    });
+  }
+};
+
+// cp.async: x (T, d) and dy (T, f) at copy widths xbytes and dybytes; the
+// rows of a box past its `valid` real rows are zeros, as the TMA kernel's
+// consumers make them, so the consumers here skip that step.  With no
+// staging tile (the consumers store from registers) the ring holds
+// kAsyncDwStages stages, and with a 2-byte operand a stage is realigned
+// and handed over kDwLag stages behind its copies (as AsyncFwd).
+constexpr int kAsyncDwStages = 4;  // 192 KB of the SM's 227 KB
+constexpr int kDwAsyncWaves = 2;   // blocks of the grid an SM, at least
+constexpr int kDwLag = kAsyncDwStages - 2;
+constexpr int kAsyncDwSmem = kAsyncDwStages * kDwStageBytes + 1024 +
+                             kBarBytes +
+                             kAsyncDwStages * kDwBoxes * kSideBytes;
+static_assert(2 * kAsyncDwStages * 8 + kAsyncDwStages * 4 <= kBarBytes,
+              "the barriers and info words fit");
+
+struct AsyncDw {
+  static constexpr int kThreads = kAsyncProducers, kArrivals = kAsyncProducers;
+  static constexpr int kStages = kAsyncDwStages;
+  static constexpr bool kAsync = true;
+  const uint16_t* x;
+  const uint16_t* dy;
+  int xbytes, dybytes;
+
+  __device__ __forceinline__ void load(const DwTile<kStages>& b,
+                                       int p) const {
+    with_width(xbytes, [&](auto xw) {
+      with_width(dybytes, [&](auto yw) {
+        this->template stages<decltype(xw)::value, decltype(yw)::value>(b,
+                                                                       p);
+      });
+    });
+    cp_async_wait<0>();
+  }
+
+  template <int kX, int kY>
+  __device__ __forceinline__ void stages(const DwTile<kStages>& b,
+                                         int p) const {
+    constexpr bool kRealign = kX == 2 || kY == 2;
+    auto xsrc = [&](int row, int valid, int h) {
+      return BoxSrc{x, b.d, row, row + valid, b.m0 + 64 * h, b.d};
+    };
+    auto ysrc = [&](int row, int valid, int n0, int j) {
+      return BoxSrc{dy, b.f, row, row + valid, n0 + 64 * j, b.f};
+    };
+    // The stages copied and not yet handed over, oldest first.
+    int pend = 0, ps[kDwLag + 1], prow[kDwLag + 1], pvalid[kDwLag + 1],
+        pn0[kDwLag + 1];
+    auto finish_oldest = [&]() {
+      for (int h = 0; h < kConsumers; ++h)
+        finish_box<kX>(b.box(ps[0], h), b.side(ps[0], h),
+                       xsrc(prow[0], pvalid[0], h), p);
+      for (int j = 0; j < kDwBN / 64; ++j)
+        finish_box<kY>(b.box(ps[0], kConsumers + j),
+                       b.side(ps[0], kConsumers + j),
+                       ysrc(prow[0], pvalid[0], pn0[0], j), p);
+      mbar_arrive(b.full(ps[0]));
+#pragma unroll
+      for (int i = 0; i < kDwLag; ++i) {
+        ps[i] = ps[i + 1];
+        prow[i] = prow[i + 1];
+        pvalid[i] = pvalid[i + 1];
+        pn0[i] = pn0[i + 1];
+      }
+      --pend;
+    };
+    dw_walk(b, p & 31, [&](int s, int it, int row, int valid, int n0,
+                           int word) {
+      mbar_wait(b.empty(s), ((it / kStages) & 1) ^ 1);
+      if (p == 0) b.info[s] = word;
+      for (int h = 0; h < kConsumers; ++h)
+        load_box<kX>(b.box(s, h), b.side(s, h), xsrc(row, valid, h), p);
+      for (int j = 0; j < kDwBN / 64; ++j)
+        load_box<kY>(b.box(s, kConsumers + j), b.side(s, kConsumers + j),
+                     ysrc(row, valid, n0, j), p);
+      if constexpr (kRealign) {
+        cp_async_commit();
+#pragma unroll
+        for (int i = 0; i <= kDwLag; ++i)
+          if (i == pend) {
+            ps[i] = s;
+            prow[i] = row;
+            pvalid[i] = valid;
+            pn0[i] = n0;
+          }
+        if (++pend > kDwLag) {
+          cp_async_wait<kDwLag>();
+          finish_oldest();
+        }
+      } else {
+        stage_arrive(b.full(s));
+      }
+    });
+    if constexpr (kRealign) {
+      cp_async_wait<0>();
+      while (pend > 0) finish_oldest();
+    }
+  }
+};
+
+// Rows [r0, r1) x columns [c0, c1) of a bf16 matrix with `pitch` elements
+// a row set to +0, kBytes a store (kBytes divides the pitch's bytes and
+// the base, and c1 - c0 is a whole number of stores).
+template <int kBytes>
+__device__ __forceinline__ void zero_bf16(__nv_bfloat16* out, int pitch,
+                                          int r0, int r1, int c0, int c1,
+                                          int tid, int nthreads) {
+  const int per = (c1 - c0) / (kBytes / 2);
+  const auto z = Bits<kBytes>::of(0);
+  for (int e = tid; e < (r1 - r0) * per; e += nthreads)
+    *reinterpret_cast<typename Bits<kBytes>::T*>(
+        out + size_t(r0 + e / per) * pitch + c0 + (e % per) * (kBytes / 2)) =
+        z;
+}
+
 // x^T (A, 64 d-rows x 16 rows deep) and dy (B, 16 rows deep x 256 f
 // columns) are both MN-major, as w is in the forward: each box row (one
 // row of x or dy) is 128 bytes, 8-row atoms 1 KB apart (SBO), dy's next
 // 64 columns one box on (LBO); a 16-row step is 2 KB.  A's M = 64 is one
 // box, so its LBO is never used.
 //
-// tmx: x as (T rows, d), tmdy: dy as (T rows, f), tmdw: dw as (G, d, f),
-// 64 x 64 boxes, 128-byte swizzled, zero fill past the edges (a store
-// clips there).  Grid (d-tiles of 128, groups, chunks of kDwFTiles f-tiles
-// of 256): a block computes its d-tile of one group's dw for each f-tile
-// of its chunk in turn, so the producer loads the next f-tile's boxes
-// while the consumers stage the last one, and TMA stores it while the
-// consumers run the next one's products.
-__global__ void __launch_bounds__(kTmaThreads, 1)
-    gmm_dw_bf16_tma(const __grid_constant__ CUtensorMap tmx,
-                    const __grid_constant__ CUtensorMap tmdy,
-                    const __grid_constant__ CUtensorMap tmdw,
-                    const int* __restrict__ tile_gid,
-                    const int* __restrict__ tile_rows,
-                    __nv_bfloat16* __restrict__ dw, int d, int f, int ntiles,
-                    int bt) {
+// Grid (d-tiles of 128, groups, chunks of `ftiles` f-tiles of 256): a
+// block computes its d-tile of one group's dw for each f-tile of its
+// chunk in turn, so the producers load the next f-tile's boxes while the
+// consumers store the last one.  The TMA instance stages each f-tile in
+// shared memory and TMA stores it while the consumers run the next one's
+// products; the async instance stores from registers, at dw's width
+// (dwbytes: two columns a store where it is 4 bytes or more, else one).
+template <class Loads>
+__device__ __forceinline__ void gmm_dw_bf16_wgmma(
+    const Loads& loads, const int* __restrict__ tile_gid,
+    const int* __restrict__ tile_rows, __nv_bfloat16* __restrict__ dw, int d,
+    int f, int ntiles, int bt, int ftiles, int dwbytes,
+    const CUtensorMap* tmdw) {
+  constexpr int kThreadsAll = kConsumers * 128 + Loads::kThreads;
+  constexpr int kStages = Loads::kStages;
   extern __shared__ uint8_t smem_raw[];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int m0 = blockIdx.x * kBM;  // d rows of dw
   const int g = blockIdx.y;
-  const int n_lo = blockIdx.z * kDwFTiles * kDwBN;  // the chunk's f columns
-  const int n_hi = min(n_lo + kDwFTiles * kDwBN, f);
+  const int n_lo = blockIdx.z * ftiles * kDwBN;  // the chunk's f columns
+  const int n_hi = min(n_lo + ftiles * kDwBN, f);
   __nv_bfloat16* out = dw + size_t(g) * d * f;
 
   // Every warp finds the group's first tile with a real row itself.
   const int first =
       warp_next_tile(tile_gid, tile_rows, ntiles, g, 0, lane);
   if (first >= ntiles) {
-    const int m1 = min(m0 + kBM, d), w8 = (n_hi - n_lo) / 8;
-    for (int e = tid; e < (m1 - m0) * w8; e += kTmaThreads)
-      *reinterpret_cast<uint4*>(out + size_t(m0 + e / w8) * f + n_lo +
-                                (e % w8) * 8) = make_uint4(0, 0, 0, 0);
+    const int m1 = min(m0 + kBM, d);
+    if constexpr (!Loads::kAsync) {
+      const int w8 = (n_hi - n_lo) / 8;
+      for (int e = tid; e < (m1 - m0) * w8; e += kThreadsAll)
+        *reinterpret_cast<uint4*>(out + size_t(m0 + e / w8) * f + n_lo +
+                                  (e % w8) * 8) = make_uint4(0, 0, 0, 0);
+    } else {
+      with_width(dwbytes, [&](auto ww) {
+        zero_bf16<decltype(ww)::value>(out, f, m0, m1, n_lo, n_hi, tid,
+                                       kThreadsAll);
+      });
+    }
     return;
   }
 
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
-  const uint32_t staging = ring + kDwStages * kDwStageBytes;
-  const uint32_t bars = staging + kDwOutBytes;
-  auto full = [&](int s) { return bars + 8u * s; };
-  auto empty = [&](int s) { return bars + 8u * (kDwStages + s); };
-  volatile int* info = reinterpret_cast<volatile int*>(
-      smem_raw + (bars + 16 * kDwStages - raw));
-  // A stage: x's boxes (d columns m0, m0 + 64), then dy's (f columns n0 +
-  // 64 j), 8 KB each and adjoining.
-  auto box = [&](int s, int b) {
-    return ring + s * kDwStageBytes + b * kXBox;
-  };
+  const uint32_t staging = ring + kStages * kDwStageBytes;
+  const uint32_t bars = staging + (Loads::kAsync ? 0 : kDwOutBytes);
+  const DwTile<kStages> b{ring, bars,
+                          reinterpret_cast<volatile int*>(
+                              smem_raw + (bars + 16 * kStages - raw)),
+                          tile_gid, tile_rows, ntiles, bt, g, m0, n_lo,
+                          n_hi, first, d, f};
   if (tid == 0) {
-    for (int s = 0; s < kDwStages; ++s) {
-      mbar_init(full(s), 1);
-      mbar_init(empty(s), kConsumers);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(b.full(s), Loads::kArrivals);
+      mbar_init(b.empty(s), kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  auto rows_of = [&](int t) {
-    return tile_rows == nullptr ? bt : min(max(tile_rows[t], 0), bt);
-  };
   const int wg = tid / 128;
   if (wg == kConsumers) {
-    // Producer warp: walks the group's real rows once for each f-tile, a
-    // 64-row box at a time; lane 0 issues the loads.
-    if (lane == 0) {
-      asm volatile("prefetch.tensormap [%0];" ::"l"(
-                       reinterpret_cast<uint64_t>(&tmx))
-                   : "memory");
-      asm volatile("prefetch.tensormap [%0];" ::"l"(
-                       reinterpret_cast<uint64_t>(&tmdy))
-                   : "memory");
-      asm volatile("prefetch.tensormap [%0];" ::"l"(
-                       reinterpret_cast<uint64_t>(&tmdw))
-                   : "memory");
-    }
-    int n0 = n_lo, t = first, k0 = 0, rt = rows_of(first);
-    for (int it = 0;; ++it) {
-      const int s = it % kDwStages;
-      const int valid = min(rt - k0, kBK);
-      int nt = t, nk0 = k0 + kBK;
-      if (nk0 >= rt) {
-        nt = warp_next_tile(tile_gid, tile_rows, ntiles, g, t + 1, lane);
-        nk0 = 0;
-      }
-      const bool tile_end = nt >= ntiles;
-      const bool last = tile_end && n0 + kDwBN >= n_hi;
-      if (lane == 0) {
-        mbar_wait(empty(s), ((it / kDwStages) & 1) ^ 1);
-        info[s] = valid | (tile_end ? kDwTileEnd : 0) | (last ? kDwLast : 0);
-        mbar_expect_tx(full(s), kDwStageBytes);
-        const int row = t * bt + k0;
-        for (int h = 0; h < kConsumers; ++h)
-          tma_load_2d(box(s, h), &tmx, m0 + 64 * h, row, full(s));
-        for (int j = 0; j < kDwBN / 64; ++j)
-          tma_load_2d(box(s, kConsumers + j), &tmdy, n0 + 64 * j, row,
-                      full(s));
-      }
-      __syncwarp();
-      if (last) break;
-      if (tile_end) {
-        n0 += kDwBN;
-        t = first;
-        k0 = 0;
-        rt = rows_of(first);
-      } else {
-        if (nt != t) rt = rows_of(nt);
-        t = nt;
-        k0 = nk0;
-      }
-    }
+    if constexpr (Loads::kAsync) set_max_regs<true>();
+    loads.load(b, tid - kConsumers * 128);
     return;
   }
+  if constexpr (Loads::kAsync) set_max_regs<false>();
 
   // Consumer warpgroup wg: dw rows [m0 + 64 wg, + 64) of the tile.
   const int warp = (tid & 127) >> 5;
@@ -1350,20 +1723,21 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     acc_fence(acc);
     int flags;
     do {
-      const int s = it % kDwStages;
-      mbar_wait(full(s), (it / kDwStages) & 1);
-      flags = info[s];
+      const int s = it % kStages;
+      mbar_wait(b.full(s), (it / kStages) & 1);
+      flags = b.info[s];
       const int valid = flags & 0xFF;
       const bool straddles = valid < kBK;
-      if (straddles) {
+      if constexpr (Loads::kAsync) {
+        fence_proxy_async();  // the producers zeroed the rows past valid
+      } else if (straddles) {
         // Rows [valid, 64) of the stage's six boxes to +0: 8 16-byte
         // chunks a row.
         const int chunks = (kBK - valid) * 8;
-        constexpr int kBoxes = kConsumers + kDwBN / 64;
-        for (int e = tid; e < kBoxes * chunks; e += kConsumers * 128)
-          st_shared_zero16(box(s, e / chunks) + valid * 128 +
+        for (int e = tid; e < kDwBoxes * chunks; e += kConsumers * 128)
+          st_shared_zero16(b.box(s, e / chunks) + valid * 128 +
                            (e % chunks) * 16);
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        fence_proxy_async();
         asm volatile("bar.sync 1, %0;" ::"n"(kConsumers * 128) : "memory");
       }
       wgmma_fence();
@@ -1371,57 +1745,111 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       for (int kk = 0; kk < kBK / 16; ++kk) {
         if (16 * kk < valid)
           wgmma_m64n256k16_tt(
-              acc, gmma_desc(box(s, wg) + 2048 * kk, kBLbo, kBSbo),
-              gmma_desc(box(s, kConsumers) + 2048 * kk, kBLbo, kBSbo));
+              acc, gmma_desc(b.box(s, wg) + 2048 * kk, kBLbo, kBSbo),
+              gmma_desc(b.box(s, kConsumers) + 2048 * kk, kBLbo, kBSbo));
       }
       wgmma_commit();
       acc_fence(acc);
       // The previous stage's products are done: hand its buffers back.
       wgmma_wait<1>();
       acc_fence(acc);
-      if (prev >= 0 && leader) mbar_arrive(empty(prev));
+      if (prev >= 0 && leader) mbar_arrive(b.empty(prev));
       prev = s;
       ++it;
     } while (!(flags & kDwTileEnd));
     wgmma_wait<0>();
     acc_fence(acc);
-    if (leader) mbar_arrive(empty(prev));
+    if (leader) mbar_arrive(b.empty(prev));
     prev = -1;
 
     // Epilogue: accumulator 4 i + {0, 1} of lane l holds the warpgroup's
     // row 16 warp + l / 4, columns 8 i + 2 (l % 4) + {0, 1}; 4 i + {2, 3}
-    // the row 8 below.  Cast to bf16 once into the staging boxes (box i /
-    // 8, 16-byte chunk i % 8 of the row, swizzled by the row's index mod 8
-    // as TMA reads it back), once the previous f-tile's stores have read
-    // them; then one lane stores the boxes that lie below d and n_hi (TMA
-    // clips the ragged d and f edges).
-    if (leader) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-    asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+    // the row 8 below; one cast to bf16.  TMA: into the staging boxes
+    // (box i / 8, 16-byte chunk i % 8 of the row, swizzled by the row's
+    // index mod 8 as TMA reads it back), once the previous f-tile's
+    // stores have read them; then one lane stores the boxes that lie below
+    // d and n_hi (TMA clips the ragged d and f edges).  Async: straight to
+    // dw, the rows below d and the columns below n_hi.
+    if constexpr (!Loads::kAsync) {
+      if (leader) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = 16 * warp + (lane >> 2) + 8 * half;
+      for (int half = 0; half < 2; ++half) {
+        const int r = 16 * warp + (lane >> 2) + 8 * half;
 #pragma unroll
-      for (int i = 0; i < kDwBN / 8; ++i) {
-        const uint32_t addr = out_wg + (i / 8) * kXBox + r * 128 +
-                              (((i % 8) ^ (r & 7)) << 4) + 4 * (lane & 3);
-        asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr),
-                     "r"(pack2(acc[4 * i + 2 * half],
-                               acc[4 * i + 2 * half + 1]))
-                     : "memory");
+        for (int i = 0; i < kDwBN / 8; ++i) {
+          const uint32_t addr = out_wg + (i / 8) * kXBox + r * 128 +
+                                (((i % 8) ^ (r & 7)) << 4) + 4 * (lane & 3);
+          asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr),
+                       "r"(pack2(acc[4 * i + 2 * half],
+                                 acc[4 * i + 2 * half + 1]))
+                       : "memory");
+        }
       }
-    }
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
-    if (leader && m0 + 64 * wg < d) {
-      for (int j = 0; j < kDwBN / 64; ++j)
-        if (n0 + 64 * j < n_hi)
-          tma_store_3d(&tmdw, out_wg + j * kXBox, n0 + 64 * j, m0 + 64 * wg,
-                       g);
-      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      fence_proxy_async();
+      asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+      if (leader && m0 + 64 * wg < d) {
+        for (int j = 0; j < kDwBN / 64; ++j)
+          if (n0 + 64 * j < n_hi)
+            tma_store_3d(tmdw, out_wg + j * kXBox, n0 + 64 * j,
+                         m0 + 64 * wg, g);
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      }
+    } else {
+      const bool pairs = dwbytes >= 4;  // f even: a pair is all in or out
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m0 + 64 * wg + 16 * warp + (lane >> 2) + 8 * half;
+        __nv_bfloat16* row = out + size_t(r) * f;
+#pragma unroll
+        for (int i = 0; i < kDwBN / 8; ++i) {
+          const int col = n0 + 8 * i + 2 * (lane & 3);
+          const float v0 = acc[4 * i + 2 * half];
+          const float v1 = acc[4 * i + 2 * half + 1];
+          if (r < d && col < n_hi) {
+            if (pairs)
+              *reinterpret_cast<uint32_t*>(row + col) = pack2(v0, v1);
+            else
+              row[col] = __float2bfloat16(v0);
+          }
+          if (!pairs && r < d && col + 1 < n_hi)
+            row[col + 1] = __float2bfloat16(v1);
+        }
+      }
     }
     if (flags & kDwLast) break;
   }
-  if (leader) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  if constexpr (!Loads::kAsync)
+    if (leader) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// bf16 that TMA can describe: the ring filled by TMA, f-tiles stored by
+// TMA from the staging boxes.
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    gmm_dw_bf16_tma(const __grid_constant__ CUtensorMap tmx,
+                    const __grid_constant__ CUtensorMap tmdy,
+                    const __grid_constant__ CUtensorMap tmdw,
+                    const int* __restrict__ tile_gid,
+                    const int* __restrict__ tile_rows,
+                    __nv_bfloat16* __restrict__ dw, int d, int f, int ntiles,
+                    int bt) {
+  gmm_dw_bf16_wgmma(TmaDw{&tmx, &tmdy, &tmdw}, tile_gid, tile_rows, dw, d, f,
+                    ntiles, bt, kDwFTiles, 16, &tmdw);
+}
+
+// bf16 that TMA cannot describe: the same consumers, the ring filled
+// through cp.async at x's and dy's widths, dw stored at its own; ftiles
+// f-tiles a block.
+__global__ void __launch_bounds__(kAsyncThreads, 1)
+    gmm_dw_bf16_async(const uint16_t* __restrict__ x,
+                      const uint16_t* __restrict__ dy,
+                      const int* __restrict__ tile_gid,
+                      const int* __restrict__ tile_rows,
+                      __nv_bfloat16* __restrict__ dw, int d, int f,
+                      int ntiles, int bt, int ftiles, int xbytes, int dybytes,
+                      int dwbytes) {
+  gmm_dw_bf16_wgmma(AsyncDw{x, dy, xbytes, dybytes}, tile_gid, tile_rows, dw,
+                    d, f, ntiles, bt, ftiles, dwbytes, nullptr);
 }
 
 constexpr int kDFK = 16;  // rows of an f32 dW slice
@@ -1772,6 +2200,13 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
                               bytes);
 }
 
+// Whether `bytes` (16, 8, 4 or 2) divides the row pitch of a bf16 matrix
+// `cols` wide and its base `p`: a copy width an async instance can take.
+bool copy_width_ok(int bytes, const void* p, long long cols) {
+  return (bytes == 16 || bytes == 8 || bytes == 4 || bytes == 2) &&
+         cols * 2 % bytes == 0 && reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
 // Codes the launch entry returns beside cudaGetLastError()'s.
 constexpr int kNoEncoder = -1;
 constexpr int kEncodeFailed = -2;
@@ -1785,18 +2220,22 @@ int grouped_matmul_row_tile(int dtype) { return dtype == 1 ? kBM : kFBM; }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w and y share it).  tma: TMA can
 // describe x and w (bf16: d and f multiples of 8; f32: of 4; 16-byte
-// aligned bases), so the TMA kernel of the dtype runs; else the
-// element-load one.  w_kmajor (TMA only): w is stored (G, f, d), the
-// transpose of the (G, d, f) weights the call multiplies by, and is read
-// K-major through its tensor map (K5's dX on the forward's w, with no
-// copy); else w is (G, d, f).  The TMA kernels fill and store y 16 bytes
-// at a time, so with tma the output width f must be a multiple of 8
-// (bf16) or 4 (f32) too.  tile_rows may be null (every row real).  T must
-// be a positive multiple of bt, and bt of the row tile.
+// aligned bases), so the TMA kernel of the dtype runs; else bf16 runs the
+// async instance (the ring filled through cp.async, x, w and y at the copy
+// widths xbytes, wbytes and ybytes: 16, 8, 4 or 2, each dividing its
+// operand's row pitch and base) and f32 the element-load kernel.
+// w_kmajor (bf16, and f32 with tma): w is stored (G, f, d), the transpose
+// of the (G, d, f) weights the call multiplies by, and is read K-major
+// (K5's dX on the forward's w, with no copy); else w is (G, d, f).  The
+// TMA kernels fill and store y 16 bytes at a time, so with tma the output
+// width f must be a multiple of 8 (bf16) or 4 (f32) too.  tile_rows may
+// be null (every row real).  T must be a positive multiple of bt, and bt
+// of the row tile.
 int grouped_matmul_launch(const void* x, const int* tile_gid,
                           const int* tile_rows, const void* w, void* y, int T,
                           int d, int f, int G, int bt, int dtype, int tma,
-                          int w_kmajor, void* stream) {
+                          int w_kmajor, int xbytes, int wbytes, int ybytes,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tma && f % (dtype == 1 ? 8 : 4) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1842,14 +2281,23 @@ int grouped_matmul_launch(const void* x, const int* tile_gid,
     const dim3 grid((f + kF32BN - 1) / kF32BN, T / kFBM);
     kernel<<<grid, kF32Threads, kF32Smem, st>>>(
         tmx, tmw, tile_gid, tile_rows, static_cast<float*>(y), d, f, G, bt);
+  } else if (dtype == 1) {
+    // w's rows are f wide (the forward) or d (stored transposed)
+    if (!copy_width_ok(xbytes, x, d) ||
+        !copy_width_ok(wbytes, w, w_kmajor ? d : f) ||
+        !copy_width_ok(ybytes, y, f))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const auto kernel =
+        w_kmajor ? gmm_bf16_async<true> : gmm_bf16_async<false>;
+    const cudaError_t attr = allow_smem(kernel, kAsyncSmem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const dim3 grid((f + kBN - 1) / kBN, T / kBM);
+    kernel<<<grid, kAsyncThreads, kAsyncSmem, st>>>(
+        static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w),
+        tile_gid, tile_rows, static_cast<__nv_bfloat16*>(y), d, f, G, bt,
+        xbytes, wbytes, ybytes);
   } else if (w_kmajor) {
     return static_cast<int>(cudaErrorInvalidValue);
-  } else if (dtype == 1) {
-    const dim3 grid((f + kBN - 1) / kBN, T / kBM);
-    gmm_bf16_elem<<<grid, kThreads, 0, st>>>(
-        static_cast<const uint16_t*>(x), tile_gid, tile_rows,
-        static_cast<const uint16_t*>(w), static_cast<__nv_bfloat16*>(y), d, f,
-        G, bt);
   } else {
     const dim3 grid((f + kFBN - 1) / kFBN, T / kFBM);
     gmm_f32<<<grid, kFThreads, 0, st>>>(
@@ -1862,12 +2310,14 @@ int grouped_matmul_launch(const void* x, const int* tile_gid,
 // dw (G, d, f) = the gradient of K5 with respect to w, from x (T, d) and
 // dy (T, f) of one dtype (0 = float32, 1 = bfloat16), over T / bt tiles.
 // tma: d and f are multiples of 8 (bf16) or 4 (f32) and x, dy 16-byte
-// aligned, so the TMA kernel of the dtype runs; else the element-load
-// one.  tile_rows may be null.
+// aligned, so the TMA kernel of the dtype runs; else bf16 runs the async
+// instance (x, dy and dw at the copy widths xbytes, dybytes and dwbytes)
+// and f32 the element-load kernel.  tile_rows may be null.
 int grouped_matmul_dw_launch(const void* x, const void* dy,
                              const int* tile_gid, const int* tile_rows,
                              void* dw, int T, int d, int f, int G, int bt,
-                             int dtype, int tma, void* stream) {
+                             int dtype, int tma, int xbytes, int dybytes,
+                             int dwbytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ntiles = T / bt;
   if (dtype == 1 && tma) {
@@ -1918,11 +2368,25 @@ int grouped_matmul_dw_launch(const void* x, const void* dy,
         tmx, tmdy, tile_gid, tile_rows, static_cast<float*>(dw), d, f,
         ntiles, bt, ftiles);
   } else if (dtype == 1) {
-    const dim3 grid((f + kBN - 1) / kBN, (d + kBM - 1) / kBM, G);
-    gmm_dw_bf16<<<grid, kThreads, 0, st>>>(
+    if (!copy_width_ok(xbytes, x, d) || !copy_width_ok(dybytes, dy, f) ||
+        !copy_width_ok(dwbytes, dw, f))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t attr = allow_smem(gmm_dw_bf16_async, kAsyncDwSmem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    // f-tiles a block walks: one where the grid of single f-tiles leaves
+    // the card short of blocks (the producers' copies then run on every
+    // SM), up to kDwFTiles where it is large (the walk paid once for
+    // several).  Each output is still one block's sum in row order.
+    const int dtiles = (d + kBM - 1) / kBM, nft = (f + kDwBN - 1) / kDwBN;
+    const long long single = 1LL * dtiles * G * nft;
+    const int ftiles = static_cast<int>(std::min<long long>(
+        std::max<long long>(single / (kDwAsyncWaves * sm_count()), 1),
+        kDwFTiles));
+    const dim3 grid(dtiles, G, (nft + ftiles - 1) / ftiles);
+    gmm_dw_bf16_async<<<grid, kAsyncThreads, kAsyncDwSmem, st>>>(
         static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(dy),
         tile_gid, tile_rows, static_cast<__nv_bfloat16*>(dw), d, f, ntiles,
-        bt);
+        bt, ftiles, xbytes, dybytes, dwbytes);
   } else {
     const dim3 grid((f + kFBN - 1) / kFBN, (d + kFBM - 1) / kFBM, G);
     gmm_dw_f32<<<grid, kFThreads, 0, st>>>(

@@ -3,9 +3,11 @@
 ``csrc/grouped_matmul.cu`` is the Hopper counterpart of the Pallas TPU
 kernel ``grouped_matmul_pallas`` of the JAX reference
 (``repro/kernels/grouped_matmul/kernel.py:48``): y[r] = x[r] @
-w[tile_gid[r // bt]] with f32 sums.  In bfloat16 it runs a TMA ring and
-``wgmma`` where TMA can describe the operands (``kernel_path`` says which
-kernel a call takes), wmma with element loads where it cannot; in float32
+w[tile_gid[r // bt]] with f32 sums.  In bfloat16 it runs ``wgmma`` on a
+ring of shared-memory stages, filled by TMA where TMA can describe the
+operands and through ``cp.async`` where it cannot (``kernel_path`` says
+which kernel a call takes; ``copy_bytes`` each operand's copy width): the
+same consumers in the same layout, so both give the same bits; in float32
 CUDA-core FMA, fed by TMA where it can describe the operands and by
 element loads where it cannot, each output the same fmaf chain on both.
 An optional ``tile_rows`` names the real leading rows of each ``bt``-row
@@ -15,7 +17,7 @@ bound by the bytes of the experts' weights; see the source's note.
 
 Training.  ``grouped_matmul_fn`` is K5 with a backward (an autograd
 Function): dX is K5 itself on each group's transposed weights, which the
-TMA kernels (bf16 and f32) read through a tensor map over w as it is
+bf16 kernels and the f32 TMA kernel read K-major from w as it is
 (``w_transposed``: no copy of w^T is made on those paths), and dW the
 source's ``gmm_dw_*`` kernels (``grouped_matmul_dw_kernel``;
 ``dw_kernel_path`` says which), which the reference has no counterpart of
@@ -31,8 +33,8 @@ raises; given ``meta`` tensors (the multi-pod dry-run) it returns the
 output's shape and reports the kernel's flops and bytes to
 ``kernels.shapes`` (every row counted: a meta tensor holds no counts).  ``LAUNCHES`` counts kernel launches: ``grouped_matmul`` the
 forward's, ``grouped_matmul_dx`` the backward's K5 on the transposed
-weights (the element-load kernels take a contiguous copy of w^T, off the
-main path), ``grouped_matmul_dw`` the weight gradient's;
+weights (the f32 element-load kernel takes a contiguous copy of w^T, off
+the main path), ``grouped_matmul_dw`` the weight gradient's;
 ``KERNEL_LAUNCHES`` counts the same launches by the CUDA kernel each
 took.  The source is compiled at first use (``nvcc.CudaLibrary``); nothing
 is built when this module is imported.
@@ -57,6 +59,7 @@ __all__ = [
     "reset_launches",
     "build",
     "build_info",
+    "copy_bytes",
     "dw_kernel_path",
     "grouped_matmul_dw_kernel",
     "grouped_matmul_fn",
@@ -73,10 +76,11 @@ _INT32_MAX = 2**31 - 1
 
 LAUNCHES = {"grouped_matmul": 0, "grouped_matmul_dx": 0,
             "grouped_matmul_dw": 0}
-# The CUDA kernel of each path (``kernel_path`` / ``dw_kernel_path``).
-KERNELS = {"tma": "gmm_bf16_tma", "elem": "gmm_bf16_elem",
+# The CUDA kernel of each path (``kernel_path`` / ``dw_kernel_path``); the
+# path "elem" is bf16 that TMA cannot describe.
+KERNELS = {"tma": "gmm_bf16_tma", "elem": "gmm_bf16_async",
            "f32": "gmm_f32_tma", "f32_elem": "gmm_f32"}
-DW_KERNELS = {"tma": "gmm_dw_bf16_tma", "elem": "gmm_dw_bf16",
+DW_KERNELS = {"tma": "gmm_dw_bf16_tma", "elem": "gmm_dw_bf16_async",
               "f32": "gmm_dw_f32_tma", "f32_elem": "gmm_dw_f32"}
 KERNEL_LAUNCHES = {k: 0 for k in (*KERNELS.values(), *DW_KERNELS.values())}
 _count_lock = threading.Lock()
@@ -97,9 +101,9 @@ def _count(name: str, kernel: str) -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.grouped_matmul_launch.argtypes = [p, p, p, p, p] + [i] * 8 + [p]
+    lib.grouped_matmul_launch.argtypes = [p, p, p, p, p] + [i] * 11 + [p]
     lib.grouped_matmul_launch.restype = ctypes.c_int
-    lib.grouped_matmul_dw_launch.argtypes = [p, p, p, p, p] + [i] * 7 + [p]
+    lib.grouped_matmul_dw_launch.argtypes = [p, p, p, p, p] + [i] * 10 + [p]
     lib.grouped_matmul_dw_launch.restype = ctypes.c_int
     lib.grouped_matmul_row_tile.argtypes = [i]
     lib.grouped_matmul_row_tile.restype = ctypes.c_int
@@ -133,27 +137,47 @@ def _tma_path(a: torch.Tensor, b: torch.Tensor, widths) -> str:
     return "tma" if ok else "elem"
 
 
+def copy_bytes(t: torch.Tensor) -> int:
+    """The copy width of a bf16 operand of K5's async kernels: the widest
+    of 16, 8, 4 and 2 bytes that divides both its row pitch (its last
+    dimension, in bytes) and its base address.  A copy then never
+    straddles a row's end, and every copy is aligned.  Operands of a
+    (G, rows, cols) stack share it: a group's stride is a whole number of
+    rows."""
+    pitch, base = t.shape[-1] * t.element_size(), t.data_ptr()
+    return next(b for b in (16, 8, 4, 2) if pitch % b == 0 and base % b == 0)
+
+
 def kernel_path(x: torch.Tensor, w: torch.Tensor) -> str:
     """The kernel a CUDA call on these operands takes, by dtype, shape and
     alignment: "tma" (``gmm_bf16_tma``: bf16 with d and f multiples of 8
     and 16-byte aligned bases, what TMA can describe), "elem"
-    (``gmm_bf16_elem``, other bf16), "f32" (``gmm_f32_tma``: float32 with d
-    and f multiples of 4 and 16-byte aligned bases) or "f32_elem"
-    (``gmm_f32``, other float32).  The two TMA kernels also read w
-    transposed, for K5's dX (dy (T, f) against the forward's w (G, d, f)):
-    both of w's widths are checked, since d is then the output's.  The
-    wrapper launches by it (``KERNELS``)."""
+    (``gmm_bf16_async``, other bf16: the same consumers, fed through
+    cp.async at ``copy_bytes``), "f32" (``gmm_f32_tma``: float32 with d and
+    f multiples of 4 and 16-byte aligned bases) or "f32_elem" (``gmm_f32``,
+    other float32).  All but the last also read w transposed, for K5's dX
+    (dy (T, f) against the forward's w (G, d, f)): both of w's widths are
+    checked, since d is then the output's.  The wrapper launches by it
+    (``KERNELS``)."""
     return _tma_path(x, w, (x.shape[-1], *w.shape[1:]))
 
 
 def dw_kernel_path(x: torch.Tensor, dy: torch.Tensor) -> str:
     """The kernel a CUDA ``grouped_matmul_dw_kernel`` call takes: "tma"
     (``gmm_dw_bf16_tma``: bf16 with d and f multiples of 8 and 16-byte
-    aligned bases), "elem" (``gmm_dw_bf16``, other bf16), "f32"
+    aligned bases), "elem" (``gmm_dw_bf16_async``, other bf16), "f32"
     (``gmm_dw_f32_tma``: float32 with d and f multiples of 4 and 16-byte
     aligned bases) or "f32_elem" (``gmm_dw_f32``).  The wrapper launches
     by it (``DW_KERNELS``)."""
     return _tma_path(x, dy, (x.shape[-1], dy.shape[-1]))
+
+
+def _widths(path: str, *operands) -> tuple:
+    """The async kernels' copy widths of ``operands`` (``copy_bytes``) on
+    the bf16 path TMA cannot describe; 0s, unread, on the others."""
+    if path != "elem":
+        return (0,) * len(operands)
+    return tuple(copy_bytes(t) for t in operands)
 
 
 def _check(x, tile_gid, w, bt, tile_rows, w_transposed=False) -> None:
@@ -234,9 +258,9 @@ def _k5(x, tile_gid, w, bt, tile_rows, counter: str,
         raise ValueError(f"unsupported device {x.device}")
     _check(x, tile_gid, w, bt, tile_rows, w_transposed)
     path = kernel_path(x, w)
-    if w_transposed and path in ("elem", "f32_elem"):
-        # The element-load kernels index w (G, d, f); only the TMA kernels
-        # read it transposed, so those paths copy it.
+    if w_transposed and path == "f32_elem":
+        # The f32 element-load kernel indexes w (G, d, f); the others read
+        # it transposed, so this path alone copies it.
         w, w_transposed = w.transpose(1, 2).contiguous(), False
     T, d = x.shape
     G, f = w.shape[0], w.shape[1 if w_transposed else 2]
@@ -250,6 +274,7 @@ def _k5(x, tile_gid, w, bt, tile_rows, counter: str,
             None if tile_rows is None else tile_rows.data_ptr(),
             w.data_ptr(), out.data_ptr(), T, d, f, G, bt, _DTYPES[x.dtype],
             int(path in ("tma", "f32")), int(w_transposed),
+            *_widths(path, x, w, out),
             torch.cuda.current_stream().cuda_stream,
         )
     LIBRARY.check(code, "grouped_matmul")
@@ -291,7 +316,7 @@ def grouped_matmul_dw_kernel(
             x.data_ptr(), dy.data_ptr(), tile_gid.data_ptr(),
             None if tile_rows is None else tile_rows.data_ptr(),
             dw.data_ptr(), T, d, f, n_groups, bt, _DTYPES[x.dtype],
-            int(path in ("tma", "f32")),
+            int(path in ("tma", "f32")), *_widths(path, x, dy, dw),
             torch.cuda.current_stream().cuda_stream,
         )
     LIBRARY.check(code, "grouped_matmul_dw")

@@ -147,7 +147,7 @@ def test_dw_kernel_path_by_dtype_shape_and_alignment(dtype, d, f, offset,
                                                      path):
     """``dw_kernel_path`` names the dW kernel a call takes: the TMA one of
     the dtype where TMA can describe x and dy (bf16 "tma", f32 "f32"), the
-    element-load one else ("elem", "f32_elem")."""
+    other one else (bf16 "elem", the async kernel; "f32_elem")."""
     T = 256
     x = torch.zeros(T * d + offset, dtype=dtype)[offset:].view(T, d)
     dy = torch.zeros(T, f, dtype=dtype)
@@ -163,7 +163,8 @@ def test_kernel_path_by_dtype_shape_and_alignment(dtype, d, f, offset, path):
     forward's w read transposed, takes the TMA kernel only where dy's
     width f, its output's width d and both bases suit it (a misaligned dy,
     or a d the TMA kernels' 16-byte stores do not fit, sends it to the
-    element-load kernel, which copies w^T)."""
+    bf16 async kernel, which reads w in place, or the f32 element-load
+    kernel, which copies w^T)."""
     T, G = 256, 2
     x = torch.zeros(T * d + offset, dtype=dtype)[offset:].view(T, d)
     w = torch.zeros(G, d, f, dtype=dtype)
@@ -184,8 +185,9 @@ def test_kernel_path_by_dtype_shape_and_alignment(dtype, d, f, offset, path):
                                         (torch.bfloat16, "elem")],
                          ids=["f32", "bf16"])
 def test_misaligned_copy_takes_the_element_load_path(dtype, elem):
-    """``misaligned`` (the card checks' way onto the element-load kernels)
-    copies x one element past a 16-byte boundary: the same bits, a base
+    """``misaligned`` (the card checks' way onto the kernels TMA cannot
+    feed: bf16 async, f32 element-load) copies x one element past a
+    16-byte boundary by default, or ``nbytes`` past: the same bits, a base
     TMA cannot describe; ``same_bits`` tells one flipped bit apart."""
     x = torch.from_numpy(np.random.default_rng(0).normal(
         size=(128, 64)).astype(np.float32)).to(dtype)
@@ -200,6 +202,9 @@ def test_misaligned_copy_takes_the_element_load_path(dtype, elem):
     flipped = xm.clone()
     flipped.view(bits)[3, 5] ^= 1
     assert not same_bits(x, flipped)
+    x8 = misaligned(x, 8)
+    assert x8.data_ptr() % 16 == 8 and same_bits(x, x8)
+    assert gkernel.kernel_path(x8, w) == elem
 
 
 def test_library_variant_writes_the_source_with_one_edit(tmp_path):

@@ -38,7 +38,8 @@ The grouped matmul (K5) is held to its plain version at the reference's
 tolerances for it, rtol = atol = 5e-2 in bfloat16 and 1e-5 in float32
 (``tests/test_kernels.py:173``), at aligned row tiles with ragged column
 and depth edges, with and without counts of real rows a tile (the TMA
-kernel for bf16 rows of a 16-byte pitch, the element-load one else), with weights at the model's init scale 1/sqrt(d) (what K5
+kernel for bf16 rows of a 16-byte pitch, the async one else), with
+weights at the model's init scale 1/sqrt(d) (what K5
 sees on the MoE path).  The reference's 1e-5 is set for its depths (d <=
 512); two f32 sums over d terms in different orders drift apart by about
 sqrt(d) ulps of the partial sums (at d = 2048 with weights x0.1 the card
@@ -67,6 +68,14 @@ TMA cannot describe an operand: d or f not a multiple of 4, or a base off
 the forward, dX and dW of the first equal those of the second bit for
 bit, with counts, noise and NaN past them, an empty group and a bad group
 id; a misaligned copy of the inputs sends a call to the second.
+In bf16 the kernels TMA cannot describe (``gmm_bf16_async``,
+``gmm_dw_bf16_async``) run the TMA kernels' consumers on a ring filled
+through cp.async at each operand's copy width (16, 8, 4 or 2 bytes,
+``kernel.copy_bytes``): the forward, dX and dW are held to their plain
+versions at each width, with counts, noise and NaN past them and a bad
+group id, to the TMA kernels bit for bit on copies of aligned inputs
+whose bases lie 8, 4 or 2 bytes off, to themselves from call to call, and
+dX at an output width of 1020 allocates no w^T.
 
 The tests here are marked ``cuda``: they run the CUDA kernels on a card
 against the plain versions on the CPU, and skip without one.  They import
@@ -942,7 +951,8 @@ GMM_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-5}
 
 def _gmm_path(d, f, dtype):
     """The kernel K5 should take: TMA for rows of a 16-byte pitch (d and f
-    multiples of 8 in bf16, of 4 in f32), element loads else."""
+    multiples of 8 in bf16, of 4 in f32); else the bf16 async kernel or
+    the f32 element-load one."""
     if dtype == torch.float32:
         return "f32" if d % 4 == 0 and f % 4 == 0 else "f32_elem"
     return "tma" if d % 8 == 0 and f % 8 == 0 else "elem"
@@ -963,7 +973,7 @@ def _gmm_case(rng, sizes, d, f, dtype, scale=None):
     ([256] * 4, 2048, 1408),  # moonshot's gate/up widths: f = 11 x 128
     ([256] * 4, 1408, 2048),  # its down product: d = 1408
     ([128, 256, 128, 512], 256, 192),  # f = 192: a ragged column tile
-    ([256, 256], 100, 37),  # d, f not multiples of 8: element loads
+    ([256, 256], 100, 37),  # d, f not multiples of 8: the async kernel
 ], ids=["moe_up", "moe_down", "f192", "odd"])
 def test_k5_kernel_matches_plain(card, sizes, d, f, dtype):
     x, gs, w = _gmm_case(np.random.default_rng(d + f), sizes, d, f, dtype)
@@ -1167,7 +1177,7 @@ def _close_to_max(got, want, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,f,dtype,with_rows", [
     (192, 160, torch.bfloat16, True),
-    (100, 37, torch.bfloat16, True),  # element loads
+    (100, 37, torch.bfloat16, True),  # the async kernels
     (192, 160, torch.float32, True),
     (192, 160, torch.bfloat16, False),
 ], ids=["bf16", "bf16_odd", "f32", "bf16_dense"])
@@ -1242,7 +1252,7 @@ def _dw_case(d, f, G=4, dtype=torch.bfloat16):
     (192, 160, "tma"),  # d, f not multiples of 64 or 128
     (256, 176, "tma"),
     (2048, 1408, "tma"),  # moonshot's gate/up widths
-    (100, 37, "elem"),  # not multiples of 8: element loads
+    (100, 37, "elem"),  # not multiples of 8: the async kernel
 ], ids=["192x160", "256x176", "moe", "odd"])
 def test_k5_dw_kernel_masks_rows_past_the_counts(card, d, f, path):
     """The dW kernel against ``grouped_matmul_dw_ref`` (1e-2 of the largest
@@ -1375,8 +1385,9 @@ def test_k5_f32_tma_equals_elem_bit_for_bit(card, d, f, pattern):
     (176, 200, True, True, torch.float32),
     (2048, 1408, True, False, torch.float32),
     # d, dX's output width, not a multiple of 4 (f32) or 8 (bf16): the
-    # TMA kernels' 16-byte fills do not fit it, so the element-load kernel
-    # takes the call, on a copy of w^T
+    # TMA kernels' 16-byte fills do not fit it, so the f32 element-load
+    # kernel takes the call on a copy of w^T, and the bf16 async one reads
+    # w K-major in place
     (98, 36, True, True, torch.float32),
     (98, 40, True, True, torch.bfloat16),
 ], ids=["ragged", "moe_up", "moe_down_dense", "f32_ragged", "f32_moe_up",
@@ -1416,6 +1427,188 @@ def test_k5_dx_reads_w_transposed_bit_for_bit(card, d, f, with_rows,
     assert torch.equal(got.view(bits), want.view(bits))
     if bad_gid:
         assert bool(torch.isnan(got[bt:2 * bt]).all())
+
+
+# K5's bf16 async instances at each copy tier: (d, f) and the widths
+# ``copy_bytes`` gives x, w and y (dX reads dy (T, f), w and writes (T, d)).
+ASYNC_CASES = {
+    "f1020": (1024, 1020),  # w and y 8 bytes, x 16 (phase 7's (b elem))
+    "f1021": (1024, 1021),  # w and y 2 bytes (plain loads and stores)
+    "d1020": (1020, 1024),  # x 8 bytes; dX's output 1020 wide
+    "d1022": (1022, 200),  # x 4 bytes
+    "odd": (100, 37),  # 8 and 2 bytes, ragged boxes everywhere
+}
+
+
+def _async_case(d, f, seed):
+    """4 groups of 2 tiles of 128 rows: tile 2's group has no real row,
+    counts that cut 16-row steps, NaN in x and dy past tile 1's count and
+    noise past the others'."""
+    rng = np.random.default_rng(seed)
+    G, bt, T = 4, 128, 8 * 128
+    x = torch.from_numpy(rng.normal(size=(T, d)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(T, f)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(G, d, f)) * d ** -0.5)
+                         .astype(np.float32))
+    rows = torch.tensor([128, 77, 0, 0, 5, 128, 63, 65], dtype=torch.int32)
+    past = (torch.arange(bt)[None, :] >= rows[:, None]).reshape(T)
+    nan = past & (torch.arange(T) // bt == 1)
+    x[nan], dy[nan] = float("nan"), float("nan")
+    gid = torch.arange(T // bt, dtype=torch.int32) // 2
+    return (x.to(torch.bfloat16), dy.to(torch.bfloat16),
+            w.to(torch.bfloat16), gid, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f", list(ASYNC_CASES.values()),
+                         ids=list(ASYNC_CASES))
+def test_k5_async_matches_plain(card, d, f):
+    """The bf16 async instances (the path TMA cannot describe) against the
+    plain versions: forward and dX at the reference's 5e-2, dW at 1e-2 of
+    the largest value, rows past the counts +0, a bad group id's tile NaN
+    (forward and dX), the empty group's dW +0; each launched once, dX on
+    w as it is.  Two calls give the same bits."""
+    from repro_torch.kernels.grouped_matmul.ref import (
+        grouped_matmul_dw_ref, grouped_matmul_tiles_ref,
+    )
+
+    x, dy, w, gid, rows = _async_case(d, f, d + f)
+    G, bt, T = w.shape[0], 128, x.shape[0]
+    bad = gid.clone()
+    bad[2] = G + 1
+    x_, dy_, w_ = x.to(card), dy.to(card), w.to(card)
+    bad_, gid_, rows_ = bad.to(card), gid.to(card), rows.to(card)
+    assert gkernel.kernel_path(x_, w_) == gkernel.kernel_path(dy_, w_) \
+        == gkernel.dw_kernel_path(x_, dy_) == "elem"
+    before = dict(gkernel.KERNEL_LAUNCHES)
+
+    def run():
+        return (gkernel.grouped_matmul_kernel(x_, bad_, w_, bt, rows_),
+                gkernel._k5(dy_, bad_, w_, bt, rows_, "grouped_matmul_dx",
+                            w_transposed=True),
+                gkernel.grouped_matmul_dw_kernel(x_, dy_, gid_, G, bt,
+                                                 rows_))
+
+    y, dx, dw = run()
+    again = run()
+    torch.cuda.synchronize()
+    launched = {k: n - before[k] for k, n in gkernel.KERNEL_LAUNCHES.items()
+                if n != before[k]}
+    assert launched == {"gmm_bf16_async": 4, "gmm_dw_bf16_async": 2}
+    for a, b in zip((y, dx, dw), again):
+        assert same_bits(a, b)
+    keep = torch.ones(T, dtype=torch.bool)
+    keep[2 * bt:3 * bt] = False
+    for out in (y, dx):
+        assert bool(torch.isnan(out[2 * bt:3 * bt]).all())
+    xc = x.nan_to_num()
+    want_y = grouped_matmul_tiles_ref(xc, gid, w, bt, rows)
+    want_dx = grouped_matmul_tiles_ref(dy.nan_to_num(), gid,
+                                       w.transpose(1, 2).contiguous(), bt,
+                                       rows)
+    tol = GMM_TOL[torch.bfloat16]
+    for got, want in ((y, want_y), (dx, want_dx)):
+        got = got.cpu()[keep]
+        assert bool(torch.isfinite(got).all())
+        np.testing.assert_allclose(got.float().numpy(),
+                                   want[keep].float().numpy(), rtol=tol,
+                                   atol=tol)
+        past = (torch.arange(bt)[None, :] >= rows[:, None]).reshape(T)[keep]
+        assert bool((got[past] == 0).all()) and not torch.signbit(
+            got[past]).any()
+    want_dw = grouped_matmul_dw_ref(x, dy, gid, G, bt, rows)
+    assert bool(torch.isfinite(dw).all())
+    _close_to_max(dw, want_dw, 1e-2)
+    dw = dw.cpu()
+    assert bool((dw[1] == 0).all()) and not torch.signbit(dw[1]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbytes", [8, 4, 2])
+def test_k5_async_equals_tma_bit_for_bit(card, nbytes):
+    """On copies of aligned inputs whose bases lie ``nbytes`` past 16
+    bytes, the async instances run the TMA instances' consumers on the
+    same bytes: forward, dX and dW equal the TMA kernels' bit for bit,
+    with counts, NaN past one, an empty group and a bad group id."""
+    d, f = 256, 192
+    x, dy, w, gid, rows = [t.to(card) for t in _async_case(d, f, 11)]
+    G, bt = w.shape[0], 128
+    bad = gid.clone()
+    bad[2] = G + 1
+    xm, dym = misaligned(x, nbytes), misaligned(dy, nbytes)
+    assert gkernel.copy_bytes(xm) == gkernel.copy_bytes(dym) == nbytes
+    assert gkernel.kernel_path(x, w) == gkernel.dw_kernel_path(x, dy) == "tma"
+    assert gkernel.kernel_path(xm, w) == gkernel.dw_kernel_path(xm, dym) \
+        == gkernel.kernel_path(dym, w) == "elem"
+    before = dict(gkernel.KERNEL_LAUNCHES)
+    pairs = [
+        (gkernel.grouped_matmul_kernel(x, bad, w, bt, rows),
+         gkernel.grouped_matmul_kernel(xm, bad, w, bt, rows)),
+        (gkernel._k5(dy, bad, w, bt, rows, "grouped_matmul_dx",
+                     w_transposed=True),
+         gkernel._k5(dym, bad, w, bt, rows, "grouped_matmul_dx",
+                     w_transposed=True)),
+        (gkernel.grouped_matmul_dw_kernel(x, dy, gid, G, bt, rows),
+         gkernel.grouped_matmul_dw_kernel(xm, dym, gid, G, bt, rows)),
+    ]
+    torch.cuda.synchronize()
+    launched = {k: n - before[k] for k, n in gkernel.KERNEL_LAUNCHES.items()
+                if n != before[k]}
+    assert launched == {"gmm_bf16_tma": 2, "gmm_bf16_async": 2,
+                        "gmm_dw_bf16_tma": 1, "gmm_dw_bf16_async": 1}
+    for tma, asy in pairs:
+        assert same_bits(tma, asy)
+    assert bool(torch.isfinite(pairs[2][0]).all())
+
+
+@pytest.mark.cuda
+def test_k5_async_dw_walks_f_tiles_as_tma(card):
+    """The async dW takes as many f-tiles a block as the grid allows (one
+    at the shapes above); at 64 groups x 2 d-tiles x 5 f-tiles a block
+    walks several.  On copies of the operands 8 bytes off it still gives
+    the TMA kernel's bits, with counts, an empty group and a bad id."""
+    rng = np.random.default_rng(13)
+    G, bt, d, f = 64, 128, 256, 1280
+    T = G * bt
+    x = torch.from_numpy(rng.normal(size=(T, d)).astype(np.float32)).to(
+        torch.bfloat16).to(card)
+    dy = torch.from_numpy(rng.normal(size=(T, f)).astype(np.float32)).to(
+        torch.bfloat16).to(card)
+    gid = torch.arange(G, dtype=torch.int32)
+    gid[5] = G + 3  # no group
+    gid[9] = 8  # group 9 has no tile, group 8 two
+    rows = torch.from_numpy(rng.integers(0, bt + 1, size=G).astype(np.int32))
+    gid, rows = gid.to(card), rows.to(card)
+    xm, dym = misaligned(x, 8), misaligned(dy, 8)
+    assert gkernel.dw_kernel_path(xm, dym) == "elem"
+    want = gkernel.grouped_matmul_dw_kernel(x, dy, gid, G, bt, rows)
+    got = gkernel.grouped_matmul_dw_kernel(xm, dym, gid, G, bt, rows)
+    torch.cuda.synchronize()
+    assert same_bits(got, want)
+    assert bool((got[9] == 0).all()) and bool((got[5] == 0).all())
+
+
+@pytest.mark.cuda
+def test_k5_async_dx_allocates_no_transposed_weights(card):
+    """dX at an output width of 1020 (dy (T, 1024) against w (G, 1020,
+    1024)) takes the async instance and reads w K-major in place: the
+    call's peak memory holds its output, not a copy of w^T."""
+    d, f = 1020, 1024
+    _, dy, w, gid, rows = [t.to(card) for t in _async_case(d, f, 12)]
+    assert gkernel.kernel_path(dy, w) == "elem"
+    gkernel._k5(dy, gid, w, 128, rows, "grouped_matmul_dx",
+                w_transposed=True)
+    torch.cuda.synchronize()
+    before = gkernel.KERNEL_LAUNCHES["gmm_bf16_async"]
+    base = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    dx = gkernel._k5(dy, gid, w, 128, rows, "grouped_matmul_dx",
+                     w_transposed=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(card) - base
+    assert gkernel.KERNEL_LAUNCHES["gmm_bf16_async"] == before + 1
+    out_bytes = dx.numel() * dx.element_size()
+    assert out_bytes <= peak < out_bytes + w.numel() * w.element_size() // 2
 
 
 @pytest.mark.cuda
