@@ -160,14 +160,23 @@ Phases; any failure exits non-zero before the last line is printed:
               with an output width of 1020, on w as it is (the peak
               memory of the call holds no w^T).  At (b bf16) the async
               forward, dX and dW on copies of x and dy 8 bytes past 16
-              must equal the TMA kernels' bit for bit; (o) the port's
-              public op, ``ops.grouped_matmul`` with its backward, at (b
-              bf16 elem), (b bf16 odd) and (dx1020)'s widths, counted by
-              kernel (``KERNEL_LAUNCHES``: the async kernels, no other).
-              At (b f32) and (e
-              f32) the TMA-fed f32 kernel must equal the element-load one
-              (``gmm_f32``, on a misaligned copy of x) bit for bit; both
-              are timed.  Tolerance: the
+              must equal the TMA kernels' bit for bit.  (b f32 f1022) and
+              (b f32 f1021): (b) in float32 with f = 1022 and 1021, x and
+              dy 4 bytes past 16 (4-byte copies; w, y and dw in 8- and
+              4-byte ones): the f32 async kernels (``gmm_f32_async``,
+              ``gmm_dw_f32_async``: the f32 TMA kernels' FMA consumers,
+              their ring filled through cp.async), forward, dX (w read
+              K-major in place) and dW, each beside its plain version,
+              bound and ``torch.bmm``.  (o) the port's public op,
+              ``ops.grouped_matmul`` with its backward, at (b bf16 elem),
+              (b bf16 odd), (dx1020), (b f32 f1022) and (b f32 f1021)'s
+              widths, counted by kernel (``KERNEL_LAUNCHES``: the async
+              kernels, no other), each backward's peak memory holding no
+              copy of w^T.  At (b f32) and (e f32) the TMA-fed f32 kernel
+              must equal the async one (on a copy of x 4 bytes off) bit for
+              bit; both are timed, beside the earlier element-load
+              kernels' recorded times (``F32_ELEM_EARLIER_MS``).
+              Tolerance: the
               reference's, rtol = atol = 5e-2 in bf16 and 1e-5 in f32
               (``tests/test_kernels.py:173``).  Kernel, plain and library
               call (``torch.bmm`` on the (E, C, d) view at (a)/(a')/(e),
@@ -282,9 +291,10 @@ Phases; any failure exits non-zero before the last line is printed:
               the transposed weights) and dW (its own kernel) within
               ``TRAIN_DW_TOL`` of the largest value, an empty expert's dW
               and a padding row's dX +0; in f32 the TMA-fed kernels equal
-              the element-load ones bit for bit; kernel, element-load,
-              plain and ``torch.bmm`` CUDA-event medians beside the bound;
-              the transposed-weight copy's time.  (c) ``TRAIN_STEPS`` (10)
+              the async ones (on copies of x and dy 4 bytes off) bit for
+              bit; kernel, async, plain and ``torch.bmm`` CUDA-event
+              medians beside the bound; the time of the transposed-weight
+              copy no path takes any more.  (c) ``TRAIN_STEPS`` (10)
               steps of
               ``make_train_step`` on ``TokenPipeline(seed=0)`` batches of 8
               x 512: each step's loss and grad norm (finite, the last loss
@@ -653,10 +663,29 @@ ELEM_EARLIER_MS = {("b bf16 elem", "fwd"): 0.1494,
                    ("b bf16 elem", "dX"): 0.1840,
                    ("dx1020", "dX"): 0.1962}
 # K5's float32 kernels fed by TMA ("f32") are held bit for bit to the
-# element-load ones ("f32_elem") at every f32 shape of phases 7 and 12:
-# each output of both is one fmaf chain in the same order.  The element-
-# load call takes a copy of the same inputs whose base lies 4 bytes past
-# a 16-byte boundary (``misaligned``), which TMA cannot describe.
+# async ones ("f32_async") at every f32 shape of phases 7 and 12: each
+# output of both is one fmaf chain in the same order.  The async call
+# takes a copy of the same inputs whose base lies 4 bytes past a 16-byte
+# boundary (``misaligned``), which TMA cannot describe.  The element-load
+# kernels that path ran before (gmm_f32, gmm_dw_f32; dX on a copy of w^T,
+# the copy included), one-call medians in ms at ``f32_tune.py``'s shapes,
+# as ``benchmarks/f32_tune.py --against`` measured them beside the async
+# kernels on an H100 80GB HBM3 at 700 W (PERF.md): printed beside this
+# run's times, not measured here (the kernels are gone).
+F32_ELEM_EARLIER_MS = {("b f32", "fwd"): 0.4947, ("b f32", "dX"): 0.5136,
+                       ("b f32", "dW"): 0.6305, ("e f32", "fwd"): 0.9332,
+                       ("t f32", "dX"): 2.8656, ("t f32", "dW"): 1.2482,
+                       ("r f32", "dW"): 0.0642}
+# (b f32 f1022) and (b f32 f1021): (b) in float32 at widths TMA cannot
+# describe, x and dy GMM_F32_OFFSET bytes past 16: the f32 async kernels'
+# forward, dX and dW.
+GMM_F32_ASYNC = {
+    "b f32 f1022": (4096, 1024, 1022, [512, 1024, 512, 2048], torch.float32,
+                    0.02),
+    "b f32 f1021": (4096, 1024, 1021, [512, 1024, 512, 2048], torch.float32,
+                    0.02),
+}
+GMM_F32_OFFSET = 4
 # Step-1 logits, bf16, cpu vs card: four bf16 ulps at the largest logits
 # (|logit| in [4, 8), ulp 2^-5).  Both runs round every product's f32 sum
 # to bf16; a sum summed in another order lands on the other side of a
@@ -916,6 +945,8 @@ def main() -> int:
             if ("registers" in line or "Compiling entry" in line
                     or "spill" in line):
                 print(f"[build]   {line.strip()}")
+    print(f"[build] K5 (csrc/grouped_matmul.cu): "
+          f"{GK.build_info()['seconds']:.2f}s of nvcc", flush=True)
     print(f"[build] phase 1 in {time.perf_counter() - t0:.1f}s", flush=True)
 
     # -- 2. kernels against their plain versions ----------------------------
@@ -2310,24 +2341,30 @@ def grouped_dw_library(x, dy, sizes):
                             device=x.device)
         return (lambda: torch._grouped_mm(x.t(), dy, offs=offs),
                 "torch._grouped_mm")
+    if x.dtype == torch.float32:
+        return None, ("none: the groups are unequal, and no one PyTorch "
+                      "call sums float32 row tiles' products by group")
     return None, ("none: torch._grouped_mm refuses rows that are not a "
                   "whole number of 16 bytes, and the groups are unequal")
 
 
-def measure_grouped(key, shape, dev) -> dict:
-    """Phase 7, one dense shape: every row real.  The bound counts x, w and
+def measure_grouped(key, shape, dev, offset=0) -> dict:
+    """Phase 7, one dense shape: every row real, x ``offset`` bytes past
+    16 (``misaligned``) where it is not 0.  The bound counts x, w and
     tile_gid read once and y written once, and 2 T d f operations."""
     T, d, f, sizes, dtype, scale = shape
     G = len(sizes)
     gen = torch.Generator(device=dev).manual_seed(70 + len(key) + d)
     x = torch.randn(T, d, device=dev, generator=gen).to(dtype)
+    if offset:
+        x = misaligned(x, offset)
     w = (torch.randn(G, d, f, device=dev, generator=gen) * scale).to(dtype)
     gid = gmm_ops.tile_groups(torch.tensor(sizes, device=dev), T, GMM_BT, G)
     nbytes = (T * d + G * d * f + T * f) * x.element_size() + gid.numel() * 4
     label = (f"({key}) T={T} d={d} f={f} groups={G} "
              f"{str(dtype).replace('torch.', '')}")
     return time_grouped(x, gid, w, None, grouped_library(x, w, sizes),
-                        nbytes, 2.0 * T * d * f, label)
+                        nbytes, 2.0 * T * d * f, label, key)
 
 
 def measure_grouped_decode(key, c, d, f, dtype, dev) -> dict:
@@ -2371,17 +2408,20 @@ def measure_grouped_routed(key, gid, rows, E, d, f, dtype, gen,
              f"{str(dtype).replace('torch.', '')}, {what}, {active} active "
              f"experts, {n_real} real rows in {used_tiles} row tiles")
     rec = time_grouped(x, gid, w, rows, grouped_library(x, w, [C] * E),
-                       nbytes, 2.0 * n_real * d * f, label)
+                       nbytes, 2.0 * n_real * d * f, label, key)
     rec.update(active_experts=active, real_rows=n_real)
     return rec
 
 
-def time_grouped(x, gid, w, rows, library, nbytes, flops, label) -> dict:
+def time_grouped(x, gid, w, rows, library, nbytes, flops, label,
+                 key=None) -> dict:
     """K5 against its plain version on the same card inputs, then the
     CUDA-event medians of the kernel, the plain version and the library
-    call, beside the bound for ``nbytes`` and ``flops``.  In float32 the
-    element-load kernel too, on a misaligned copy of x: its output must
-    equal the TMA kernel's bit for bit, and its time is printed beside."""
+    call, beside the bound for ``nbytes`` and ``flops``.  In float32 on
+    the TMA path the async kernel too, on a misaligned copy of x: its
+    output must equal the TMA kernel's bit for bit, and its time is
+    printed beside (with the earlier element-load kernel's recorded one,
+    where ``F32_ELEM_EARLIER_MS`` has it)."""
     got = GK.grouped_matmul_kernel(x, gid, w, GMM_BT, rows)
     want = grouped_matmul_tiles_ref(x, gid, w, GMM_BT, rows)
     torch.cuda.synchronize()
@@ -2393,19 +2433,20 @@ def time_grouped(x, gid, w, rows, library, nbytes, flops, label) -> dict:
                          f"max |diff| {err}")
     path = GK.kernel_path(x, w)
     elem_fn = None
-    if x.dtype == torch.float32:
-        xe = misaligned(x)
-        if path != "f32" or GK.kernel_path(xe, w) != "f32_elem":
+    if path == "f32":
+        xe = misaligned(x, GMM_F32_OFFSET)
+        if GK.kernel_path(xe, w) != "f32_async":
             raise SystemExit(f"K5 {label}: paths {path}, "
                              f"{GK.kernel_path(xe, w)}; expected f32, "
-                             f"f32_elem")
+                             f"f32_async")
 
         def elem_fn():
             return GK.grouped_matmul_kernel(xe, gid, w, GMM_BT, rows)
 
         if not same_bits(got, elem_fn()):
-            raise SystemExit(f"K5 {label}: gmm_f32_tma differs from gmm_f32 "
-                             f"(the element-load kernel) in its bits")
+            raise SystemExit(f"K5 {label}: gmm_f32_tma differs from "
+                             f"gmm_f32_async (on x {GMM_F32_OFFSET} bytes "
+                             f"off) in its bits")
     lib_fn, lib_name = library
     lib_ms, lib_err = None, None
     if lib_fn is not None:
@@ -2424,9 +2465,11 @@ def time_grouped(x, gid, w, rows, library, nbytes, flops, label) -> dict:
     bound, bound_by = bound_ms(nbytes, flops, peak)
     lib_txt = (f"{lib_name} {lib_ms:.4f} ms (max |diff| {lib_err:.3e})"
                if lib_ms is not None else "library none")
-    elem_txt = (f"; f32_elem ({GK.KERNELS['f32_elem']}, bit-equal) "
+    earlier = F32_ELEM_EARLIER_MS.get((key, "fwd"))
+    elem_txt = (f"; f32_async ({GK.KERNELS['f32_async']}, bit-equal) "
                 f"{e_ms:.4f} ms (device {e_dev:.4f})" if e_ms is not None
-                else "")
+                else "") + (f"; the earlier element-load kernel "
+                            f"{earlier:.4f} ms, recorded" if earlier else "")
     print(f"[grouped] {label}: K5 path {path} ({GK.KERNELS[path]}), max "
           f"|diff| {err:.3e} (tolerance {tol}); kernel {k_ms:.4f} ms "
           f"(device {k_dev:.4f}) "
@@ -2441,22 +2484,25 @@ def time_grouped(x, gid, w, rows, library, nbytes, flops, label) -> dict:
         plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
         library=lib_name, shape=label, path=path, kernel=GK.KERNELS[path],
         device_ms=k_dev,
-        **({} if e_ms is None else {"elem_ms": e_ms, "elem_device_ms": e_dev,
-                                     "elem_kernel": GK.KERNELS["f32_elem"]}),
+        **({} if e_ms is None else {
+            "async_ms": e_ms, "async_device_ms": e_dev,
+            "async_kernel": GK.KERNELS["f32_async"]}),
     )
 
 
-def measure_grouped_dw(key, shape, dev) -> dict:
-    """Phase 7 (b bf16 elem)'s dW: K5's weight gradient at a dense shape of
-    phase 7, x (T, d) and dy (T, f) random, every row real, against its
-    plain version within ``TRAIN_DW_TOL`` of the largest value.  The bound
-    counts x, dy and the ids read once, dw written once, 2 T d f
-    operations."""
+def measure_grouped_dw(key, shape, dev, offset=0) -> dict:
+    """Phase 7's dW: K5's weight gradient at a dense shape of phase 7, x
+    (T, d) and dy (T, f) random (``offset`` bytes past 16 where it is not
+    0), every row real, against its plain version within
+    ``TRAIN_DW_TOL`` of the largest value.  The bound counts x, dy and the
+    ids read once, dw written once, 2 T d f operations."""
     T, d, f, sizes, dtype, _ = shape
     G = len(sizes)
     gen = torch.Generator(device=dev).manual_seed(78)
     x = torch.randn(T, d, device=dev, generator=gen).to(dtype)
     dy = torch.randn(T, f, device=dev, generator=gen).to(dtype)
+    if offset:
+        x, dy = misaligned(x, offset), misaligned(dy, offset)
     gid = gmm_ops.tile_groups(torch.tensor(sizes, device=dev), T, GMM_BT, G)
 
     def kern():
@@ -2502,20 +2548,24 @@ def measure_grouped_dw(key, shape, dev) -> dict:
     )
 
 
-def measure_grouped_dx(key, shape, dev) -> dict:
-    """K5's dX on the async kernel: dy (T, f) against the forward's w (G,
-    d, f), read K-major as it is, out (T, d), every row real; against its
-    plain version (w^T as a view) within the forward's tolerance.  The
-    call's peak memory must hold no copy of w^T.  The library call is
-    ``torch._grouped_mm`` on w^T as a view, where the card's torch has
-    it.  The bound counts dy, w and the ids read once, out written once,
-    2 T d f operations."""
+def measure_grouped_dx(key, shape, dev, offset=0) -> dict:
+    """K5's dX on the async kernel: dy (T, f) (``offset`` bytes past 16
+    where it is not 0) against the forward's w (G, d, f), read K-major as
+    it is, out (T, d), every row real; against its plain version (w^T as
+    a view) within the forward's tolerance.  The call's peak memory must
+    hold no copy of w^T.  The library call is ``torch._grouped_mm`` on w^T
+    as a view (bf16, where the card's torch has it), in float32
+    ``torch.bmm`` over the row tiles with their groups' w^T (gathered
+    once, untimed).  The bound counts dy, w and the ids read once, out
+    written once, 2 T d f operations."""
     T, d, f, sizes, dtype, scale = shape
     G = len(sizes)
     gen = torch.Generator(device=dev).manual_seed(79 + d)
     dy = torch.randn(T, f, device=dev, generator=gen).to(dtype)
     w = (torch.randn(G, d, f, device=dev, generator=gen) * scale).to(dtype)
     gid = gmm_ops.tile_groups(torch.tensor(sizes, device=dev), T, GMM_BT, G)
+    if offset:
+        dy = misaligned(dy, offset)
 
     def kern():
         return GK._k5(dy, gid, w, GMM_BT, None, "grouped_matmul_dx",
@@ -2545,7 +2595,18 @@ def measure_grouped_dx(key, shape, dev) -> dict:
                          f"{out_bytes}-byte output: a copy of w^T")
     path = GK.kernel_path(dy, w)
     lib_ms, lib_name = None, "none: the card's torch has no _grouped_mm"
-    if hasattr(torch, "_grouped_mm"):
+    if dtype == torch.float32:
+        tiles = dy.view(T // GMM_BT, GMM_BT, f)
+        wgt = w[gid.long()].transpose(1, 2)
+
+        def lib_fn():
+            return torch.bmm(tiles, wgt).view(T, d)
+
+        lib_out, lib_name = library_run(
+            lib_fn, "torch.bmm over row tiles (weights gathered once)")
+        if lib_out is not None:
+            lib_ms = cuda_ms(lib_fn, REPS)
+    elif hasattr(torch, "_grouped_mm"):
         offs = torch.tensor(np.cumsum(sizes), dtype=torch.int32, device=dev)
 
         def lib_fn():
@@ -2559,7 +2620,9 @@ def measure_grouped_dx(key, shape, dev) -> dict:
     k_dev = many_ms(kern)
     nbytes = (T * f + G * d * f + T * d) * dy.element_size() + gid.numel() * 4
     flops = 2.0 * T * d * f
-    bound, bound_by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    peak_flops = (PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                  else PEAK_FP32_FLOPS)
+    bound, bound_by = bound_ms(nbytes, flops, peak_flops)
     label = (f"({key}) dX T={T} d={d} <- f={f} groups={G} "
              f"{str(dtype).replace('torch.', '')}")
     lib_txt = (f"{lib_name} {lib_ms:.4f} ms" if lib_ms is not None
@@ -2625,12 +2688,15 @@ def check_async_twins(dev) -> dict:
 
 def run_public_op(dev) -> dict:
     """(o): the port's public op, ``ops.grouped_matmul`` with its backward
-    (``grouped_matmul_fn``), at (b bf16 elem)'s, (b bf16 odd)'s and
-    (dx1020)'s widths, counted from 0: every launch must be an async
-    kernel's (forward and dX ``gmm_bf16_async``, dW
-    ``gmm_dw_bf16_async``) and every gradient finite.  Returns the run's
-    launches by wrapper and by kernel."""
-    shapes = [GMM_SHAPES[k] for k in GMM_ASYNC] + [GMM_DX1020]
+    (``grouped_matmul_fn``), at (b bf16 elem)'s, (b bf16 odd)'s,
+    (dx1020)'s, (b f32 f1022)'s and (b f32 f1021)'s widths, counted from
+    0: every launch must be an async kernel's (forward and dX
+    ``gmm_bf16_async`` / ``gmm_f32_async``, dW ``gmm_dw_bf16_async`` /
+    ``gmm_dw_f32_async``), every gradient finite, and each backward's
+    peak memory below its gradients and half of w (no copy of w^T).
+    Returns the run's launches by wrapper and by kernel."""
+    shapes = ([GMM_SHAPES[k] for k in GMM_ASYNC] + [GMM_DX1020]
+              + list(GMM_F32_ASYNC.values()))
     gen = torch.Generator(device=dev).manual_seed(81)
     reset_all_launches()
     for T, d, f, sizes, dtype, scale in shapes:
@@ -2641,28 +2707,59 @@ def run_public_op(dev) -> dict:
         x.requires_grad_()
         w.requires_grad_()
         y = gmm_ops.grouped_matmul(x, torch.tensor(sizes, device=dev), w)
-        y.backward(dy)
         torch.cuda.synchronize()
-        if not (torch.isfinite(y).all() and torch.isfinite(x.grad).all()
-                and torch.isfinite(w.grad).all()):
-            raise SystemExit(f"ops.grouped_matmul at d={d} f={f}: a "
-                             f"non-finite output or gradient")
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dx, dw = torch.autograd.grad(y, (x, w), dy)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        grads = (dx.numel() + dw.numel()) * dx.element_size()
+        if not (torch.isfinite(y).all() and torch.isfinite(dx).all()
+                and torch.isfinite(dw).all()):
+            raise SystemExit(f"ops.grouped_matmul at d={d} f={f} {dtype}: "
+                             f"a non-finite output or gradient")
+        if peak >= grads + w.numel() * w.element_size() // 2:
+            raise SystemExit(f"ops.grouped_matmul's backward at d={d} f={f} "
+                             f"{dtype} held {peak} bytes over its {grads} "
+                             f"bytes of gradients: a copy of w^T")
     launched = {k: v for k, v in GK.KERNEL_LAUNCHES.items() if v}
-    want = {GK.KERNELS["elem"]: 2 * len(shapes),
-            GK.DW_KERNELS["elem"]: len(shapes)}
+    n16, n32 = len(shapes) - len(GMM_F32_ASYNC), len(GMM_F32_ASYNC)
+    want = {GK.KERNELS["async"]: 2 * n16, GK.DW_KERNELS["async"]: n16,
+            GK.KERNELS["f32_async"]: 2 * n32,
+            GK.DW_KERNELS["f32_async"]: n32}
     if launched != want:
         raise SystemExit(f"ops.grouped_matmul at widths TMA cannot describe "
                          f"launched {launched}, expected {want}")
     print(f"[grouped] (o) ops.grouped_matmul with its backward at "
-          f"{[(s[1], s[2]) for s in shapes]}: {launched}", flush=True)
+          f"{[(s[1], s[2], str(s[4])[6:]) for s in shapes]}: {launched}; "
+          f"no backward held a copy of w^T", flush=True)
     return {**GK.LAUNCHES, **GK.KERNEL_LAUNCHES}
+
+
+def run_f32_async(dev) -> dict:
+    """(b f32 f1022) and (b f32 f1021) on the f32 async kernels, x and dy
+    GMM_F32_OFFSET bytes past 16: forward, dX and dW records by shape key,
+    each required to take its async kernel."""
+    out = {}
+    for key, shape in GMM_F32_ASYNC.items():
+        out[key] = {
+            "fwd": measure_grouped(key, shape, dev, GMM_F32_OFFSET),
+            "dX": measure_grouped_dx(key, shape, dev, GMM_F32_OFFSET),
+            "dW": measure_grouped_dw(key, shape, dev, GMM_F32_OFFSET)}
+        for product, rec in out[key].items():
+            kernels = GK.DW_KERNELS if product == "dW" else GK.KERNELS
+            need(rec["kernel"] == kernels["f32_async"],
+                 f"{rec['shape']} took {rec['kernel']}")
+    return out
 
 
 def run_async_phase(grouped, grouped_dw, dev, smi) -> tuple:
     """Phase 7's async kernels: dW at (b bf16 odd), dX at (b bf16 elem) and
-    (dx1020), the twins at (b bf16) and the public op (o).  Returns the
-    records of ``gmm_bf16_async`` (forward at (b bf16 elem), the rest as
-    shapes) and ``gmm_dw_bf16_async``, and (o)'s launches."""
+    (dx1020), the twins at (b bf16), the f32 async kernels at (b f32
+    f1022) and (b f32 f1021) and the public op (o).  Returns the records
+    of ``gmm_bf16_async`` (forward at (b bf16 elem), the rest as shapes),
+    ``gmm_dw_bf16_async``, ``gmm_f32_async`` (forward at (b f32 f1022))
+    and ``gmm_dw_f32_async``, and (o)'s launches."""
     dws = {GMM_DW_ELEM: grouped_dw}
     for key in GMM_ASYNC[1:]:
         dws[key] = measure_grouped_dw(key, GMM_SHAPES[key], dev)
@@ -2671,12 +2768,13 @@ def run_async_phase(grouped, grouped_dw, dev, smi) -> tuple:
         "dx1020": measure_grouped_dx("dx1020", GMM_DX1020, dev)}
     fwds = {key: grouped[key] for key in GMM_ASYNC}
     for rec in (*fwds.values(), *dxs.values()):
-        need(rec["kernel"] == GK.KERNELS["elem"],
+        need(rec["kernel"] == GK.KERNELS["async"],
              f"{rec['shape']} took {rec['kernel']}")
     for rec in dws.values():
-        need(rec["kernel"] == GK.DW_KERNELS["elem"],
+        need(rec["kernel"] == GK.DW_KERNELS["async"],
              f"{rec['shape']} took {rec['kernel']}")
     twins = check_async_twins(dev)
+    f32 = run_f32_async(dev)
     public = run_public_op(dev)
     earlier = "; ".join(f"{k} {p} [{ms:.4f}]" for (k, p), ms in
                         ELEM_EARLIER_MS.items())
@@ -2691,12 +2789,33 @@ def run_async_phase(grouped, grouped_dw, dev, smi) -> tuple:
                       twins.items())
           + f"; the earlier element-load kernels, recorded: {earlier}",
           flush=True)
-    fwd = dict(fwds["b bf16 elem"], name=GK.KERNELS["elem"], shapes={
+    def brief(r):
+        lib = r["library_ms"]
+        return (f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+                f"{r['bound_ms']:.4f} {r['bound_by']}, library "
+                + ("none" if lib is None else f"{lib:.4f}") + ")")
+
+    print(f"[grouped] f32 async kernels on {smi}, x and dy "
+          f"{GMM_F32_OFFSET} bytes off: "
+          + "; ".join(f"({k}) " + ", ".join(f"{p} {brief(r)}"
+                                            for p, r in recs.items())
+                      for k, recs in f32.items())
+          + "; the earlier element-load kernels at f32_tune's shapes, "
+          + "recorded: " + "; ".join(f"{k} {p} [{ms:.4f}]" for (k, p), ms
+                                     in F32_ELEM_EARLIER_MS.items()),
+          flush=True)
+    fwd = dict(fwds["b bf16 elem"], name=GK.KERNELS["async"], shapes={
         "b bf16 odd": fwds["b bf16 odd"],
         **{f"dX {k}": v for k, v in dxs.items()}})
-    dw = dict(dws["b bf16 elem"], name=GK.DW_KERNELS["elem"], shapes={
+    dw = dict(dws["b bf16 elem"], name=GK.DW_KERNELS["async"], shapes={
         k: v for k, v in dws.items() if k != "b bf16 elem"})
-    return [fwd, dw], public
+    first, *rest = GMM_F32_ASYNC
+    fwd32 = dict(f32[first]["fwd"], name=GK.KERNELS["f32_async"], shapes={
+        **{k: f32[k]["fwd"] for k in rest},
+        **{f"dX {k}": f32[k]["dX"] for k in GMM_F32_ASYNC}})
+    dw32 = dict(f32[first]["dW"], name=GK.DW_KERNELS["f32_async"], shapes={
+        k: f32[k]["dW"] for k in rest})
+    return [fwd, dw, fwd32, dw32], public
 
 
 # ---------------------------------------------------------------- phase 9
@@ -3318,9 +3437,11 @@ def measure_backward(key, gid, rows, E, d, f, dtype, label,
     contiguous w^T (the earlier path, whose copy is timed apart) bit for
     bit; dW is held to its plain version within ``TRAIN_DW_TOL`` and
     printed beside the earlier kernel's recorded time (``DW_EARLIER_MS``).
-    In float32 dX and dW also run on the element-load kernels (misaligned
-    copies of x and dy; that dX copies w^T first), which must give the
-    same bits, and are timed beside.  With ``dw_fault`` (a library
+    In float32 dX and dW also run on the async kernels (copies of x and dy
+    GMM_F32_OFFSET bytes off; dX reads w in place there too), which must
+    give the same bits, and are timed beside, with the earlier
+    element-load kernels' recorded times (``F32_ELEM_EARLIER_MS``).  With
+    ``dw_fault`` (a library
     whose dW keeps the rows past the counts) the check must fail.  Returns
     the (dX, dW) records; the bounds count each input read once (x's and
     dy's real rows, the active experts' weights, the ids) and each output
@@ -3355,7 +3476,8 @@ def measure_backward(key, gid, rows, E, d, f, dtype, label,
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     tol = TRAIN_DW_TOL[dtype]
     bf16 = dtype == torch.bfloat16
-    xe, dye = (None, None) if bf16 else (misaligned(x), misaligned(dy))
+    xe, dye = ((None, None) if bf16 else
+               (misaligned(x, GMM_F32_OFFSET), misaligned(dy, GMM_F32_OFFSET)))
     elem = {} if bf16 else {
         "grouped_matmul_dx": lambda: GK._k5(
             dye, gid, w, GMM_BT, rows, "grouped_matmul_dx", w_transposed=True),
@@ -3396,8 +3518,8 @@ def measure_backward(key, gid, rows, E, d, f, dtype, label,
         if name in elem:
             if path != "f32" or not same_bits(got, elem[name]()):
                 raise SystemExit(f"[train] ({key}) {name} on path {path}: "
-                                 f"differs from the element-load kernel "
-                                 f"{kernels['f32_elem']} in its bits")
+                                 f"differs from the async kernel "
+                                 f"{kernels['f32_async']} in its bits")
         k_ms = cuda_ms(kern, REPS)
         k_dev = many_ms(kern)
         e_ms = cuda_ms(earlier, REPS) if earlier is not None else None
@@ -3418,9 +3540,14 @@ def measure_backward(key, gid, rows, E, d, f, dtype, label,
         else:
             before = ""
         if el_ms is not None:
-            before += (f"; f32_elem ({kernels['f32_elem']}, bit-equal"
-                       f"{', its w^T copy included' if e_ms else ''}) "
-                       f"{el_ms:.4f} ms (device {el_dev:.4f})")
+            product = "dX" if name == "grouped_matmul_dx" else "dW"
+            recorded = F32_ELEM_EARLIER_MS.get((f"{key} f32", product))
+            before += (f"; f32_async ({kernels['f32_async']}, bit-equal) "
+                       f"{el_ms:.4f} ms (device {el_dev:.4f})"
+                       + (f"; the earlier element-load kernel"
+                          f"{' with its w^T copy' if e_ms else ''} "
+                          f"{recorded:.4f} ms, recorded" if recorded
+                          else ""))
         print(f"[train] ({key}) {name} {label}: path {path} "
               f"({kernels[path]}); max |diff| "
               f"{err:.3e} of {scale:.3e} (tolerance {tol} of the largest, "
@@ -3443,17 +3570,15 @@ def measure_backward(key, gid, rows, E, d, f, dtype, label,
             library_ms=l_ms, library="torch.bmm", kernel_path=path,
             kernel=kernels[path], device_ms=k_dev,
             **({} if e_ms is None else {"earlier_ms": e_ms}),
-            **({} if el_ms is None else {"elem_ms": el_ms,
-                                          "elem_device_ms": el_dev,
-                                          "elem_kernel": kernels["f32_elem"]}),
+            **({} if el_ms is None else {
+                "async_ms": el_ms, "async_device_ms": el_dev,
+                "async_kernel": kernels["f32_async"]}),
             shape=f"({key}) {label}",
             note=("backward of K5; the reference has no Pallas backward "
                   "(XLA transposes its einsum)"),
         ))
     copy_ms = cuda_ms(lambda: w.transpose(1, 2).contiguous(), REPS)
-    what = ("removed: the transposed-weight copy the earlier dX took first"
-            if bf16 else "the transposed-weight copy the f32_elem dX still "
-            "takes first (none on the f32 path)")
+    what = "removed: the transposed-weight copy the earlier dX took first"
     print(f"[train] ({key}) {what}, {copy_ms:.4f} ms "
           f"({2 * w.numel() * esize / 1e6:.3f} MB moved, "
           f"{2 * w.numel() * esize / copy_ms / 1e9:.3f} TB/s)", flush=True)

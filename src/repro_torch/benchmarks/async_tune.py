@@ -12,11 +12,13 @@ the forward, dX and dW of:
   ``gmm_dw_bf16_async``, a warpgroup of producers, 96 registers a
   producer thread and 200 a consumer's through setmaxnreg);
 * copies of the source with one change each (``VARIANTS``): a producer
-  of 2 warps (320 threads, no setmaxnreg), no registers moved, and 56 /
-  224;
+  of 2 warps (320 threads, no setmaxnreg), no registers moved, 56 / 224,
+  and every copy predicated (``copy_rows`` without its path for boxes
+  wholly inside the matrix);
 * "earlier" (``--against PATH``): an earlier ``grouped_matmul.cu`` whose
-  path "elem" ran the element-load wmma kernels (``gmm_bf16_elem``,
-  ``gmm_dw_bf16``), bound by its own ctypes signature; its dX takes a
+  bf16 path TMA cannot describe (now "async") ran the element-load wmma
+  kernels (``gmm_bf16_elem``, ``gmm_dw_bf16``), bound by its own ctypes
+  signature; its dX takes a
   contiguous copy of w^T, timed with the copy and without.
 
 Each output is held to the plain version (5e-2 forward and dX, 1e-2 of
@@ -77,7 +79,8 @@ def _bind_earlier(lib: ctypes.CDLL) -> None:
 
 
 # Copies of the source with one change each: a producer of 2 warps (no
-# setmaxnreg then), no registers moved, and 56 / 224 moved.
+# setmaxnreg then), no registers moved, 56 / 224 moved, and every copy
+# through the zero fill's predicate and selects.
 VARIANTS = {
     "2 warps": [("constexpr int kAsyncProducerWarps = 4;",
                  "constexpr int kAsyncProducerWarps = 2;"),
@@ -93,6 +96,9 @@ VARIANTS = {
                      "constexpr int kProducerRegs = 56;"),
                     ("constexpr int kConsumerRegs = 200;",
                      "constexpr int kConsumerRegs = 224;")],
+    "every copy predicated": [
+        ("    if ((kCopies - 1) * kRowStep < rows) {", "    if (false) {"),
+        ("    if (all) {", "    if (false) {")],
 }
 
 
@@ -102,8 +108,11 @@ def variant_libraries(root: pathlib.Path) -> dict:
         / "grouped_matmul.cu") for name, edits in VARIANTS.items()}
 
 
-def earlier_library(path: str, root: pathlib.Path) -> CudaLibrary:
-    lib = CudaLibrary("grouped_matmul", _bind_earlier)
+def earlier_library(path: str, root: pathlib.Path,
+                    bind=_bind_earlier) -> CudaLibrary:
+    """An earlier ``grouped_matmul.cu``, built beside the source and bound
+    by ``bind`` (by default the signature before the async instances)."""
+    lib = CudaLibrary("grouped_matmul", bind)
     copy = root / "earlier" / "grouped_matmul.cu"
     copy.parent.mkdir(parents=True, exist_ok=True)
     copy.write_text(pathlib.Path(path).read_text())

@@ -201,8 +201,9 @@ def write_report(path, report: dict) -> None:
 def misaligned(t: torch.Tensor, nbytes: int | None = None) -> torch.Tensor:
     """A contiguous copy of ``t`` whose base lies ``nbytes`` (one element
     by default) past a 16-byte boundary: TMA cannot describe it, so K5
-    takes the kernel of the path "f32_elem" (float32) or "elem" (bf16,
-    whose copies of it are then ``nbytes`` wide at most)."""
+    takes the async kernel of its dtype, the path "f32_async" (float32)
+    or "async" (bf16), whose copies of it are then ``nbytes`` wide at
+    most."""
     k = 1 if nbytes is None else nbytes // t.element_size()
     buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
     out = buf[k:].view(t.shape)

@@ -61,14 +61,15 @@
 //    with f = 1020 (T = 4096, d = 1024): 8.6 GFLOP, 0.0087 ms of
 //    tensor-core work against 0.0075 ms of bytes; what the copies add is
 //    producer instructions, which bound the ring's rate (on copies 8
-//    bytes off, the async forward at (b) took 1.7x the TMA kernel's time;
+//    bytes off, the async forward at (b) took 1.3x the TMA kernel's time,
+//    1.7x while every copy went through the zero fill's selects;
 //    PERF.md).
 //  * float32 that TMA can describe (d and f multiples of 4, 16-byte aligned
 //    bases; gmm_f32_tma): CUDA-core FMA, no TF32 and no split of the depth
 //    (the reference checks f32 to 1e-5, and this is the path that proves
 //    the port exact on the card).  Each output is one fmaf chain over d in
-//    ascending order from +0, as in gmm_f32 below, so the two give the
-//    same bits (a zero term past d adds +0).  Bound: at kernel_bench's
+//    ascending order from +0 (a zero term past d adds +0), as in
+//    gmm_f32_async below.  Bound: at kernel_bench's
 //    shape (T = 4096, d = f = 1024) 8.6 GFLOP is 0.128 ms at the 67
 //    TFLOP/s FP32 peak, so it is bound by operations, and what limits an
 //    FMA loop is how many shared-memory reads feed each FMA.  Design: a
@@ -93,9 +94,14 @@
 //    faster on an H100, nor were 128-row blocks, whose 16 warps leave 96
 //    registers a thread: the loop is bound by issuing FMAs, not by shared
 //    memory.)
-//  * float32 that TMA cannot describe (gmm_f32): a block of 256 threads
-//    owns a 64 x 64 output tile, 4 x 4 a thread, through 16-deep
-//    shared-memory slices filled by element loads.
+//  * float32 that TMA cannot describe (d or f not a multiple of 4, or a
+//    base off 16 bytes; gmm_f32_async): the same FMA consumers on the same
+//    ring, filled by a warpgroup of producer threads through cp.async in
+//    the bytes TMA's boxes would hold (each operand at the widest copy of
+//    16, 8 or 4 bytes that divides its row pitch and base, y stored at its
+//    own), so its results equal gmm_f32_tma's bit for bit wherever both
+//    can run; its dX instance reads the forward's w K-major in place, so no
+//    f32 call copies w^T either.
 //  The wrapper picks the kernel by dtype and shape (kernel_path), never
 //  because a build or launch failed.
 //
@@ -177,16 +183,24 @@ struct Width {
   static constexpr int value = N;
 };
 
-// Calls fn(Width<b>{}) for b = `bytes`, one of 16, 8, 4 and 2, picked on
-// the host: each width is an instance of its own of whatever loop fn
-// runs, so no loop branches on it.
-template <class Fn>
+// Calls fn(Width<b>{}) for b = `bytes`, one of 16, 8, 4 and (where kLeast
+// is 2) 2, picked on the host: each width is an instance of its own of
+// whatever loop fn runs, so no loop branches on it.  float32 operands
+// take kLeast 4: a copy or store of one element is their narrowest.
+template <int kLeast = 2, class Fn>
 __device__ __forceinline__ void with_width(int bytes, Fn&& fn) {
+  static_assert(kLeast == 2 || kLeast == 4, "widths of 2 or 4 bytes up");
   switch (bytes) {
     case 16: fn(Width<16>{}); break;
     case 8: fn(Width<8>{}); break;
-    case 4: fn(Width<4>{}); break;
-    default: fn(Width<2>{}); break;
+    default:
+      if constexpr (kLeast == 4)
+        fn(Width<4>{});
+      else if (bytes == 4)
+        fn(Width<4>{});
+      else
+        fn(Width<2>{});
+      break;
   }
 }
 
@@ -368,6 +382,10 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
 // and the async instances give the TMA instances' bits.  The producers
 // write through the generic proxy and wgmma reads through the async one,
 // so a consumer runs fence.proxy.async after each full barrier's wait.
+// The float32 kernels' rings (unswizzled boxes, and the 128-byte swizzle
+// of dX's w) are filled the same way (copy_rows), but their FMA consumers
+// read them with ordinary loads, in the producers' own proxy: the full
+// barrier's wait is all they need, and they run no fence.
 constexpr int kAsyncProducerWarps = 4;  // a warpgroup
 constexpr int kAsyncProducers = kAsyncProducerWarps * 32;
 constexpr int kAsyncThreads = kConsumers * 128 + kAsyncProducers;
@@ -414,6 +432,19 @@ __device__ __forceinline__ void copy_async(uint32_t dst, const void* src,
                  : "memory");
 }
 
+// The same with every byte read: no source size, no select.
+template <int kBytes>
+__device__ __forceinline__ void copy_async_all(uint32_t dst, const void* src) {
+  if (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(dst),
+                 "l"(src), "n"(kBytes)
+                 : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
@@ -443,11 +474,13 @@ __device__ __forceinline__ void stage_arrive(uint32_t bar) {
   mbar_arrive(bar);
 }
 
-// One box's source: rows [r0, r0 + 64) x columns [c0, c0 + 64) of the
-// row-major bf16 matrix at `base`, `pitch` elements a row; rows at or past
-// nrows and columns at or past ncols are zeros.
-struct BoxSrc {
-  const uint16_t* base;
+// One box's source: rows [r0, r0 + the box's rows) x columns [c0, c0 + the
+// box's columns) of the row-major matrix of E (bf16 bits or float) at
+// `base`, `pitch` elements a row; rows at or past nrows and columns at or
+// past ncols are zeros.
+template <class E>
+struct Src {
+  const E* base;
   int pitch, r0, nrows, c0, ncols;
 
   // A 16-byte aligned address the copies of zeros name (they read none).
@@ -456,33 +489,98 @@ struct BoxSrc {
         reinterpret_cast<uintptr_t>(base) & ~uintptr_t(15));
   }
 };
+using BoxSrc = Src<uint16_t>;  // a bf16 box: 64 rows x 64 columns
 
-// The box at `dst` in kBytes (16, 8 or 4) copies.  Producer thread p makes
-// copies p, p + kAsyncProducers, ... of the box's 8192 / kBytes in row
-// order (neighbouring threads on neighbouring bytes of a row): a column q
-// of kBytes and every kRowStep-th row from p / kPer.
-template <int kBytes>
-__device__ __forceinline__ void copy_box(uint32_t dst, const BoxSrc& b,
-                                         int p) {
-  constexpr int kPer = 128 / kBytes;  // copies a box row
-  constexpr int kRowStep = kAsyncProducers / kPer;  // rows between a thread's
-  static_assert(kAsyncProducers % kPer == 0, "producers cover whole rows");
-  const int q = p % kPer, r_first = p / kPer;
-  const int col = b.c0 + q * (kBytes / 2);
-  // this thread's copy i is real while i x kRowStep < rows
-  const int rows = col < b.ncols ? b.nrows - b.r0 - r_first : 0;
-  const char* src = reinterpret_cast<const char*>(
-      b.base + (size_t(b.r0 + r_first) * b.pitch + col));
-  const size_t step = size_t(kRowStep) * b.pitch * 2;  // bytes
-  const uint32_t at = dst + r_first * 128 + ((q * kBytes) & 15);
-  const int chunk = (q * kBytes) >> 4;
+// A box of kRows rows of kRowBytes bytes at `dst`, as TMA lays it out, in
+// kBytes (16, 8 or 4) copies by kThreads producer threads: thread p makes
+// copies p, p + kThreads, ... of the box's in row order (neighbouring
+// threads on neighbouring bytes of a row).  kSwizzle: rows of 128 bytes,
+// 16-byte chunk c of row r at (c ^ (r % 8)) x 16 (SWIZZLE_128B, the box on
+// a 1024-byte boundary); else row r at r x kRowBytes, unswizzled.  Every
+// trip count is a compile-time constant, and a thread whose copies all
+// lie inside the matrix (every box but the edges') makes them without
+// the predicate and selects of the zero fill: the producers' instructions
+// are what an async instance adds to the TMA one's work.
+template <int kBytes, int kRows, int kRowBytes, bool kSwizzle, int kThreads,
+          class E>
+__device__ __forceinline__ void copy_rows(uint32_t dst, const Src<E>& b,
+                                          int p) {
+  constexpr int kPer = kRowBytes / kBytes;  // copies a box row
+  constexpr int kElems = kBytes / int(sizeof(E));  // elements a copy
+  static_assert(kElems >= 1 && kRowBytes % kBytes == 0, "whole copies");
+  static_assert(!kSwizzle || (kRowBytes == 128 && kThreads % kPer == 0),
+                "the swizzle's rows are 128 bytes");
+  static_assert(kThreads % kPer == 0 || kPer % kThreads == 0,
+                "producers cover whole rows");
+  static_assert(kRows * kPer % kThreads == 0, "every thread copies alike");
+  const size_t pitch = size_t(b.pitch) * sizeof(E);  // bytes
+  if constexpr (kThreads % kPer == 0) {
+    // A column q of kBytes, every kRowStep-th row from p / kPer.
+    constexpr int kRowStep = kThreads / kPer;  // rows between a thread's
+    const int q = p % kPer, r_first = p / kPer;
+    const int col = b.c0 + q * kElems;
+    // this thread's copy i is real while i x kRowStep < rows
+    const int rows = col < b.ncols ? b.nrows - b.r0 - r_first : 0;
+    const char* src = reinterpret_cast<const char*>(
+        b.base + (size_t(b.r0 + r_first) * b.pitch + col));
+    const size_t step = kRowStep * pitch;
+    const int byte = q * kBytes;
+    const uint32_t at =
+        dst + r_first * kRowBytes + (kSwizzle ? (byte & 15) : byte);
+    constexpr int kCopies = kRows / kRowStep;
+    auto to = [&](int i) {  // copy i's shared address
+      const int swz = kRowStep % 8 == 0 ? r_first & 7
+                                        : (r_first + i * kRowStep) & 7;
+      return at + i * kRowStep * kRowBytes +
+             (kSwizzle ? (((byte >> 4) ^ swz) << 4) : 0);
+    };
+    if ((kCopies - 1) * kRowStep < rows) {
 #pragma unroll
-  for (int i = 0; i < 64 / kRowStep; ++i) {
-    const int r = r_first + i * kRowStep;
-    const int swz = kRowStep % 8 == 0 ? r_first & 7 : r & 7;
-    const bool in = i * kRowStep < rows;
-    copy_async<kBytes>(at + i * kRowStep * 128 + ((chunk ^ swz) << 4),
-                       in ? src + i * step : b.dummy(), in ? kBytes : 0);
+      for (int i = 0; i < kCopies; ++i)
+        copy_async_all<kBytes>(to(i), src + i * step);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kCopies; ++i) {
+        const bool in = i * kRowStep < rows;
+        copy_async<kBytes>(to(i), in ? src + i * step : b.dummy(),
+                           in ? kBytes : 0);
+      }
+    }
+  } else {
+    // Rows wider than the producers' copies: kCols columns of every row,
+    // p, p + kThreads, ...
+    constexpr int kCols = kPer / kThreads;
+    const int rows = b.nrows - b.r0;
+    const char* src = reinterpret_cast<const char*>(
+        b.base + (size_t(b.r0) * b.pitch + b.c0 + p * kElems));
+    bool col_in[kCols];
+    bool all = rows >= kRows;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      col_in[j] = b.c0 + (p + j * kThreads) * kElems < b.ncols;
+      all = all && col_in[j];
+    }
+    const uint32_t at = dst + p * kBytes;
+    if (all) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j)
+          copy_async_all<kBytes>(at + r * kRowBytes + j * kThreads * kBytes,
+                                 src + r * pitch + j * kThreads * kBytes);
+    } else {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const bool in = col_in[j] && r < rows;
+          const int off = j * kThreads * kBytes;
+          copy_async<kBytes>(at + r * kRowBytes + off,
+                             in ? src + r * pitch + off : b.dummy(),
+                             in ? kBytes : 0);
+        }
+      }
+    }
   }
 }
 
@@ -581,7 +679,7 @@ __device__ __forceinline__ void load_box(uint32_t dst, uint32_t side,
   if constexpr (kBytes == 2)
     copy_chunks(dst, side, b, p);
   else
-    copy_box<kBytes>(dst, b, p);
+    copy_rows<kBytes, 64, 128, true, kAsyncProducers>(dst, b, p);
 }
 template <int kBytes>
 __device__ __forceinline__ void finish_box(uint32_t dst, uint32_t side,
@@ -894,72 +992,8 @@ __global__ void __launch_bounds__(kAsyncThreads, 1)
                            tile_rows, y, d, f, G, bt, ybytes);
 }
 
-// ---------------------------------------------------------------- f32
-constexpr int kFBM = 64;
-constexpr int kFBN = 64;
-constexpr int kFBK = 16;
-constexpr int kFThreads = 256;  // 16 x 16, each 4 x 4 outputs
-
-__global__ void __launch_bounds__(kFThreads)
-    gmm_f32(const float* __restrict__ x, const int* __restrict__ tile_gid,
-            const int* __restrict__ tile_rows, const float* __restrict__ w,
-            float* __restrict__ y, int d, int f, int G, int bt) {
-  __shared__ float as[kFBK][kFBM + 4];  // x slice, depth-major
-  __shared__ float bs[kFBK][kFBN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int n0 = blockIdx.x * kFBN;
-  const int row0 = blockIdx.y * kFBM;
-  const int t = row0 / bt;
-  const int g = tile_gid[t];
-  const int rows = block_rows(tile_rows, t, row0, bt, kFBM);
-  if (g < 0 || g >= G || rows == 0) {
-    const float v = (g < 0 || g >= G) ? CUDART_NAN_F : 0.0f;
-    for (int e = tid; e < kFBM * kFBN; e += kFThreads) {
-      const int c = n0 + (e % kFBN);
-      if (c < f) y[size_t(row0 + e / kFBN) * f + c] = v;
-    }
-    return;
-  }
-  const float* wg = w + size_t(g) * d * f;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < d; k0 += kFBK) {
-#pragma unroll
-    for (int i = 0; i < kFBM * kFBK / kFThreads; ++i) {
-      const int e = tid + i * kFThreads;
-      const int ar = e / kFBK, ac = e % kFBK;
-      as[ac][ar] = k0 + ac < d ? x[size_t(row0 + ar) * d + k0 + ac] : 0.0f;
-      const int br = e / kFBN, bc = e % kFBN;
-      bs[br][bc] = (k0 + br < d && n0 + bc < f)
-                       ? wg[size_t(k0 + br) * f + n0 + bc]
-                       : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kFBK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = as[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 16 * j;
-      const int rr = ty + 16 * i;
-      if (col < f) y[size_t(row0 + rr) * f + col] = rr < rows ? acc[i][j] : 0.0f;
-    }
-}
-
 // ------------------------------------------------------ f32: TMA + FMA
+constexpr int kFBM = 64;       // rows of an f32 block's tile (divides bt)
 constexpr int kF32BN = 256;    // columns of a block's tile: 32 lanes x 8
 constexpr int kF32BK = 32;     // depth of a stage: one 128-byte f32 line
 constexpr int kF32Stages = 4;  // ring depth: 160 KB of the SM's 227 KB
@@ -970,18 +1004,48 @@ constexpr int kF32XBytes = kFBM * kF32BK * 4;     // x's box: 8 KB
 constexpr int kF32StageBytes = kF32WBytes + kF32XBytes;
 constexpr int kF32Smem =
     kF32Stages * kF32StageBytes + 1024 + 2 * kF32Stages * 8;
+// The async instance's consumers are two warpgroups, as the bf16 ones,
+// and keep the launch's 168 registers a thread: with setmaxnreg 96 / 200,
+// as in bf16, its producers spilled (656 bytes in the dX instance) and no
+// f32 call ran faster (0-1% slower; 2-7% while every copy was predicated;
+// benchmarks/f32_tune.py).
+static_assert(kF32Warps * 32 == kConsumers * 128, "the consumer warpgroups");
 
 // Rows [r0, r1) x columns [n0, n0 + kF32BN) of an f32 y set to v, columns
-// past f left alone (f % 4 == 0 and y 16-byte aligned: four a store).
+// past f left alone, kBytes (16, 8 or 4) a store: kBytes divides y's row
+// pitch (4 f) and base, so a store lies wholly on one side of f.
+template <int kBytes>
 __device__ __forceinline__ void fill_f32(float* y, int r0, int r1, int n0,
                                          int f, float v, int tid,
                                          int nthreads) {
-  const float4 v4 = make_float4(v, v, v, v);
-  for (int e = tid; e < (r1 - r0) * (kF32BN / 4); e += nthreads) {
-    const int c = n0 + (e % (kF32BN / 4)) * 4;
+  constexpr int kPer = kF32BN * 4 / kBytes;  // stores a row of the tile
+  const auto bits = Bits<kBytes>::of(__float_as_uint(v));
+  for (int e = tid; e < (r1 - r0) * kPer; e += nthreads) {
+    const int c = n0 + (e % kPer) * (kBytes / 4);
     if (c < f)
-      *reinterpret_cast<float4*>(y + size_t(r0 + e / (kF32BN / 4)) * f + c) =
-          v4;
+      *reinterpret_cast<typename Bits<kBytes>::T*>(
+          y + size_t(r0 + e / kPer) * f + c) = bits;
+  }
+}
+
+// v at columns [col, col + 4) of an f32 row, those below `end`, kBytes (16,
+// 8 or 4) a store: kBytes divides the row's pitch and base and `end` is a
+// multiple of kBytes / 4, so a store lies wholly on one side of it.
+template <int kBytes>
+__device__ __forceinline__ void store4_f32(float* row, int col, int end,
+                                           const float4& v) {
+  if constexpr (kBytes == 16) {
+    if (col < end) *reinterpret_cast<float4*>(row + col) = v;
+  } else if constexpr (kBytes == 8) {
+    if (col < end)
+      *reinterpret_cast<float2*>(row + col) = make_float2(v.x, v.y);
+    if (col + 2 < end)
+      *reinterpret_cast<float2*>(row + col + 2) = make_float2(v.z, v.w);
+  } else {
+    if (col < end) row[col] = v.x;
+    if (col + 1 < end) row[col + 1] = v.y;
+    if (col + 2 < end) row[col + 2] = v.z;
+    if (col + 3 < end) row[col + 3] = v.w;
   }
 }
 
@@ -989,23 +1053,153 @@ __device__ __forceinline__ float lane_of(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
-// tmx: x as (T rows, d), 32-deep x 64-row boxes; tmw: w, boxes of one
-// group; both with zero fill past the edges.  kWKMajor false: w is (G, d,
-// f), a box 32 deep x 256 columns, unswizzled: a depth row of the box is
-// 1 KB, and lane l reads columns 4 l .. 4 l + 3 and 128 + 4 l .. of it.
-// kWKMajor true: w is stored (G, f, d), the transpose of the weights this
-// call multiplies by (dX on the forward's w), a box 256 columns (rows of
-// the stored w) x 32 deep with the 128-byte swizzle: column n is one
-// 128-byte line whose 16-byte chunk c sits at c ^ (n % 8); lane l reads
-// columns l + 32 j.  Either way each output is the same fmaf chain, so the
-// result equals the call on a contiguous copy of w^T bit for bit.
-template <bool kWKMajor>
-__global__ void __launch_bounds__(kF32Threads, 1)
-    gmm_f32_tma(const __grid_constant__ CUtensorMap tmx,
-                const __grid_constant__ CUtensorMap tmw,
-                const int* __restrict__ tile_gid,
-                const int* __restrict__ tile_rows, float* __restrict__ y,
-                int d, int f, int G, int bt) {
+// gmm_f32_fma's epilogue for consumer warp `warp`: its rows [8 warp, 8
+// warp + 8) of the tile, rows past the count written as +0.  The forward
+// stores a lane's four adjoining columns in stores of kY bytes (y's
+// width); dX (kWKMajor) one column a store.
+template <bool kWKMajor, int kY>
+__device__ __forceinline__ void f32_epilogue(const float (&acc)[8][8],
+                                             float* y, int row0, int rows,
+                                             int n0, int f, int warp,
+                                             int lane) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * warp + i;
+    const bool real = r < rows;
+    float* out = y + size_t(row0 + r) * f;
+    if (kWKMajor) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = n0 + lane + 32 * j;
+        if (col < f) out[col] = real ? acc[i][j] : 0.0f;
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store4_f32<kY>(out, n0 + 128 * h + 4 * lane, f,
+                       real ? make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                                          acc[i][4 * h + 2],
+                                          acc[i][4 * h + 3])
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+    }
+  }
+}
+
+// A forward f32 block's loads: its tile's group g, real rows `rows` from
+// row0, columns from n0, nk stages of kF32BK deep.  Stage s holds w's box,
+// then x's, on a 1024-byte boundary; `bars` the full and empty barriers.
+struct F32Tile {
+  uint32_t ring, bars;
+  int nk, rows, row0, n0, g, d, f;
+
+  __device__ __forceinline__ uint32_t stage(int s) const {
+    return ring + s * kF32StageBytes;
+  }
+  __device__ __forceinline__ uint32_t full(int s) const {
+    return bars + 8u * s;
+  }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return bars + 8u * (kF32Stages + s);
+  }
+};
+
+// TMA: x as (T rows, d) with 32-deep x 64-row boxes, w with boxes of one
+// group (see gmm_f32_fma); zero fill past the edges.  One lane of the
+// producer warp keeps the ring full.
+struct TmaF32Fwd {
+  static constexpr int kThreads = 32, kArrivals = 1;
+  static constexpr bool kAsync = false;
+  const CUtensorMap* tmx;
+  const CUtensorMap* tmw;
+
+  template <bool kWKMajor>
+  __device__ __forceinline__ void load(const F32Tile& b, int p) const {
+    if (p != 0) return;
+    asm volatile("prefetch.tensormap [%0];" ::"l"(
+                     reinterpret_cast<uint64_t>(tmx))
+                 : "memory");
+    asm volatile("prefetch.tensormap [%0];" ::"l"(
+                     reinterpret_cast<uint64_t>(tmw))
+                 : "memory");
+    for (int kt = 0; kt < b.nk; ++kt) {
+      const int s = kt % kF32Stages;
+      mbar_wait(b.empty(s), ((kt / kF32Stages) & 1) ^ 1);
+      mbar_expect_tx(b.full(s), kF32StageBytes);
+      tma_load_2d(b.stage(s) + kF32WBytes, tmx, kt * kF32BK, b.row0,
+                  b.full(s));
+      if (kWKMajor)
+        tma_load_3d(b.stage(s), tmw, kt * kF32BK, b.n0, b.g, b.full(s));
+      else
+        tma_load_3d(b.stage(s), tmw, b.n0, kt * kF32BK, b.g, b.full(s));
+    }
+  }
+};
+
+// cp.async: x (T, d) and w, (G, d, f) or, read K-major, stored (G, f, d),
+// at copy widths xbytes and wbytes (16, 8 or 4), a warpgroup of producer
+// threads writing each stage's boxes in TMA's bytes (copy_rows).  The rows
+// of x past the block's real rows are zeros: they feed only output rows
+// the epilogue writes as +0, so TMA's noise there and these zeros give
+// the same bits.
+struct AsyncF32Fwd {
+  static constexpr int kThreads = kAsyncProducers, kArrivals = kAsyncProducers;
+  static constexpr bool kAsync = true;
+  const float* x;
+  const float* w;
+  int xbytes, wbytes;
+
+  template <bool kWKMajor>
+  __device__ __forceinline__ void load(const F32Tile& b, int p) const {
+    with_width<4>(xbytes, [&](auto xw) {
+      with_width<4>(wbytes, [&](auto ww) {
+        this->template stages<kWKMajor, decltype(xw)::value,
+                              decltype(ww)::value>(b, p);
+      });
+    });
+    cp_async_wait<0>();
+  }
+
+  template <bool kWKMajor, int kX, int kW>
+  __device__ __forceinline__ void stages(const F32Tile& b, int p) const {
+    const float* wg = w + size_t(b.g) * b.d * b.f;
+    for (int kt = 0; kt < b.nk; ++kt) {
+      const int s = kt % kF32Stages, k0 = kt * kF32BK;
+      mbar_wait(b.empty(s), ((kt / kF32Stages) & 1) ^ 1);
+      copy_rows<kX, kFBM, kF32BK * 4, false, kThreads>(
+          b.stage(s) + kF32WBytes,
+          Src<float>{x, b.d, b.row0, b.row0 + b.rows, k0, b.d}, p);
+      if constexpr (kWKMajor)  // rows are w's f (the output), columns its d
+        copy_rows<kW, kF32BN, kF32BK * 4, true, kThreads>(
+            b.stage(s), Src<float>{wg, b.d, b.n0, b.f, k0, b.d}, p);
+      else
+        copy_rows<kW, kF32BK, kF32BN * 4, false, kThreads>(
+            b.stage(s), Src<float>{wg, b.f, k0, b.d, b.n0, b.f}, p);
+      stage_arrive(b.full(s));
+    }
+  }
+};
+
+// The f32 forward and dX: one block a 64 x 256 tile of y, the ring filled
+// by `loads` (TmaF32Fwd or AsyncF32Fwd).  x's box is 64 rows x 32 deep.
+// kWKMajor false: w is (G, d, f), a box 32 deep x 256 columns, unswizzled:
+// a depth row of the box is 1 KB, and lane l reads columns 4 l .. 4 l + 3
+// and 128 + 4 l .. of it.  kWKMajor true: w is stored (G, f, d), the
+// transpose of the weights this call multiplies by (dX on the forward's
+// w), a box 256 columns (rows of the stored w) x 32 deep with the 128-byte
+// swizzle: column n is one 128-byte line whose 16-byte chunk c sits at c ^
+// (n % 8); lane l reads columns l + 32 j.  Either way each output is the
+// same fmaf chain, so the result equals the call on a contiguous copy of
+// w^T bit for bit.  ybytes: y's store width (16 with TMA; the async
+// instance stores at y's copy width, where f is not a multiple of 4 or y
+// lies off 16 bytes).
+template <bool kWKMajor, class Loads>
+__device__ __forceinline__ void gmm_f32_fma(const Loads& loads,
+                                            const int* __restrict__ tile_gid,
+                                            const int* __restrict__ tile_rows,
+                                            float* __restrict__ y, int d,
+                                            int f, int G, int bt,
+                                            int ybytes) {
+  constexpr int kThreadsAll = kF32Warps * 32 + Loads::kThreads;
   extern __shared__ uint8_t smem_raw[];
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -1013,13 +1207,21 @@ __global__ void __launch_bounds__(kF32Threads, 1)
   const int row0 = blockIdx.y * kFBM;
   const int t = row0 / bt;
   const int g = tile_gid[t];
+  auto fill = [&](int r0, int r1, float v, int i, int n) {
+    if constexpr (!Loads::kAsync)
+      fill_f32<16>(y, r0, r1, n0, f, v, i, n);
+    else
+      with_width<4>(ybytes, [&](auto yw) {
+        fill_f32<decltype(yw)::value>(y, r0, r1, n0, f, v, i, n);
+      });
+  };
   if (g < 0 || g >= G) {
-    fill_f32(y, row0, row0 + kFBM, n0, f, CUDART_NAN_F, tid, kF32Threads);
+    fill(row0, row0 + kFBM, CUDART_NAN_F, tid, kThreadsAll);
     return;
   }
   const int rows = block_rows(tile_rows, t, row0, bt, kFBM);
   if (rows == 0) {
-    fill_f32(y, row0, row0 + kFBM, n0, f, 0.0f, tid, kF32Threads);
+    fill(row0, row0 + kFBM, 0.0f, tid, kThreadsAll);
     return;
   }
   // A block whose real rows fit in 8 (the decode calls) splits its 256
@@ -1031,44 +1233,24 @@ __global__ void __launch_bounds__(kF32Threads, 1)
   // then the full and empty barriers of each stage.
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
-  const uint32_t bars = ring + kF32Stages * kF32StageBytes;
-  auto full = [&](int s) { return bars + 8u * s; };
-  auto empty = [&](int s) { return bars + 8u * (kF32Stages + s); };
+  const int nk = (d + kF32BK - 1) / kF32BK;
+  const F32Tile tile{ring, ring + kF32Stages * kF32StageBytes, nk, rows,
+                     row0, n0, g, d, f};
   if (tid == 0) {
     for (int s = 0; s < kF32Stages; ++s) {
-      mbar_init(full(s), 1);
-      mbar_init(empty(s), nwarps * 32);
+      mbar_init(tile.full(s), Loads::kArrivals);
+      mbar_init(tile.empty(s), nwarps * 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  const int nk = (d + kF32BK - 1) / kF32BK;
-  if (warp == kF32Warps) {
-    // Producer warp: one lane keeps the ring full.
-    if (lane == 0) {
-      asm volatile("prefetch.tensormap [%0];" ::"l"(
-                       reinterpret_cast<uint64_t>(&tmx))
-                   : "memory");
-      asm volatile("prefetch.tensormap [%0];" ::"l"(
-                       reinterpret_cast<uint64_t>(&tmw))
-                   : "memory");
-      for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % kF32Stages;
-        const uint32_t stage = ring + s * kF32StageBytes;
-        mbar_wait(empty(s), ((kt / kF32Stages) & 1) ^ 1);
-        mbar_expect_tx(full(s), kF32StageBytes);
-        tma_load_2d(stage + kF32WBytes, &tmx, kt * kF32BK, row0, full(s));
-        if (kWKMajor)
-          tma_load_3d(stage, &tmw, kt * kF32BK, n0, g, full(s));
-        else
-          tma_load_3d(stage, &tmw, n0, kt * kF32BK, g, full(s));
-      }
-    }
+  if (warp >= kF32Warps) {
+    loads.template load<kWKMajor>(tile, tid - kF32Warps * 32);
     return;
   }
   if (warp >= nwarps) {
-    fill_f32(y, row0 + 8 * warp, row0 + 8 * warp + 8, n0, f, 0.0f, lane, 32);
+    fill(row0 + 8 * warp, row0 + 8 * warp + 8, 0.0f, lane, 32);
     return;
   }
   const float* ring_f = reinterpret_cast<const float*>(smem_raw + (ring - raw));
@@ -1076,14 +1258,14 @@ __global__ void __launch_bounds__(kF32Threads, 1)
     // Rows 0..7 of the tile, column 32 warp + lane: each depth step reads
     // the 8 rows (one address a warp) and one value of w a lane, for 8
     // FMAs; the rows past 8 are zeros.
-    fill_f32(y, row0 + 8, row0 + kFBM, n0, f, 0.0f, tid, kF32Warps * 32);
+    fill(row0 + 8, row0 + kFBM, 0.0f, tid, kF32Warps * 32);
     const int n = 32 * warp + lane;
     float acc[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[i] = 0.0f;
     for (int kt = 0; kt < nk; ++kt) {
       const int s = kt % kF32Stages;
-      mbar_wait(full(s), (kt / kF32Stages) & 1);
+      mbar_wait(tile.full(s), (kt / kF32Stages) & 1);
       const float* ws = ring_f + s * (kF32StageBytes / 4);
       const float* xs = ws + kF32WBytes / 4;
 #pragma unroll 2
@@ -1107,7 +1289,7 @@ __global__ void __launch_bounds__(kF32Threads, 1)
           for (int i = 0; i < 8; ++i)
             acc[i] = fmaf(lane_of(a[i], kk), lane_of(b, kk), acc[i]);
       }
-      mbar_arrive(empty(s));
+      mbar_arrive(tile.empty(s));
     }
     const int col = n0 + n;
     if (col < f) {
@@ -1126,7 +1308,7 @@ __global__ void __launch_bounds__(kF32Threads, 1)
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
   for (int kt = 0; kt < nk; ++kt) {
     const int s = kt % kF32Stages;
-    mbar_wait(full(s), (kt / kF32Stages) & 1);
+    mbar_wait(tile.full(s), (kt / kF32Stages) & 1);
     const float* ws = ring_f + s * (kF32StageBytes / 4);
     const float* xs = ws + kF32WBytes / 4 + 8 * warp * kF32BK;
 #pragma unroll 2
@@ -1167,33 +1349,42 @@ __global__ void __launch_bounds__(kF32Threads, 1)
       }
     }
     // Every lane's reads of the stage are done: hand it back.
-    mbar_arrive(empty(s));
+    mbar_arrive(tile.empty(s));
   }
 
-  // Epilogue: rows past the count are written as +0.
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = 8 * warp + i;
-    const bool real = r < rows;
-    float* out = y + size_t(row0 + r) * f;
-    if (kWKMajor) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = n0 + lane + 32 * j;
-        if (col < f) out[col] = real ? acc[i][j] : 0.0f;
-      }
-    } else {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = n0 + 128 * h + 4 * lane;
-        if (col < f)
-          *reinterpret_cast<float4*>(out + col) =
-              real ? make_float4(acc[i][4 * h], acc[i][4 * h + 1],
-                                 acc[i][4 * h + 2], acc[i][4 * h + 3])
-                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      }
-    }
-  }
+  // Epilogue: at y's store width where the forward's stores need one.
+  if (!Loads::kAsync || kWKMajor || ybytes == 16)
+    f32_epilogue<kWKMajor, 16>(acc, y, row0, rows, n0, f, warp, lane);
+  else if (ybytes == 8)
+    f32_epilogue<kWKMajor, 8>(acc, y, row0, rows, n0, f, warp, lane);
+  else
+    f32_epilogue<kWKMajor, 4>(acc, y, row0, rows, n0, f, warp, lane);
+}
+
+// f32 that TMA can describe: the ring filled by TMA (see gmm_f32_fma).
+template <bool kWKMajor>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    gmm_f32_tma(const __grid_constant__ CUtensorMap tmx,
+                const __grid_constant__ CUtensorMap tmw,
+                const int* __restrict__ tile_gid,
+                const int* __restrict__ tile_rows, float* __restrict__ y,
+                int d, int f, int G, int bt) {
+  gmm_f32_fma<kWKMajor>(TmaF32Fwd{&tmx, &tmw}, tile_gid, tile_rows, y, d, f,
+                        G, bt, 16);
+}
+
+// f32 that TMA cannot describe (a width not a multiple of 4, a base off 16
+// bytes): the same consumers, the ring filled through cp.async at each
+// operand's own width by a producer warpgroup.
+template <bool kWKMajor>
+__global__ void __launch_bounds__(kAsyncThreads, 1)
+    gmm_f32_async(const float* __restrict__ x, const float* __restrict__ w,
+                  const int* __restrict__ tile_gid,
+                  const int* __restrict__ tile_rows, float* __restrict__ y,
+                  int d, int f, int G, int bt, int xbytes, int wbytes,
+                  int ybytes) {
+  gmm_f32_fma<kWKMajor>(AsyncF32Fwd{x, w, xbytes, wbytes}, tile_gid,
+                        tile_rows, y, d, f, G, bt, ybytes);
 }
 
 // ------------------------------------------ the weights' gradient (dW)
@@ -1259,52 +1450,30 @@ __global__ void __launch_bounds__(kF32Threads, 1)
 //  * float32 that TMA can describe (d and f multiples of 4, 16-byte
 //    aligned bases; gmm_dw_f32_tma): the forward's FMA microkernel turned
 //    over.  Each output is one fmaf chain over the group's real rows in
-//    ascending (tile, row) order from +0, as in gmm_dw_f32, so the two
-//    give the same bits.  A block owns a 64 (d) x 128 (f) tile of one
-//    group's dw, 4 consumer warps, 8 x 8 outputs a thread, and walks
-//    one or more f-tiles in turn as gmm_dw_bf16_tma does (one where the
-//    grid of single f-tiles would leave the card short of blocks, up to
-//    kDwF32MaxFTiles where it is large, so that each block's walk and
-//    first loads are paid once for several f-tiles): one producer
+//    ascending (tile, row) order from +0.  A block owns a 64 (d) x 128
+//    (f) tile of one group's dw, 4 consumer warps, 8 x 8 outputs a thread,
+//    and walks one or more f-tiles in turn as gmm_dw_bf16_tma does (one
+//    where the grid of single f-tiles would leave the card short of
+//    blocks, up to kDwF32MaxFTiles where it is large, so that each block's
+//    walk and first loads are paid once for several f-tiles): one producer
 //    warp walks the group's tiles 32 ids a step and fills a ring of
 //    32-row stages by TMA (x as 32 rows x 64 d-columns, dy as 32 rows x
 //    128 f-columns, both unswizzled: a row step of a thread reads 8 d and
 //    8 f values as four 128-bit loads along the rows, neighbouring lanes
 //    on neighbouring chunks), telling the consumers each stage's real
 //    rows.  The consumers sum only those rows: the rows of a box past the
-//    count (noise, or NaN) are never read, which gives the bits of
-//    gmm_dw_f32's zeroed rows (0 x 0 adds +0).  Each f-tile is stored from
+//    count (noise, or NaN) are never read.  Each f-tile is stored from
 //    registers with 16-byte stores while the next one's stages arrive.
 //    Bound: at the f32 cut's call (32 tokens top-6, E = 64, C = 256, d =
 //    2048, f = 1408) the 192 real rows are 1.1 GFLOP against dw's 738 MB
 //    written once, 0.22 ms of bytes, so the kernel has to keep the writes
 //    streaming; at the ragged case (4 groups, d = 192, f = 160) it is
 //    operations and latency.
-//  * other float32 (gmm_dw_f32): CUDA-core FMA from 16-row slices.
-
-// Real rows of tile t for group g: 0 unless the tile is g's.
-__device__ __forceinline__ int dw_rows(const int* tile_gid,
-                                       const int* tile_rows, int t, int g,
-                                       int bt) {
-  if (tile_gid[t] != g) return 0;
-  return tile_rows == nullptr ? bt : min(max(tile_rows[t], 0), bt);
-}
-
-// Steps (t, k0) to the next slice of group g's real rows: k0 advances by
-// `step` inside tile t, else to the next tile of g with a real row.
-// `rt` is tile t's real rows.  False once the tiles are walked.
-__device__ __forceinline__ bool dw_next(const int* tile_gid,
-                                        const int* tile_rows, int ntiles,
-                                        int g, int bt, int step, int& t,
-                                        int& k0, int& rt) {
-  k0 += step;
-  while (t < ntiles && k0 >= rt) {
-    ++t;
-    k0 = 0;
-    rt = t < ntiles ? dw_rows(tile_gid, tile_rows, t, g, bt) : 0;
-  }
-  return t < ntiles;
-}
+//  * other float32 (gmm_dw_f32_async): the same consumers on a ring two
+//    producer warps fill through cp.async at x's and dy's widths
+//    (copy_rows: TMA's bytes, zeros past d, f and the real rows), each
+//    f-tile stored at dw's own width; its results equal gmm_dw_f32_tma's
+//    bit for bit.
 
 // -------------------------------------------------- dW: TMA + wgmma
 constexpr int kDwBN = 256;     // f columns of a dW tile: one m64n256 wgmma
@@ -1420,8 +1589,9 @@ __device__ __forceinline__ int warp_next_tile(const int* tile_gid,
 // / 64 (f columns n0 + 64 j), 8 KB each and adjoining; `bars` the full and
 // empty barriers of the kStages stages, then their info words, then (the
 // async instance) each box's ninth row chunks for the 2-byte tier.
-template <int kStages>
+template <int kRing>
 struct DwTile {
+  static constexpr int kStages = kRing;
   uint32_t ring, bars;
   volatile int* info;
   const int* tile_gid;
@@ -1446,30 +1616,32 @@ struct DwTile {
 };
 
 // The producer's walk, the same in every producer warp: the group's real
-// rows once for each f-tile, a 64-row box at a time.  stage(s, it, row,
-// valid, n0, word) fills ring stage s (the it-th) with rows [row, row +
-// 64) of x and dy, of which `valid` are real, for the f-tile at n0, and
-// publishes `word` (the stage's info) with it.
-template <int kStages, class Stage>
-__device__ __forceinline__ void dw_walk(const DwTile<kStages>& b, int lane,
+// rows once for each f-tile of kFTile columns, kStep rows a stage.
+// stage(s, it, row, valid, n0, word) fills ring stage s (the it-th) with
+// rows [row, row + kStep) of x and dy, of which `valid` are real, for the
+// f-tile at n0, and publishes `word` (the stage's info) with it.  Tile:
+// DwTile (bf16, 64-row stages of 256 f columns) or DwF32Tile (f32, 32
+// rows of 128).
+template <int kStep, int kFTile, class Tile, class Stage>
+__device__ __forceinline__ void dw_walk(const Tile& b, int lane,
                                         Stage&& stage) {
   int n0 = b.n_lo, t = b.first, k0 = 0, rt = b.rows_of(b.first);
   for (int it = 0;; ++it) {
-    const int s = it % kStages;
-    const int valid = min(rt - k0, kBK);
-    int nt = t, nk0 = k0 + kBK;
+    const int s = it % Tile::kStages;
+    const int valid = min(rt - k0, kStep);
+    int nt = t, nk0 = k0 + kStep;
     if (nk0 >= rt) {
       nt = warp_next_tile(b.tile_gid, b.tile_rows, b.ntiles, b.g, t + 1,
                           lane);
       nk0 = 0;
     }
     const bool tile_end = nt >= b.ntiles;
-    const bool last = tile_end && n0 + kDwBN >= b.n_hi;
+    const bool last = tile_end && n0 + kFTile >= b.n_hi;
     stage(s, it, t * b.bt + k0, valid, n0,
           valid | (tile_end ? kDwTileEnd : 0) | (last ? kDwLast : 0));
     if (last) break;
     if (tile_end) {
-      n0 += kDwBN;
+      n0 += kFTile;
       t = b.first;
       k0 = 0;
       rt = b.rows_of(b.first);
@@ -1506,7 +1678,8 @@ struct TmaDw {
                        reinterpret_cast<uint64_t>(tmdw))
                    : "memory");
     }
-    dw_walk(b, p, [&](int s, int it, int row, int, int n0, int word) {
+    dw_walk<kBK, kDwBN>(b, p, [&](int s, int it, int row, int, int n0,
+                                  int word) {
       if (p == 0) {
         mbar_wait(b.empty(s), ((it / kStages) & 1) ^ 1);
         b.info[s] = word;
@@ -1587,8 +1760,8 @@ struct AsyncDw {
       }
       --pend;
     };
-    dw_walk(b, p & 31, [&](int s, int it, int row, int valid, int n0,
-                           int word) {
+    dw_walk<kBK, kDwBN>(b, p & 31, [&](int s, int it, int row, int valid,
+                                       int n0, int word) {
       mbar_wait(b.empty(s), ((it / kStages) & 1) ^ 1);
       if (p == 0) b.info[s] = word;
       for (int h = 0; h < kConsumers; ++h)
@@ -1621,19 +1794,19 @@ struct AsyncDw {
   }
 };
 
-// Rows [r0, r1) x columns [c0, c1) of a bf16 matrix with `pitch` elements
-// a row set to +0, kBytes a store (kBytes divides the pitch's bytes and
-// the base, and c1 - c0 is a whole number of stores).
-template <int kBytes>
-__device__ __forceinline__ void zero_bf16(__nv_bfloat16* out, int pitch,
-                                          int r0, int r1, int c0, int c1,
-                                          int tid, int nthreads) {
-  const int per = (c1 - c0) / (kBytes / 2);
+// Rows [r0, r1) x columns [c0, c1) of a bf16 or f32 matrix with `pitch`
+// elements a row set to +0, kBytes a store (kBytes divides the pitch's
+// bytes and the base, and c1 - c0 is a whole number of stores).
+template <int kBytes, class E>
+__device__ __forceinline__ void zero_rows(E* out, int pitch, int r0, int r1,
+                                          int c0, int c1, int tid,
+                                          int nthreads) {
+  constexpr int kElems = kBytes / int(sizeof(E));
+  const int per = (c1 - c0) / kElems;
   const auto z = Bits<kBytes>::of(0);
   for (int e = tid; e < (r1 - r0) * per; e += nthreads)
     *reinterpret_cast<typename Bits<kBytes>::T*>(
-        out + size_t(r0 + e / per) * pitch + c0 + (e % per) * (kBytes / 2)) =
-        z;
+        out + size_t(r0 + e / per) * pitch + c0 + (e % per) * kElems) = z;
 }
 
 // x^T (A, 64 d-rows x 16 rows deep) and dy (B, 16 rows deep x 256 f
@@ -1678,7 +1851,7 @@ __device__ __forceinline__ void gmm_dw_bf16_wgmma(
                                   (e % w8) * 8) = make_uint4(0, 0, 0, 0);
     } else {
       with_width(dwbytes, [&](auto ww) {
-        zero_bf16<decltype(ww)::value>(out, f, m0, m1, n_lo, n_hi, tid,
+        zero_rows<decltype(ww)::value>(out, f, m0, m1, n_lo, n_hi, tid,
                                        kThreadsAll);
       });
     }
@@ -1852,57 +2025,6 @@ __global__ void __launch_bounds__(kAsyncThreads, 1)
                     d, f, ntiles, bt, ftiles, dwbytes, nullptr);
 }
 
-constexpr int kDFK = 16;  // rows of an f32 dW slice
-
-__global__ void __launch_bounds__(kFThreads)
-    gmm_dw_f32(const float* __restrict__ x, const float* __restrict__ dy,
-               const int* __restrict__ tile_gid,
-               const int* __restrict__ tile_rows, float* __restrict__ dw,
-               int d, int f, int ntiles, int bt) {
-  __shared__ float as[kDFK][kFBM + 4];  // x slice: rows x d columns
-  __shared__ float bs[kDFK][kFBN + 4];  // dy slice: rows x f columns
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int n0 = blockIdx.x * kFBN;
-  const int m0 = blockIdx.y * kFBM;
-  const int g = blockIdx.z;
-  float acc[4][4] = {};
-  int t = -1, k0 = 0, rt = 0;
-  while (dw_next(tile_gid, tile_rows, ntiles, g, bt, kDFK, t, k0, rt)) {
-#pragma unroll
-    for (int i = 0; i < kDFK * kFBM / kFThreads; ++i) {
-      const int e = tid + i * kFThreads;
-      const int r = e / kFBM, c = e % kFBM;
-      const bool real = k0 + r < rt;
-      const size_t row = size_t(t) * bt + k0 + r;
-      as[r][c] = real && m0 + c < d ? x[row * d + m0 + c] : 0.0f;
-      bs[r][c] = real && n0 + c < f ? dy[row * f + n0 + c] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kDFK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = as[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* out = dw + size_t(g) * d * f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int rr = m0 + ty + 16 * i, col = n0 + tx + 16 * j;
-      if (rr < d && col < f) out[size_t(rr) * f + col] = acc[i][j];
-    }
-}
-
 // ------------------------------------------------- dW f32: TMA + FMA
 constexpr int kDwF32BM = 64;      // d rows of a block's dw tile
 constexpr int kDwF32BN = 128;     // f columns of it
@@ -1912,24 +2034,147 @@ constexpr int kDwF32MaxFTiles = 8;  // most f-tiles a block walks in turn
 constexpr int kDwF32Waves = 8;    // blocks of the grid an SM, at least
 constexpr int kDwF32Warps = 4;    // consumers: 8 x 8 outputs a thread
 constexpr int kDwF32Threads = kDwF32Warps * 32 + 32;  // + one producer
+// The async instance's producer threads: two warps.  A warpgroup was as
+// fast at (b) and 3% slower at the f32 cut's call (t), and its 256 threads
+// a block, two blocks an SM, held a thread to 128 registers, where the
+// consumers spilled (benchmarks/f32_tune.py).
+constexpr int kDwF32AsyncProducers = 64;
+constexpr int kDwF32AsyncThreads = kDwF32Warps * 32 + kDwF32AsyncProducers;
 constexpr int kDwF32XBytes = kDwF32BK * kDwF32BM * 4;  // 8 KB
 constexpr int kDwF32StageBytes = kDwF32XBytes + kDwF32BK * kDwF32BN * 4;
 constexpr int kDwF32Smem = kDwF32Stages * kDwF32StageBytes + 1024 +
                            2 * kDwF32Stages * 8 + kDwF32Stages * 4;
 
-// tmx: x as (T rows, d) with 64-column x 32-row boxes, tmdy: dy as (T
-// rows, f) with 128-column x 32-row boxes, unswizzled, zero fill past the
-// edges.  Grid (d-tiles of 64, groups, chunks of `ftiles` f-tiles of
-// 128).  Thread (tm, tn) of the 8 x 16 consumer threads owns dw rows
-// m0 + 4 tm + {0..3} and m0 + 32 + 4 tm + {0..3}, columns n0 + 4 tn +
-// {0..3} and n0 + 64 + 4 tn + {0..3}: a row step reads them as two
-// 128-bit loads from x's row and two from dy's.
-__global__ void __launch_bounds__(kDwF32Threads)
-    gmm_dw_f32_tma(const __grid_constant__ CUtensorMap tmx,
-                   const __grid_constant__ CUtensorMap tmdy,
-                   const int* __restrict__ tile_gid,
-                   const int* __restrict__ tile_rows, float* __restrict__ dw,
-                   int d, int f, int ntiles, int bt, int ftiles) {
+// An f32 dW block's walk (see dw_walk): d-tile m0 of group g's dw, the f
+// columns [n_lo, n_hi) of its chunk, the group's first tile with a real
+// row.  Stage s holds x's box (32 rows x 64 d columns), then dy's (32 rows
+// x 128 f columns), unswizzled; `bars` the full and empty barriers, then
+// the stages' info words (`info`).
+struct DwF32Tile {
+  static constexpr int kStages = kDwF32Stages;
+  uint32_t ring, bars;
+  volatile int* info;
+  const int* tile_gid;
+  const int* tile_rows;
+  int ntiles, bt, g, m0, n_lo, n_hi, first, d, f;
+
+  __device__ __forceinline__ int rows_of(int t) const {
+    return tile_rows == nullptr ? bt : min(max(tile_rows[t], 0), bt);
+  }
+  __device__ __forceinline__ uint32_t stage(int s) const {
+    return ring + s * kDwF32StageBytes;
+  }
+  __device__ __forceinline__ uint32_t full(int s) const {
+    return bars + 8u * s;
+  }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return bars + 8u * (kStages + s);
+  }
+};
+
+// TMA: x as (T rows, d) with 64-column x 32-row boxes, dy as (T rows, f)
+// with 128-column x 32-row boxes, unswizzled, zero fill past the edges.
+// The producer warp walks; lane 0 issues the loads of whole 32-row boxes,
+// whose rows past a tile's count the consumers never read.
+struct TmaF32Dw {
+  static constexpr int kThreads = 32, kArrivals = 1;
+  static constexpr bool kAsync = false;
+  const CUtensorMap* tmx;
+  const CUtensorMap* tmdy;
+
+  __device__ __forceinline__ void load(const DwF32Tile& b, int p) const {
+    if (p == 0) {
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(tmx))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(tmdy))
+                   : "memory");
+    }
+    dw_walk<kDwF32BK, kDwF32BN>(b, p, [&](int s, int it, int row, int,
+                                          int n0, int word) {
+      if (p == 0) {
+        mbar_wait(b.empty(s), ((it / kDwF32Stages) & 1) ^ 1);
+        b.info[s] = word;
+        mbar_expect_tx(b.full(s), kDwF32StageBytes);
+        tma_load_2d(b.stage(s), tmx, b.m0, row, b.full(s));
+        tma_load_2d(b.stage(s) + kDwF32XBytes, tmdy, n0, row, b.full(s));
+      }
+      __syncwarp();
+    });
+  }
+};
+
+// cp.async: x (T, d) and dy (T, f) at copy widths xbytes and dybytes (16,
+// 8 or 4), every producer warp walking the group's rows; the rows of a box
+// past its `valid` real rows are zeros (the consumers do not read them).
+struct AsyncF32Dw {
+  static constexpr int kThreads = kDwF32AsyncProducers;
+  static constexpr int kArrivals = kDwF32AsyncProducers;
+  static constexpr bool kAsync = true;
+  const float* x;
+  const float* dy;
+  int xbytes, dybytes;
+
+  __device__ __forceinline__ void load(const DwF32Tile& b, int p) const {
+    with_width<4>(xbytes, [&](auto xw) {
+      with_width<4>(dybytes, [&](auto yw) {
+        this->template stages<decltype(xw)::value, decltype(yw)::value>(b,
+                                                                       p);
+      });
+    });
+    cp_async_wait<0>();
+  }
+
+  template <int kX, int kY>
+  __device__ __forceinline__ void stages(const DwF32Tile& b, int p) const {
+    dw_walk<kDwF32BK, kDwF32BN>(b, p & 31, [&](int s, int it, int row,
+                                               int valid, int n0, int word) {
+      mbar_wait(b.empty(s), ((it / kDwF32Stages) & 1) ^ 1);
+      if (p == 0) b.info[s] = word;
+      copy_rows<kX, kDwF32BK, kDwF32BM * 4, false, kThreads>(
+          b.stage(s), Src<float>{x, b.d, row, row + valid, b.m0, b.d}, p);
+      copy_rows<kY, kDwF32BK, kDwF32BN * 4, false, kThreads>(
+          b.stage(s) + kDwF32XBytes,
+          Src<float>{dy, b.f, row, row + valid, n0, b.f}, p);
+      stage_arrive(b.full(s));
+    });
+  }
+};
+
+// gmm_dw_f32_fma's epilogue for consumer thread (tm, tn): its rows of the
+// f-tile at n0 below d, its columns below n_hi, four adjoining columns in
+// stores of kY bytes (dw's width).
+template <int kY>
+__device__ __forceinline__ void dw_f32_epilogue(const float (&acc)[8][8],
+                                                float* out, int m0, int n0,
+                                                int n_hi, int d, int f,
+                                                int tm, int tn) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? 4 * tm + i : 32 + 4 * tm + i - 4);
+    if (m < d) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store4_f32<kY>(out + size_t(m) * f, n0 + 64 * h + 4 * tn, n_hi,
+                       make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                                   acc[i][4 * h + 2], acc[i][4 * h + 3]));
+    }
+  }
+}
+
+// The f32 dW: grid (d-tiles of 64, groups, chunks of `ftiles` f-tiles of
+// 128), the ring filled by `loads` (TmaF32Dw or AsyncF32Dw).  Thread (tm,
+// tn) of the 8 x 16 consumer threads owns dw rows m0 + 4 tm + {0..3} and
+// m0 + 32 + 4 tm + {0..3}, columns n0 + 4 tn + {0..3} and n0 + 64 + 4 tn +
+// {0..3}: a row step reads them as two 128-bit loads from x's row and two
+// from dy's.  dwbytes: dw's store width (16 with TMA).
+template <class Loads>
+__device__ __forceinline__ void gmm_dw_f32_fma(
+    const Loads& loads, const int* __restrict__ tile_gid,
+    const int* __restrict__ tile_rows, float* __restrict__ dw, int d, int f,
+    int ntiles, int bt, int ftiles, int dwbytes) {
+  constexpr int kThreadsAll = kDwF32Warps * 32 + Loads::kThreads;
   extern __shared__ uint8_t smem_raw[];
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -1942,76 +2187,33 @@ __global__ void __launch_bounds__(kDwF32Threads)
   // Every warp finds the group's first tile with a real row itself.
   const int first = warp_next_tile(tile_gid, tile_rows, ntiles, g, 0, lane);
   if (first >= ntiles) {
-    const int m1 = min(m0 + kDwF32BM, d), w4 = (n_hi - n_lo) / 4;
-    for (int e = tid; e < (m1 - m0) * w4; e += kDwF32Threads)
-      *reinterpret_cast<float4*>(out + size_t(m0 + e / w4) * f + n_lo +
-                                 (e % w4) * 4) = make_float4(0, 0, 0, 0);
+    const int m1 = min(m0 + kDwF32BM, d);
+    with_width<4>(dwbytes, [&](auto ww) {
+      zero_rows<decltype(ww)::value>(out, f, m0, m1, n_lo, n_hi, tid,
+                                     kThreadsAll);
+    });
     return;
   }
 
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
   const uint32_t bars = ring + kDwF32Stages * kDwF32StageBytes;
-  auto full = [&](int s) { return bars + 8u * s; };
-  auto empty = [&](int s) { return bars + 8u * (kDwF32Stages + s); };
-  volatile int* info = reinterpret_cast<volatile int*>(
-      smem_raw + (bars + 16 * kDwF32Stages - raw));
+  const DwF32Tile b{ring, bars,
+                    reinterpret_cast<volatile int*>(
+                        smem_raw + (bars + 16 * kDwF32Stages - raw)),
+                    tile_gid, tile_rows, ntiles, bt, g, m0, n_lo, n_hi,
+                    first, d, f};
   if (tid == 0) {
     for (int s = 0; s < kDwF32Stages; ++s) {
-      mbar_init(full(s), 1);
-      mbar_init(empty(s), kDwF32Warps * 32);
+      mbar_init(b.full(s), Loads::kArrivals);
+      mbar_init(b.empty(s), kDwF32Warps * 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  auto rows_of = [&](int t) {
-    return tile_rows == nullptr ? bt : min(max(tile_rows[t], 0), bt);
-  };
-  if (warp == kDwF32Warps) {
-    // Producer warp: walks the group's real rows once for each f-tile, 32
-    // rows a stage; lane 0 issues the loads.
-    if (lane == 0) {
-      asm volatile("prefetch.tensormap [%0];" ::"l"(
-                       reinterpret_cast<uint64_t>(&tmx))
-                   : "memory");
-      asm volatile("prefetch.tensormap [%0];" ::"l"(
-                       reinterpret_cast<uint64_t>(&tmdy))
-                   : "memory");
-    }
-    int n0 = n_lo, t = first, k0 = 0, rt = rows_of(first);
-    for (int it = 0;; ++it) {
-      const int s = it % kDwF32Stages;
-      const int valid = min(rt - k0, kDwF32BK);
-      int nt = t, nk0 = k0 + kDwF32BK;
-      if (nk0 >= rt) {
-        nt = warp_next_tile(tile_gid, tile_rows, ntiles, g, t + 1, lane);
-        nk0 = 0;
-      }
-      const bool tile_end = nt >= ntiles;
-      const bool last = tile_end && n0 + kDwF32BN >= n_hi;
-      if (lane == 0) {
-        const uint32_t stage = ring + s * kDwF32StageBytes;
-        mbar_wait(empty(s), ((it / kDwF32Stages) & 1) ^ 1);
-        info[s] = valid | (tile_end ? kDwTileEnd : 0) | (last ? kDwLast : 0);
-        mbar_expect_tx(full(s), kDwF32StageBytes);
-        const int row = t * bt + k0;
-        tma_load_2d(stage, &tmx, m0, row, full(s));
-        tma_load_2d(stage + kDwF32XBytes, &tmdy, n0, row, full(s));
-      }
-      __syncwarp();
-      if (last) break;
-      if (tile_end) {
-        n0 += kDwF32BN;
-        t = first;
-        k0 = 0;
-        rt = rows_of(first);
-      } else {
-        if (nt != t) rt = rows_of(nt);
-        t = nt;
-        k0 = nk0;
-      }
-    }
+  if (warp >= kDwF32Warps) {
+    loads.load(b, tid - kDwF32Warps * 32);
     return;
   }
 
@@ -2028,8 +2230,8 @@ __global__ void __launch_bounds__(kDwF32Threads)
     int flags;
     do {
       const int s = it % kDwF32Stages;
-      mbar_wait(full(s), (it / kDwF32Stages) & 1);
-      flags = info[s];
+      mbar_wait(b.full(s), (it / kDwF32Stages) & 1);
+      flags = b.info[s];
       const int valid = flags & 0xFF;
       const float* xs = ring_f + s * (kDwF32StageBytes / 4) + 4 * tm;
       const float* dys =
@@ -2057,28 +2259,46 @@ __global__ void __launch_bounds__(kDwF32Threads)
       } else {
         for (int r = 0; r < valid; ++r) step(r);
       }
-      mbar_arrive(empty(s));
+      mbar_arrive(b.empty(s));
       ++it;
     } while (!(flags & kDwTileEnd));
 
-    // Epilogue: 16-byte stores of the rows below d and columns below n_hi
-    // (f % 4 == 0, so a chunk lies wholly on one side of f).
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = m0 + (i < 4 ? 4 * tm + i : 32 + 4 * tm + i - 4);
-      if (m < d) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int col = n0 + 64 * h + 4 * tn;
-          if (col < n_hi)
-            *reinterpret_cast<float4*>(out + size_t(m) * f + col) =
-                make_float4(acc[i][4 * h], acc[i][4 * h + 1],
-                            acc[i][4 * h + 2], acc[i][4 * h + 3]);
-        }
-      }
-    }
+    // Epilogue: the rows below d and columns below n_hi, at dw's width.
+    if (dwbytes == 16)
+      dw_f32_epilogue<16>(acc, out, m0, n0, n_hi, d, f, tm, tn);
+    else if (dwbytes == 8)
+      dw_f32_epilogue<8>(acc, out, m0, n0, n_hi, d, f, tm, tn);
+    else
+      dw_f32_epilogue<4>(acc, out, m0, n0, n_hi, d, f, tm, tn);
     if (flags & kDwLast) break;
   }
+}
+
+// f32 that TMA can describe: the ring filled by TMA (see gmm_dw_f32_fma).
+__global__ void __launch_bounds__(kDwF32Threads)
+    gmm_dw_f32_tma(const __grid_constant__ CUtensorMap tmx,
+                   const __grid_constant__ CUtensorMap tmdy,
+                   const int* __restrict__ tile_gid,
+                   const int* __restrict__ tile_rows, float* __restrict__ dw,
+                   int d, int f, int ntiles, int bt, int ftiles) {
+  gmm_dw_f32_fma(TmaF32Dw{&tmx, &tmdy}, tile_gid, tile_rows, dw, d, f,
+                 ntiles, bt, ftiles, 16);
+}
+
+// f32 that TMA cannot describe: the same consumers, the ring filled
+// through cp.async at x's and dy's widths, dw stored at its own; two
+// blocks an SM, as the TMA kernel's ring allows (192 threads a block
+// leave a thread 168 registers; the consumers use fewer than 128).
+__global__ void __launch_bounds__(kDwF32AsyncThreads, 2)
+    gmm_dw_f32_async(const float* __restrict__ x,
+                     const float* __restrict__ dy,
+                     const int* __restrict__ tile_gid,
+                     const int* __restrict__ tile_rows,
+                     float* __restrict__ dw, int d, int f, int ntiles,
+                     int bt, int ftiles, int xbytes, int dybytes,
+                     int dwbytes) {
+  gmm_dw_f32_fma(AsyncF32Dw{x, dy, xbytes, dybytes}, tile_gid, tile_rows,
+                 dw, d, f, ntiles, bt, ftiles, dwbytes);
 }
 
 // ------------------------------------------------------- host: tensor maps
@@ -2200,11 +2420,25 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
                               bytes);
 }
 
-// Whether `bytes` (16, 8, 4 or 2) divides the row pitch of a bf16 matrix
-// `cols` wide and its base `p`: a copy width an async instance can take.
-bool copy_width_ok(int bytes, const void* p, long long cols) {
-  return (bytes == 16 || bytes == 8 || bytes == 4 || bytes == 2) &&
-         cols * 2 % bytes == 0 && reinterpret_cast<uintptr_t>(p) % bytes == 0;
+// Whether `bytes` (16, 8, 4, or 2 with 2-byte elements) divides the row
+// pitch of a matrix `cols` elements of `esize` bytes wide and its base
+// `p`: a copy width an async instance can take.
+bool copy_width_ok(int bytes, const void* p, long long cols, int esize) {
+  return (bytes == 16 || bytes == 8 || bytes == 4 ||
+          (bytes == 2 && esize == 2)) &&
+         cols * esize % bytes == 0 &&
+         reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// The f-tiles a block of an f32 dW walks: one where the grid of single
+// f-tiles is small (the card needs every block it can hold), up to
+// kDwF32MaxFTiles where it is large (a block's walk of the group's tiles
+// and its first loads are then paid once for several f-tiles).
+int dw_f32_ftiles(int dtiles, int G, int nft) {
+  const long long single = 1LL * dtiles * G * nft;
+  return static_cast<int>(std::min<long long>(
+      std::max<long long>(single / (kDwF32Waves * sm_count()), 1),
+      kDwF32MaxFTiles));
 }
 
 // Codes the launch entry returns beside cudaGetLastError()'s.
@@ -2220,13 +2454,13 @@ int grouped_matmul_row_tile(int dtype) { return dtype == 1 ? kBM : kFBM; }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w and y share it).  tma: TMA can
 // describe x and w (bf16: d and f multiples of 8; f32: of 4; 16-byte
-// aligned bases), so the TMA kernel of the dtype runs; else bf16 runs the
+// aligned bases), so the TMA kernel of the dtype runs; else the dtype's
 // async instance (the ring filled through cp.async, x, w and y at the copy
-// widths xbytes, wbytes and ybytes: 16, 8, 4 or 2, each dividing its
-// operand's row pitch and base) and f32 the element-load kernel.
-// w_kmajor (bf16, and f32 with tma): w is stored (G, f, d), the transpose
-// of the (G, d, f) weights the call multiplies by, and is read K-major
-// (K5's dX on the forward's w, with no copy); else w is (G, d, f).  The
+// widths xbytes, wbytes and ybytes: 16, 8, 4 or, in bf16, 2, each
+// dividing its operand's row pitch and base).  w_kmajor: w is stored (G,
+// f, d), the transpose of the (G, d, f) weights the call multiplies by,
+// and is read K-major (K5's dX on the forward's w, with no copy); else w
+// is (G, d, f).  The
 // TMA kernels fill and store y 16 bytes at a time, so with tma the output
 // width f must be a multiple of 8 (bf16) or 4 (f32) too.  tile_rows may
 // be null (every row real).  T must be a positive multiple of bt, and bt
@@ -2283,9 +2517,9 @@ int grouped_matmul_launch(const void* x, const int* tile_gid,
         tmx, tmw, tile_gid, tile_rows, static_cast<float*>(y), d, f, G, bt);
   } else if (dtype == 1) {
     // w's rows are f wide (the forward) or d (stored transposed)
-    if (!copy_width_ok(xbytes, x, d) ||
-        !copy_width_ok(wbytes, w, w_kmajor ? d : f) ||
-        !copy_width_ok(ybytes, y, f))
+    if (!copy_width_ok(xbytes, x, d, 2) ||
+        !copy_width_ok(wbytes, w, w_kmajor ? d : f, 2) ||
+        !copy_width_ok(ybytes, y, f, 2))
       return static_cast<int>(cudaErrorInvalidValue);
     const auto kernel =
         w_kmajor ? gmm_bf16_async<true> : gmm_bf16_async<false>;
@@ -2296,13 +2530,19 @@ int grouped_matmul_launch(const void* x, const int* tile_gid,
         static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w),
         tile_gid, tile_rows, static_cast<__nv_bfloat16*>(y), d, f, G, bt,
         xbytes, wbytes, ybytes);
-  } else if (w_kmajor) {
-    return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    const dim3 grid((f + kFBN - 1) / kFBN, T / kFBM);
-    gmm_f32<<<grid, kFThreads, 0, st>>>(
-        static_cast<const float*>(x), tile_gid, tile_rows,
-        static_cast<const float*>(w), static_cast<float*>(y), d, f, G, bt);
+    if (!copy_width_ok(xbytes, x, d, 4) ||
+        !copy_width_ok(wbytes, w, w_kmajor ? d : f, 4) ||
+        !copy_width_ok(ybytes, y, f, 4))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const auto kernel = w_kmajor ? gmm_f32_async<true> : gmm_f32_async<false>;
+    const cudaError_t attr = allow_smem(kernel, kF32Smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const dim3 grid((f + kF32BN - 1) / kF32BN, T / kFBM);
+    kernel<<<grid, kAsyncThreads, kF32Smem, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), tile_gid,
+        tile_rows, static_cast<float*>(y), d, f, G, bt, xbytes, wbytes,
+        ybytes);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -2310,9 +2550,9 @@ int grouped_matmul_launch(const void* x, const int* tile_gid,
 // dw (G, d, f) = the gradient of K5 with respect to w, from x (T, d) and
 // dy (T, f) of one dtype (0 = float32, 1 = bfloat16), over T / bt tiles.
 // tma: d and f are multiples of 8 (bf16) or 4 (f32) and x, dy 16-byte
-// aligned, so the TMA kernel of the dtype runs; else bf16 runs the async
-// instance (x, dy and dw at the copy widths xbytes, dybytes and dwbytes)
-// and f32 the element-load kernel.  tile_rows may be null.
+// aligned, so the TMA kernel of the dtype runs; else its async instance
+// (x, dy and dw at the copy widths xbytes, dybytes and dwbytes).
+// tile_rows may be null.
 int grouped_matmul_dw_launch(const void* x, const void* dy,
                              const int* tile_gid, const int* tile_rows,
                              void* dw, int T, int d, int f, int G, int bt,
@@ -2353,23 +2593,17 @@ int grouped_matmul_dw_launch(const void* x, const void* dy,
       return kEncodeFailed;
     const cudaError_t attr = allow_smem(gmm_dw_f32_tma, kDwF32Smem);
     if (attr != cudaSuccess) return static_cast<int>(attr);
-    // f-tiles a block walks: one where the grid of single f-tiles is
-    // small (the card needs every block it can hold), up to
-    // kDwF32MaxFTiles where it is large (a block's walk of the group's
-    // tiles and its first loads are then paid once for several f-tiles).
     const int dtiles = (d + kDwF32BM - 1) / kDwF32BM;
     const int nft = (f + kDwF32BN - 1) / kDwF32BN;
-    const long long single = 1LL * dtiles * G * nft;
-    const int ftiles = static_cast<int>(std::min<long long>(
-        std::max<long long>(single / (kDwF32Waves * sm_count()), 1),
-        kDwF32MaxFTiles));
+    const int ftiles = dw_f32_ftiles(dtiles, G, nft);
     const dim3 grid(dtiles, G, (nft + ftiles - 1) / ftiles);
     gmm_dw_f32_tma<<<grid, kDwF32Threads, kDwF32Smem, st>>>(
         tmx, tmdy, tile_gid, tile_rows, static_cast<float*>(dw), d, f,
         ntiles, bt, ftiles);
   } else if (dtype == 1) {
-    if (!copy_width_ok(xbytes, x, d) || !copy_width_ok(dybytes, dy, f) ||
-        !copy_width_ok(dwbytes, dw, f))
+    if (!copy_width_ok(xbytes, x, d, 2) ||
+        !copy_width_ok(dybytes, dy, f, 2) ||
+        !copy_width_ok(dwbytes, dw, f, 2))
       return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t attr = allow_smem(gmm_dw_bf16_async, kAsyncDwSmem);
     if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -2388,10 +2622,19 @@ int grouped_matmul_dw_launch(const void* x, const void* dy,
         tile_gid, tile_rows, static_cast<__nv_bfloat16*>(dw), d, f, ntiles,
         bt, ftiles, xbytes, dybytes, dwbytes);
   } else {
-    const dim3 grid((f + kFBN - 1) / kFBN, (d + kFBM - 1) / kFBM, G);
-    gmm_dw_f32<<<grid, kFThreads, 0, st>>>(
+    if (!copy_width_ok(xbytes, x, d, 4) || !copy_width_ok(dybytes, dy, f, 4) ||
+        !copy_width_ok(dwbytes, dw, f, 4))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t attr = allow_smem(gmm_dw_f32_async, kDwF32Smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const int dtiles = (d + kDwF32BM - 1) / kDwF32BM;
+    const int nft = (f + kDwF32BN - 1) / kDwF32BN;
+    const int ftiles = dw_f32_ftiles(dtiles, G, nft);
+    const dim3 grid(dtiles, G, (nft + ftiles - 1) / ftiles);
+    gmm_dw_f32_async<<<grid, kDwF32AsyncThreads, kDwF32Smem, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(dy), tile_gid,
-        tile_rows, static_cast<float*>(dw), d, f, ntiles, bt);
+        tile_rows, static_cast<float*>(dw), d, f, ntiles, bt, ftiles, xbytes,
+        dybytes, dwbytes);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,17 +8,17 @@ ring of shared-memory stages, filled by TMA where TMA can describe the
 operands and through ``cp.async`` where it cannot (``kernel_path`` says
 which kernel a call takes; ``copy_bytes`` each operand's copy width): the
 same consumers in the same layout, so both give the same bits; in float32
-CUDA-core FMA, fed by TMA where it can describe the operands and by
-element loads where it cannot, each output the same fmaf chain on both.
+CUDA-core FMA on a ring filled the same two ways, each output the same
+fmaf chain on both.
 An optional ``tile_rows`` names the real leading rows of each ``bt``-row
 tile: the other rows count as zero and are written as +0, and a tile with
 none reads no weights.  At the MoE decode shapes K5 is
 bound by the bytes of the experts' weights; see the source's note.
 
 Training.  ``grouped_matmul_fn`` is K5 with a backward (an autograd
-Function): dX is K5 itself on each group's transposed weights, which the
-bf16 kernels and the f32 TMA kernel read K-major from w as it is
-(``w_transposed``: no copy of w^T is made on those paths), and dW the
+Function): dX is K5 itself on each group's transposed weights, which
+every kernel reads K-major from w as it is (``w_transposed``: no copy of
+w^T is made), and dW the
 source's ``gmm_dw_*`` kernels (``grouped_matmul_dw_kernel``;
 ``dw_kernel_path`` says which), which the reference has no counterpart of
 (XLA transposes its einsum).
@@ -33,8 +33,7 @@ raises; given ``meta`` tensors (the multi-pod dry-run) it returns the
 output's shape and reports the kernel's flops and bytes to
 ``kernels.shapes`` (every row counted: a meta tensor holds no counts).  ``LAUNCHES`` counts kernel launches: ``grouped_matmul`` the
 forward's, ``grouped_matmul_dx`` the backward's K5 on the transposed
-weights (the f32 element-load kernel takes a contiguous copy of w^T, off
-the main path), ``grouped_matmul_dw`` the weight gradient's;
+weights, ``grouped_matmul_dw`` the weight gradient's;
 ``KERNEL_LAUNCHES`` counts the same launches by the CUDA kernel each
 took.  The source is compiled at first use (``nvcc.CudaLibrary``); nothing
 is built when this module is imported.
@@ -76,12 +75,13 @@ _INT32_MAX = 2**31 - 1
 
 LAUNCHES = {"grouped_matmul": 0, "grouped_matmul_dx": 0,
             "grouped_matmul_dw": 0}
-# The CUDA kernel of each path (``kernel_path`` / ``dw_kernel_path``); the
-# path "elem" is bf16 that TMA cannot describe.
-KERNELS = {"tma": "gmm_bf16_tma", "elem": "gmm_bf16_async",
-           "f32": "gmm_f32_tma", "f32_elem": "gmm_f32"}
-DW_KERNELS = {"tma": "gmm_dw_bf16_tma", "elem": "gmm_dw_bf16_async",
-              "f32": "gmm_dw_f32_tma", "f32_elem": "gmm_dw_f32"}
+# The CUDA kernel of each path (``kernel_path`` / ``dw_kernel_path``): the
+# paths "async" and "f32_async" are bf16 and float32 that TMA cannot
+# describe, whose rings cp.async fills.
+KERNELS = {"tma": "gmm_bf16_tma", "async": "gmm_bf16_async",
+           "f32": "gmm_f32_tma", "f32_async": "gmm_f32_async"}
+DW_KERNELS = {"tma": "gmm_dw_bf16_tma", "async": "gmm_dw_bf16_async",
+              "f32": "gmm_dw_f32_tma", "f32_async": "gmm_dw_f32_async"}
 KERNEL_LAUNCHES = {k: 0 for k in (*KERNELS.values(), *DW_KERNELS.values())}
 _count_lock = threading.Lock()
 
@@ -127,22 +127,23 @@ def _tma_path(a: torch.Tensor, b: torch.Tensor, widths) -> str:
     """Whether TMA can describe both operands and the TMA kernels' 16-byte
     stores fit the output: ``widths`` (the inner widths and the output's)
     whose rows are a whole number of 16 bytes (multiples of 8 in bf16, of
-    4 in f32) on 16-byte aligned bases.  bf16: "tma" or "elem"; float32:
-    "f32" or "f32_elem"."""
+    4 in f32) on 16-byte aligned bases.  bf16: "tma" or "async"; float32:
+    "f32" or "f32_async"."""
     f32 = a.dtype == torch.float32
     ok = (all(n % (4 if f32 else 8) == 0 for n in widths)
           and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
     if f32:
-        return "f32" if ok else "f32_elem"
-    return "tma" if ok else "elem"
+        return "f32" if ok else "f32_async"
+    return "tma" if ok else "async"
 
 
 def copy_bytes(t: torch.Tensor) -> int:
-    """The copy width of a bf16 operand of K5's async kernels: the widest
-    of 16, 8, 4 and 2 bytes that divides both its row pitch (its last
-    dimension, in bytes) and its base address.  A copy then never
-    straddles a row's end, and every copy is aligned.  Operands of a
-    (G, rows, cols) stack share it: a group's stride is a whole number of
+    """The copy width of an operand of K5's async kernels: the widest of
+    16, 8, 4 and 2 bytes that divides both its row pitch (its last
+    dimension, in bytes) and its base address (a float32 operand's is 4
+    at least: its pitch and base are whole elements).  A copy then never
+    straddles a row's end, and every copy is aligned.  Operands of a (G,
+    rows, cols) stack share it: a group's stride is a whole number of
     rows."""
     pitch, base = t.shape[-1] * t.element_size(), t.data_ptr()
     return next(b for b in (16, 8, 4, 2) if pitch % b == 0 and base % b == 0)
@@ -151,31 +152,31 @@ def copy_bytes(t: torch.Tensor) -> int:
 def kernel_path(x: torch.Tensor, w: torch.Tensor) -> str:
     """The kernel a CUDA call on these operands takes, by dtype, shape and
     alignment: "tma" (``gmm_bf16_tma``: bf16 with d and f multiples of 8
-    and 16-byte aligned bases, what TMA can describe), "elem"
+    and 16-byte aligned bases, what TMA can describe), "async"
     (``gmm_bf16_async``, other bf16: the same consumers, fed through
     cp.async at ``copy_bytes``), "f32" (``gmm_f32_tma``: float32 with d and
-    f multiples of 4 and 16-byte aligned bases) or "f32_elem" (``gmm_f32``,
-    other float32).  All but the last also read w transposed, for K5's dX
-    (dy (T, f) against the forward's w (G, d, f)): both of w's widths are
-    checked, since d is then the output's.  The wrapper launches by it
-    (``KERNELS``)."""
+    f multiples of 4 and 16-byte aligned bases) or "f32_async"
+    (``gmm_f32_async``, other float32, fed the same way).  Each also reads
+    w transposed, for K5's dX (dy (T, f) against the forward's w (G, d,
+    f)): both of w's widths are checked, since d is then the output's.
+    The wrapper launches by it (``KERNELS``)."""
     return _tma_path(x, w, (x.shape[-1], *w.shape[1:]))
 
 
 def dw_kernel_path(x: torch.Tensor, dy: torch.Tensor) -> str:
     """The kernel a CUDA ``grouped_matmul_dw_kernel`` call takes: "tma"
     (``gmm_dw_bf16_tma``: bf16 with d and f multiples of 8 and 16-byte
-    aligned bases), "elem" (``gmm_dw_bf16_async``, other bf16), "f32"
+    aligned bases), "async" (``gmm_dw_bf16_async``, other bf16), "f32"
     (``gmm_dw_f32_tma``: float32 with d and f multiples of 4 and 16-byte
-    aligned bases) or "f32_elem" (``gmm_dw_f32``).  The wrapper launches
-    by it (``DW_KERNELS``)."""
+    aligned bases) or "f32_async" (``gmm_dw_f32_async``, other float32).
+    The wrapper launches by it (``DW_KERNELS``)."""
     return _tma_path(x, dy, (x.shape[-1], dy.shape[-1]))
 
 
 def _widths(path: str, *operands) -> tuple:
     """The async kernels' copy widths of ``operands`` (``copy_bytes``) on
-    the bf16 path TMA cannot describe; 0s, unread, on the others."""
-    if path != "elem":
+    the paths TMA cannot describe; 0s, unread, on the TMA paths."""
+    if path not in ("async", "f32_async"):
         return (0,) * len(operands)
     return tuple(copy_bytes(t) for t in operands)
 
@@ -258,10 +259,6 @@ def _k5(x, tile_gid, w, bt, tile_rows, counter: str,
         raise ValueError(f"unsupported device {x.device}")
     _check(x, tile_gid, w, bt, tile_rows, w_transposed)
     path = kernel_path(x, w)
-    if w_transposed and path == "f32_elem":
-        # The f32 element-load kernel indexes w (G, d, f); the others read
-        # it transposed, so this path alone copies it.
-        w, w_transposed = w.transpose(1, 2).contiguous(), False
     T, d = x.shape
     G, f = w.shape[0], w.shape[1 if w_transposed else 2]
     out = torch.empty((T, f), dtype=x.dtype, device=x.device)

@@ -127,16 +127,16 @@ def test_transposed_w_equals_the_plain_version_on_w_t(dtype, with_rows):
 PATH_CASES = {
     "moe": (torch.bfloat16, 2048, 1408, 0, "tma"),
     "ragged": (torch.bfloat16, 192, 160, 0, "tma"),
-    "odd": (torch.bfloat16, 100, 37, 0, "elem"),
-    "unaligned": (torch.bfloat16, 64, 32, 1, "elem"),
-    "d_odd": (torch.bfloat16, 100, 160, 0, "elem"),
+    "odd": (torch.bfloat16, 100, 37, 0, "async"),
+    "unaligned": (torch.bfloat16, 64, 32, 1, "async"),
+    "d_odd": (torch.bfloat16, 100, 160, 0, "async"),
     "f32": (torch.float32, 192, 160, 0, "f32"),
     "f32_moe": (torch.float32, 2048, 1408, 0, "f32"),
-    "f32_d_odd": (torch.float32, 98, 160, 0, "f32_elem"),
-    "f32_f_odd": (torch.float32, 192, 162, 0, "f32_elem"),
-    "f32_odd": (torch.float32, 100, 37, 0, "f32_elem"),
-    "f32_unaligned": (torch.float32, 192, 160, 1, "f32_elem"),
-    "f32_unaligned_2": (torch.float32, 192, 160, 2, "f32_elem"),
+    "f32_d_odd": (torch.float32, 98, 160, 0, "f32_async"),
+    "f32_f_odd": (torch.float32, 192, 162, 0, "f32_async"),
+    "f32_odd": (torch.float32, 100, 37, 0, "f32_async"),
+    "f32_unaligned": (torch.float32, 192, 160, 1, "f32_async"),
+    "f32_unaligned_2": (torch.float32, 192, 160, 2, "f32_async"),
     "f32_aligned_4": (torch.float32, 192, 160, 4, "f32"),
 }
 
@@ -147,7 +147,7 @@ def test_dw_kernel_path_by_dtype_shape_and_alignment(dtype, d, f, offset,
                                                      path):
     """``dw_kernel_path`` names the dW kernel a call takes: the TMA one of
     the dtype where TMA can describe x and dy (bf16 "tma", f32 "f32"), the
-    other one else (bf16 "elem", the async kernel; "f32_elem")."""
+    async one of the dtype else ("async", "f32_async")."""
     T = 256
     x = torch.zeros(T * d + offset, dtype=dtype)[offset:].view(T, d)
     dy = torch.zeros(T, f, dtype=dtype)
@@ -163,8 +163,7 @@ def test_kernel_path_by_dtype_shape_and_alignment(dtype, d, f, offset, path):
     forward's w read transposed, takes the TMA kernel only where dy's
     width f, its output's width d and both bases suit it (a misaligned dy,
     or a d the TMA kernels' 16-byte stores do not fit, sends it to the
-    bf16 async kernel, which reads w in place, or the f32 element-load
-    kernel, which copies w^T)."""
+    async kernel of the dtype, which reads w in place too)."""
     T, G = 256, 2
     x = torch.zeros(T * d + offset, dtype=dtype)[offset:].view(T, d)
     w = torch.zeros(G, d, f, dtype=dtype)
@@ -176,17 +175,17 @@ def test_kernel_path_by_dtype_shape_and_alignment(dtype, d, f, offset, path):
     tma = f % vec == 0 and d % vec == 0 and offset * \
         dy.element_size() % 16 == 0
     assert dx_path == {(torch.float32, True): "f32",
-                       (torch.float32, False): "f32_elem",
+                       (torch.float32, False): "f32_async",
                        (torch.bfloat16, True): "tma",
-                       (torch.bfloat16, False): "elem"}[dtype, tma]
+                       (torch.bfloat16, False): "async"}[dtype, tma]
 
 
-@pytest.mark.parametrize("dtype,elem", [(torch.float32, "f32_elem"),
-                                        (torch.bfloat16, "elem")],
+@pytest.mark.parametrize("dtype,path", [(torch.float32, "f32_async"),
+                                        (torch.bfloat16, "async")],
                          ids=["f32", "bf16"])
-def test_misaligned_copy_takes_the_element_load_path(dtype, elem):
+def test_misaligned_copy_takes_the_element_load_path(dtype, path):
     """``misaligned`` (the card checks' way onto the kernels TMA cannot
-    feed: bf16 async, f32 element-load) copies x one element past a
+    feed: the async kernels of both dtypes) copies x one element past a
     16-byte boundary by default, or ``nbytes`` past: the same bits, a base
     TMA cannot describe; ``same_bits`` tells one flipped bit apart."""
     x = torch.from_numpy(np.random.default_rng(0).normal(
@@ -194,9 +193,9 @@ def test_misaligned_copy_takes_the_element_load_path(dtype, elem):
     w = torch.zeros(2, 64, 32, dtype=dtype)
     xm = misaligned(x)
     assert xm.is_contiguous() and xm.data_ptr() % 16 != 0
-    assert gkernel.kernel_path(xm, w) == elem
+    assert gkernel.kernel_path(xm, w) == path
     assert gkernel.dw_kernel_path(xm, torch.zeros(128, 32, dtype=dtype)) \
-        == elem
+        == path
     assert same_bits(x, xm) and not same_bits(x, xm.double())
     bits = torch.int32 if dtype == torch.float32 else torch.int16
     flipped = xm.clone()
@@ -204,7 +203,7 @@ def test_misaligned_copy_takes_the_element_load_path(dtype, elem):
     assert not same_bits(x, flipped)
     x8 = misaligned(x, 8)
     assert x8.data_ptr() % 16 == 8 and same_bits(x, x8)
-    assert gkernel.kernel_path(x8, w) == elem
+    assert gkernel.kernel_path(x8, w) == path
 
 
 def test_library_variant_writes_the_source_with_one_edit(tmp_path):

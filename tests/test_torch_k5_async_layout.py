@@ -19,7 +19,15 @@ numpy model of both, run at each copy width W (16,
 8, 4, 2 bytes) for each box the kernels load (x, the forward's w, w read
 K-major for dX, dW's x and dy), must write every byte of the box once and
 give TMA's image, its zeros exactly on the ragged edges and the rows past
-the count.  The width W is ``kernel.copy_bytes``: the widest
+the count.  The float32 kernels' producers (``copy_rows``) fill the same
+way the boxes of their TMA rings: the forward's x (64 rows x 32 floats)
+and w (32 deep x 256 columns), unswizzled; dX's w read K-major (256 rows
+x 32 floats, the 128-byte swizzle: chunk c of row n at c ^ (n % 8)); dW's
+x (32 rows x 64 columns) and dy (32 rows x 128 columns), unswizzled.  A
+numpy model of ``copy_rows`` (a thread a column of copies, or, where a
+row holds more copies than there are producers, several columns of every
+row) at 16, 8 and 4 bytes must give TMA's image of each the same way.
+The width W is ``kernel.copy_bytes``: the widest
 that divides the row pitch and the base, so a copy never straddles the
 column bound and every copy is aligned; it is tested on CPU tensors and
 offset views.
@@ -46,6 +54,14 @@ def source_producers() -> int:
                       SOURCE.read_text())
     assert warps, "kAsyncProducerWarps is not in the source"
     return 32 * int(warps.group(1))
+
+
+def source_dw_f32_producers() -> int:
+    """The producer threads of the source's f32 async dW."""
+    n = re.search(r"constexpr int kDwF32AsyncProducers = (\d+);",
+                  SOURCE.read_text())
+    assert n, "kDwF32AsyncProducers is not in the source"
+    return int(n.group(1))
 
 
 def tma_box(mem, pitch, r0, nrows, c0, ncols):
@@ -196,9 +212,126 @@ def test_async_box_is_tma_box(kind, width, producers):
         assert ((got == 0) == zero).all()
 
 
+# The float32 boxes: (rows of the box, its bytes a row, swizzled), and one
+# box each kernel loads as (matrix rows, r0, nrows, c0 from the ragged
+# edge of ``cols``): the forward's x (a row tile's 37 real rows, the last
+# depth stage), its w (the last 8 deep of d = 1000, the last column box),
+# dX's w stored (f, d) (f's last 256-row box, d's last stage), dW's x (17
+# real rows) and dy (every row real, the f edge).
+F32_BOXES = {
+    "x": (64, 128, False), "w": (32, 1024, False),
+    "w_kmajor": (256, 128, True), "dw_x": (32, 256, False),
+    "dw_dy": (32, 512, False),
+}
+F32_COLS = {16: 1024, 8: 1022, 4: 1021}  # copy_bytes of an f32 row
+
+
+def f32_case(kind, cols):
+    rows, row_bytes, _ = F32_BOXES[kind]
+    box_cols = row_bytes // 4
+    edge = (cols - 1) // box_cols * box_cols
+    return {"x": (512, 64, 64 + 37, edge), "w": (1000, 992, 1000, edge),
+            "w_kmajor": (1000, 768, 1000, edge),
+            "dw_x": (768, 128, 128 + 17, edge),
+            "dw_dy": (768, 192, 224, edge)}[kind]
+
+
+def f32_slot(r, c, row_bytes, swizzle):
+    """The byte address / 4 of element (r, c) in TMA's box."""
+    byte = c * 4
+    if swizzle:
+        return (r * 128 + (((byte >> 4) ^ (r % 8)) << 4) + (byte & 15)) // 4
+    return (r * row_bytes + byte) // 4
+
+
+def tma_f32_box(mem, pitch, r0, nrows, c0, ncols, rows, row_bytes, swizzle):
+    """TMA's image of an f32 box (zeros past nrows and ncols) and where it
+    holds zeros."""
+    box = np.zeros(rows * row_bytes // 4, np.int64)
+    zero = np.zeros(box.size, bool)
+    for r in range(rows):
+        for c in range(row_bytes // 4):
+            slot = f32_slot(r, c, row_bytes, swizzle)
+            inside = r0 + r < nrows and c0 + c < ncols
+            box[slot] = mem[(r0 + r) * pitch + c0 + c] if inside else 0
+            zero[slot] = not inside
+    return box, zero
+
+
+def copy_rows_model(mem, pitch, r0, nrows, c0, ncols, rows, row_bytes,
+                    swizzle, width, producers):
+    """``copy_rows``'s writes at ``width`` bytes with ``producers``
+    threads: (the box's slots, times each was written, the element index
+    each real copy reads from)."""
+    per = row_bytes // width  # copies a box row
+    elems = width // 4
+    assert producers % per == 0 or per % producers == 0
+    box = np.full(rows * row_bytes // 4, -1, np.int64)
+    writes = np.zeros(box.size, np.int64)
+    reads = []
+
+    def copy(r, q):
+        col = c0 + q * elems
+        ok = col < ncols and r0 + r < nrows
+        byte = q * width
+        if swizzle:
+            addr = r * 128 + (((byte >> 4) ^ (r & 7)) << 4) + (byte & 15)
+        else:
+            addr = r * row_bytes + byte
+        if ok:
+            reads.append((r0 + r) * pitch + col)
+        for e in range(elems):
+            box[addr // 4 + e] = mem[(r0 + r) * pitch + col + e] if ok else 0
+            writes[addr // 4 + e] += 1
+
+    for p in range(producers):
+        if producers % per == 0:  # a column a thread
+            step = producers // per
+            for i in range(rows // step):
+                copy(p // per + i * step, p % per)
+        else:  # several columns of every row
+            for r in range(rows):
+                for j in range(per // producers):
+                    copy(r, p + j * producers)
+    return box, writes, reads
+
+
+@pytest.mark.parametrize("producers", ["source", 64],
+                         ids=["source", "2warps"])
+@pytest.mark.parametrize("width", [16, 8, 4])
+@pytest.mark.parametrize("kind", list(F32_BOXES))
+def test_f32_async_box_is_tma_box(kind, width, producers):
+    """The float32 producers' copies at each width write every byte of
+    the box once, in TMA's place, TMA's image with its zeros exactly past
+    the row bound (the count) and the column bound (the ragged edge); each
+    copy aligned to its width and wholly inside the row."""
+    if producers == "source":
+        producers = (source_dw_f32_producers() if kind.startswith("dw")
+                     else source_producers())
+    rows, row_bytes, swizzle = F32_BOXES[kind]
+    cols = F32_COLS[width]
+    mrows, r0, nrows, c0 = f32_case(kind, cols)
+    t = torch.zeros(mrows, cols, dtype=torch.float32)
+    assert gkernel.copy_bytes(t) == width
+    mem = np.arange(1, mrows * cols + 1, dtype=np.int64) * 7 % 1000003 + 1
+    want, zero = tma_f32_box(mem, cols, r0, nrows, c0, cols, rows,
+                             row_bytes, swizzle)
+    assert zero.any() == (width < 16 or kind != "dw_dy")
+    got, writes, reads = copy_rows_model(mem, cols, r0, nrows, c0, cols,
+                                         rows, row_bytes, swizzle, width,
+                                         producers)
+    for elem in reads:
+        assert (elem * 4) % width == 0  # aligned on an aligned base
+        assert elem % cols + width // 4 <= cols  # inside the row
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(got, want)
+    assert ((got == 0) == zero).all()
+
+
 def test_source_producers_are_modelled():
     """The model's thread counts include the source's."""
     assert source_producers() in (128, 64)
+    assert source_dw_f32_producers() in (128, 64)
 
 
 def test_producer_threads_cover_box_rows():
@@ -208,42 +341,56 @@ def test_producer_threads_cover_box_rows():
         assert source_producers() % (128 // width) == 0
 
 
-COPY_CASES = {  # (shape, offset of the base in elements, width)
-    "aligned": ((4, 1024), 0, 16),
-    "f1020": ((4, 1020), 0, 8),
-    "f1022": ((4, 1022), 0, 4),
-    "f1021": ((4, 1021), 0, 2),
-    "base8": ((4, 1024), 4, 8),
-    "base4": ((4, 1024), 2, 4),
-    "base2": ((4, 1024), 1, 2),
-    "base12": ((4, 1024), 6, 4),
-    "f1020_base4": ((4, 1020), 2, 4),
-    "stack": ((3, 64, 1020), 0, 8),
-    "stack_base8": ((3, 64, 1024), 4, 8),
+BF16, F32 = torch.bfloat16, torch.float32
+COPY_CASES = {  # (shape, offset of the base in elements, width, dtype)
+    "aligned": ((4, 1024), 0, 16, BF16),
+    "f1020": ((4, 1020), 0, 8, BF16),
+    "f1022": ((4, 1022), 0, 4, BF16),
+    "f1021": ((4, 1021), 0, 2, BF16),
+    "base8": ((4, 1024), 4, 8, BF16),
+    "base4": ((4, 1024), 2, 4, BF16),
+    "base2": ((4, 1024), 1, 2, BF16),
+    "base12": ((4, 1024), 6, 4, BF16),
+    "f1020_base4": ((4, 1020), 2, 4, BF16),
+    "stack": ((3, 64, 1020), 0, 8, BF16),
+    "stack_base8": ((3, 64, 1024), 4, 8, BF16),
+    "f32_aligned": ((4, 1024), 0, 16, F32),
+    "f32_f1022": ((4, 1022), 0, 8, F32),
+    "f32_f1021": ((4, 1021), 0, 4, F32),
+    "f32_base4": ((4, 1024), 1, 4, F32),
+    "f32_base8": ((4, 1024), 2, 8, F32),
+    "f32_base12": ((4, 1024), 3, 4, F32),
+    "f32_f1022_base8": ((4, 1022), 2, 8, F32),
+    "f32_stack": ((3, 64, 1022), 0, 8, F32),
 }
 
 
-@pytest.mark.parametrize("shape,offset,width", list(COPY_CASES.values()),
+@pytest.mark.parametrize("shape,offset,width,dtype", list(COPY_CASES.values()),
                          ids=list(COPY_CASES))
-def test_copy_bytes_by_pitch_and_base(shape, offset, width):
+def test_copy_bytes_by_pitch_and_base(shape, offset, width, dtype):
     """``copy_bytes``: the widest of 16, 8, 4, 2 bytes dividing the row
-    pitch and the base address (an offset view of a buffer)."""
+    pitch and the base address (an offset view of a buffer); a float32
+    operand's is 4 at least."""
     n = int(np.prod(shape))
-    buf = torch.zeros(n + 8, dtype=torch.bfloat16)
+    buf = torch.zeros(n + 8, dtype=dtype)
     assert buf.data_ptr() % 16 == 0
     t = buf[offset:offset + n].view(shape)
     assert gkernel.copy_bytes(t) == width
-    pitch = shape[-1] * 2
+    pitch = shape[-1] * buf.element_size()
     assert pitch % width == 0 and t.data_ptr() % width == 0
     if width < 16:
         assert pitch % (2 * width) or t.data_ptr() % (2 * width)
 
 
-@pytest.mark.parametrize("path", ["tma", "elem", "f32", "f32_elem"])
+# ids as the cases were named before the paths "elem" and "f32_elem" were
+# renamed "async" and "f32_async"
+@pytest.mark.parametrize("path", ["tma", "async", "f32", "f32_async"],
+                         ids=["tma", "elem", "f32", "f32_elem"])
 def test_widths_only_on_the_async_path(path):
-    """The launch entries read copy widths on the bf16 path TMA cannot
-    describe only; the other paths pass 0s."""
-    x = torch.zeros(4, 1020, dtype=torch.bfloat16)
-    w = torch.zeros(2, 1020, 1021, dtype=torch.bfloat16)
+    """The launch entries read copy widths on the paths TMA cannot
+    describe only (bf16 and f32); the TMA paths pass 0s."""
+    dtype = torch.float32 if path.startswith("f32") else torch.bfloat16
+    x = torch.zeros(4, 1022 if dtype == torch.float32 else 1020, dtype=dtype)
+    w = torch.zeros(2, x.shape[1], 1021, dtype=dtype)
     got = gkernel._widths(path, x, w)
-    assert got == ((8, 2) if path == "elem" else (0, 0))
+    assert got == {"async": (8, 2), "f32_async": (8, 4)}.get(path, (0, 0))

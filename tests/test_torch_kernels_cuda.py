@@ -61,21 +61,19 @@ kernel loads whole 64-row boxes and zeroes the rows past each tile's
 count itself, so it is held with noise, and NaN in one tile, past the
 counts; dX read from w through its tensor map equals K5 on a contiguous
 copy of w^T bit for bit, and a backward makes no device-to-device copy.
-In float32 K5 has two kernels for each product: the TMA-fed one
-(``kernel_path`` "f32") and the element-load one ("f32_elem", taken where
-TMA cannot describe an operand: d or f not a multiple of 4, or a base off
-16 bytes).  Both sum each output as one fmaf chain in the same order, so
-the forward, dX and dW of the first equal those of the second bit for
-bit, with counts, noise and NaN past them, an empty group and a bad group
-id; a misaligned copy of the inputs sends a call to the second.
-In bf16 the kernels TMA cannot describe (``gmm_bf16_async``,
-``gmm_dw_bf16_async``) run the TMA kernels' consumers on a ring filled
-through cp.async at each operand's copy width (16, 8, 4 or 2 bytes,
-``kernel.copy_bytes``): the forward, dX and dW are held to their plain
-versions at each width, with counts, noise and NaN past them and a bad
-group id, to the TMA kernels bit for bit on copies of aligned inputs
-whose bases lie 8, 4 or 2 bytes off, to themselves from call to call, and
-dX at an output width of 1020 allocates no w^T.
+In both dtypes K5 has two kernels for each product: the TMA-fed one
+(``kernel_path`` "tma" / "f32") and the async one ("async" /
+"f32_async", taken where TMA cannot describe an operand: d or f not a
+multiple of 8 (bf16) or 4 (f32), or a base off 16 bytes), which runs the
+TMA kernel's consumers on a ring filled through cp.async at each
+operand's copy width (16, 8, 4 or, in bf16, 2 bytes,
+``kernel.copy_bytes``).  The forward, dX and dW of the async kernels are
+held to their plain versions at each width, with counts, noise and NaN
+past them, an empty group and a bad group id, to the TMA kernels bit for
+bit on copies of aligned inputs whose bases lie off 16 bytes (bf16 8, 4
+or 2 bytes; f32 4, 8 or 12: each f32 output is one fmaf chain in the
+same order on both), to themselves from call to call, and dX at an
+output width TMA cannot describe allocates no w^T.
 
 The tests here are marked ``cuda``: they run the CUDA kernels on a card
 against the plain versions on the CPU, and skip without one.  They import
@@ -951,11 +949,11 @@ GMM_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-5}
 
 def _gmm_path(d, f, dtype):
     """The kernel K5 should take: TMA for rows of a 16-byte pitch (d and f
-    multiples of 8 in bf16, of 4 in f32); else the bf16 async kernel or
-    the f32 element-load one."""
+    multiples of 8 in bf16, of 4 in f32); else the async one of the
+    dtype."""
     if dtype == torch.float32:
-        return "f32" if d % 4 == 0 and f % 4 == 0 else "f32_elem"
-    return "tma" if d % 8 == 0 and f % 8 == 0 else "elem"
+        return "f32" if d % 4 == 0 and f % 4 == 0 else "f32_async"
+    return "tma" if d % 8 == 0 and f % 8 == 0 else "async"
 
 
 def _gmm_case(rng, sizes, d, f, dtype, scale=None):
@@ -1252,7 +1250,7 @@ def _dw_case(d, f, G=4, dtype=torch.bfloat16):
     (192, 160, "tma"),  # d, f not multiples of 64 or 128
     (256, 176, "tma"),
     (2048, 1408, "tma"),  # moonshot's gate/up widths
-    (100, 37, "elem"),  # not multiples of 8: the async kernel
+    (100, 37, "async"),  # not multiples of 8: the async kernel
 ], ids=["192x160", "256x176", "moe", "odd"])
 def test_k5_dw_kernel_masks_rows_past_the_counts(card, d, f, path):
     """The dW kernel against ``grouped_matmul_dw_ref`` (1e-2 of the largest
@@ -1301,16 +1299,13 @@ F32_BITS_CASES = {
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("d,f,pattern", list(F32_BITS_CASES.values()),
-                         ids=list(F32_BITS_CASES))
-def test_k5_f32_tma_equals_elem_bit_for_bit(card, d, f, pattern):
-    """K5's float32 forward, dX and dW on the TMA-fed kernels equal the
-    element-load kernels bit for bit (each output one fmaf chain in the
+def _f32_twins(card, d, f, pattern, nbytes):
+    """K5's float32 forward, dX and dW on the TMA-fed kernels and on the
+    async ones, given copies of the same inputs whose bases lie ``nbytes``
+    past 16 bytes: equal bit for bit (each output one fmaf chain in the
     same order), with and without tile_rows, at ragged d and f edges, with
     an empty group, noise past every count and NaN past tile 1's, and a
-    bad group id (its tile NaN).  The element-load calls take misaligned
-    copies of the same inputs; each path launched its own kernel."""
+    bad group id (its tile NaN); each path launched its own kernel."""
     rng = np.random.default_rng(d + 7 * f)
     G, bt, T = 4, 128, 8 * 128
     x = torch.from_numpy(rng.normal(size=(T, d)).astype(np.float32))
@@ -1328,11 +1323,13 @@ def test_k5_f32_tma_equals_elem_bit_for_bit(card, d, f, pattern):
     x, dy, w, gid = x.to(card), dy.to(card), w.to(card), gid.to(card)
     bad = gid.clone()
     bad[2] = G + 1
-    xm, dym = misaligned(x), misaligned(dy)
+    xm, dym = misaligned(x, nbytes), misaligned(dy, nbytes)
+    assert gkernel.copy_bytes(xm) == gkernel.copy_bytes(dym) == (
+        8 if nbytes == 8 else 4)
     assert gkernel.kernel_path(x, w) == gkernel.kernel_path(dy, w) == "f32"
     assert gkernel.dw_kernel_path(x, dy) == "f32"
     assert gkernel.kernel_path(xm, w) == gkernel.dw_kernel_path(xm, dym) \
-        == "f32_elem"
+        == gkernel.kernel_path(dym, w) == "f32_async"
     before = dict(gkernel.KERNEL_LAUNCHES)
     y = gkernel.grouped_matmul_kernel(x, bad, w, bt, rows)
     y_elem = gkernel.grouped_matmul_kernel(xm, bad, w, bt, rows)
@@ -1345,8 +1342,8 @@ def test_k5_f32_tma_equals_elem_bit_for_bit(card, d, f, pattern):
     torch.cuda.synchronize()
     launched = {k: gkernel.KERNEL_LAUNCHES[k] - before[k] for k in before}
     assert launched == {**{k: 0 for k in before}, "gmm_f32_tma": 2,
-                        "gmm_f32": 2, "gmm_dw_f32_tma": 1,
-                        "gmm_dw_f32": 1}, launched
+                        "gmm_f32_async": 2, "gmm_dw_f32_tma": 1,
+                        "gmm_dw_f32_async": 1}, launched
     assert same_bits(y, y_elem) and same_bits(dx, dx_elem)
     assert same_bits(dw, dw_elem)
     for out in (y, dx):
@@ -1378,6 +1375,25 @@ def test_k5_f32_tma_equals_elem_bit_for_bit(card, d, f, pattern):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,f,pattern", list(F32_BITS_CASES.values()),
+                         ids=list(F32_BITS_CASES))
+def test_k5_f32_tma_equals_elem_bit_for_bit(card, d, f, pattern):
+    """The f32 async kernels (the path TMA cannot describe) on copies of
+    the inputs 4 bytes off give the TMA kernels' bits (``_f32_twins``)."""
+    _f32_twins(card, d, f, pattern, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbytes", [8, 12])
+@pytest.mark.parametrize("d,f,pattern", list(F32_BITS_CASES.values()),
+                         ids=list(F32_BITS_CASES))
+def test_k5_f32_async_equals_tma_bit_for_bit(card, d, f, pattern, nbytes):
+    """The same on copies 8 bytes off (x and dy in 8-byte copies) and 12
+    bytes off (4-byte copies)."""
+    _f32_twins(card, d, f, pattern, nbytes)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d,f,with_rows,bad_gid,dtype", [
     (176, 200, True, False, torch.bfloat16),  # ragged columns and depth
     (2048, 1408, True, False, torch.bfloat16),  # moonshot's dX of gate/up
@@ -1385,9 +1401,8 @@ def test_k5_f32_tma_equals_elem_bit_for_bit(card, d, f, pattern):
     (176, 200, True, True, torch.float32),
     (2048, 1408, True, False, torch.float32),
     # d, dX's output width, not a multiple of 4 (f32) or 8 (bf16): the
-    # TMA kernels' 16-byte fills do not fit it, so the f32 element-load
-    # kernel takes the call on a copy of w^T, and the bf16 async one reads
-    # w K-major in place
+    # TMA kernels' 16-byte fills do not fit it, so the async kernel of the
+    # dtype takes the call and reads w K-major in place
     (98, 36, True, True, torch.float32),
     (98, 40, True, True, torch.bfloat16),
 ], ids=["ragged", "moe_up", "moe_down_dense", "f32_ragged", "f32_moe_up",
@@ -1440,10 +1455,10 @@ ASYNC_CASES = {
 }
 
 
-def _async_case(d, f, seed):
+def _async_case(d, f, seed, dtype=torch.bfloat16):
     """4 groups of 2 tiles of 128 rows: tile 2's group has no real row,
     counts that cut 16-row steps, NaN in x and dy past tile 1's count and
-    noise past the others'."""
+    noise past the others'; x, dy and w in ``dtype``."""
     rng = np.random.default_rng(seed)
     G, bt, T = 4, 128, 8 * 128
     x = torch.from_numpy(rng.normal(size=(T, d)).astype(np.float32))
@@ -1455,8 +1470,7 @@ def _async_case(d, f, seed):
     nan = past & (torch.arange(T) // bt == 1)
     x[nan], dy[nan] = float("nan"), float("nan")
     gid = torch.arange(T // bt, dtype=torch.int32) // 2
-    return (x.to(torch.bfloat16), dy.to(torch.bfloat16),
-            w.to(torch.bfloat16), gid, rows)
+    return x.to(dtype), dy.to(dtype), w.to(dtype), gid, rows
 
 
 @pytest.mark.cuda
@@ -1479,7 +1493,7 @@ def test_k5_async_matches_plain(card, d, f):
     x_, dy_, w_ = x.to(card), dy.to(card), w.to(card)
     bad_, gid_, rows_ = bad.to(card), gid.to(card), rows.to(card)
     assert gkernel.kernel_path(x_, w_) == gkernel.kernel_path(dy_, w_) \
-        == gkernel.dw_kernel_path(x_, dy_) == "elem"
+        == gkernel.dw_kernel_path(x_, dy_) == "async"
     before = dict(gkernel.KERNEL_LAUNCHES)
 
     def run():
@@ -1539,7 +1553,7 @@ def test_k5_async_equals_tma_bit_for_bit(card, nbytes):
     assert gkernel.copy_bytes(xm) == gkernel.copy_bytes(dym) == nbytes
     assert gkernel.kernel_path(x, w) == gkernel.dw_kernel_path(x, dy) == "tma"
     assert gkernel.kernel_path(xm, w) == gkernel.dw_kernel_path(xm, dym) \
-        == gkernel.kernel_path(dym, w) == "elem"
+        == gkernel.kernel_path(dym, w) == "async"
     before = dict(gkernel.KERNEL_LAUNCHES)
     pairs = [
         (gkernel.grouped_matmul_kernel(x, bad, w, bt, rows),
@@ -1580,7 +1594,7 @@ def test_k5_async_dw_walks_f_tiles_as_tma(card):
     rows = torch.from_numpy(rng.integers(0, bt + 1, size=G).astype(np.int32))
     gid, rows = gid.to(card), rows.to(card)
     xm, dym = misaligned(x, 8), misaligned(dy, 8)
-    assert gkernel.dw_kernel_path(xm, dym) == "elem"
+    assert gkernel.dw_kernel_path(xm, dym) == "async"
     want = gkernel.grouped_matmul_dw_kernel(x, dy, gid, G, bt, rows)
     got = gkernel.grouped_matmul_dw_kernel(xm, dym, gid, G, bt, rows)
     torch.cuda.synchronize()
@@ -1595,7 +1609,7 @@ def test_k5_async_dx_allocates_no_transposed_weights(card):
     call's peak memory holds its output, not a copy of w^T."""
     d, f = 1020, 1024
     _, dy, w, gid, rows = [t.to(card) for t in _async_case(d, f, 12)]
-    assert gkernel.kernel_path(dy, w) == "elem"
+    assert gkernel.kernel_path(dy, w) == "async"
     gkernel._k5(dy, gid, w, 128, rows, "grouped_matmul_dx",
                 w_transposed=True)
     torch.cuda.synchronize()
@@ -1611,19 +1625,137 @@ def test_k5_async_dx_allocates_no_transposed_weights(card):
     assert out_bytes <= peak < out_bytes + w.numel() * w.element_size() // 2
 
 
+# K5's f32 async kernels at widths TMA cannot describe: (d, f) and the
+# widths ``copy_bytes`` gives x, w and y (dX reads dy (T, f), w K-major and
+# writes (T, d); dW reads x and dy and writes (G, d, f)).
+F32_ASYNC_CASES = {
+    "f1022": (1024, 1022),  # w, y, dy and dw 8 bytes, x 16
+    "f1021": (1024, 1021),  # w, y, dy and dw 4 bytes; dX's depth odd
+    "d_odd": (1021, 256),  # x and w read K-major 4 bytes; dX's output 1021
+    "odd": (98, 37),  # 8 and 4 bytes, ragged boxes everywhere
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "f32"])
-def test_k5_backward_copies_nothing(card, dtype):
-    """One ``grouped_matmul_fn`` backward at TMA shapes (bf16 and f32) runs
-    K5's dX and the dW kernel and no device-to-device copy
-    (torch.profiler's device events): w^T is read through its tensor
-    map."""
+@pytest.mark.parametrize("d,f", list(F32_ASYNC_CASES.values()),
+                         ids=list(F32_ASYNC_CASES))
+def test_k5_f32_async_matches_plain(card, d, f):
+    """The f32 async kernels (the path TMA cannot describe) against the
+    plain versions at 1e-5 of the largest value (the backward's rule: the
+    sums run over up to 1024 terms in another order), with counts that cut
+    the tiles, NaN past one and noise past the others, an empty group and
+    a bad group id (its tile NaN in the forward and dX): each launched its
+    kernel, dX on w as it is; the rows past the counts and the empty
+    group's dW are +0."""
+    from repro_torch.kernels.grouped_matmul.ref import (
+        grouped_matmul_dw_ref, grouped_matmul_tiles_ref,
+    )
+
+    x, dy, w, gid, rows = _async_case(d, f, d + 3 * f, torch.float32)
+    G, bt, T = w.shape[0], 128, x.shape[0]
+    bad = gid.clone()
+    bad[2] = G + 1
+    x_, dy_, w_ = x.to(card), dy.to(card), w.to(card)
+    bad_, gid_, rows_ = bad.to(card), gid.to(card), rows.to(card)
+    assert gkernel.kernel_path(x_, w_) == gkernel.kernel_path(dy_, w_) \
+        == gkernel.dw_kernel_path(x_, dy_) == "f32_async"
+    before = dict(gkernel.KERNEL_LAUNCHES)
+    y = gkernel.grouped_matmul_kernel(x_, bad_, w_, bt, rows_)
+    dx = gkernel._k5(dy_, bad_, w_, bt, rows_, "grouped_matmul_dx",
+                     w_transposed=True)
+    dw = gkernel.grouped_matmul_dw_kernel(x_, dy_, gid_, G, bt, rows_)
+    torch.cuda.synchronize()
+    launched = {k: n - before[k] for k, n in gkernel.KERNEL_LAUNCHES.items()
+                if n != before[k]}
+    assert launched == {"gmm_f32_async": 2, "gmm_dw_f32_async": 1}
+    keep = torch.ones(T, dtype=torch.bool)
+    keep[2 * bt:3 * bt] = False
+    for out in (y, dx):
+        assert bool(torch.isnan(out[2 * bt:3 * bt]).all())
+    want_y = grouped_matmul_tiles_ref(x.nan_to_num(), gid, w, bt, rows)
+    want_dx = grouped_matmul_tiles_ref(dy.nan_to_num(), gid,
+                                       w.transpose(1, 2).contiguous(), bt,
+                                       rows)
+    past = (torch.arange(bt)[None, :] >= rows[:, None]).reshape(T)[keep]
+    for got, want in ((y, want_y), (dx, want_dx)):
+        got = got.cpu()[keep]
+        assert bool(torch.isfinite(got).all())
+        _close_to_max(got, want[keep], 1e-5)
+        assert bool((got[past] == 0).all()) and not torch.signbit(
+            got[past]).any()
+    want_dw = grouped_matmul_dw_ref(x, dy, gid, G, bt, rows)
+    assert bool(torch.isfinite(dw).all())
+    _close_to_max(dw, want_dw, 1e-5)
+    dw = dw.cpu()
+    assert bool((dw[1] == 0).all()) and not torch.signbit(dw[1]).any()
+
+
+@pytest.mark.cuda
+def test_k5_f32_async_dw_walks_f_tiles_as_tma(card):
+    """The f32 dW's blocks walk several f-tiles where the grid is large (64
+    groups x 4 d-tiles x 10 f-tiles); on copies of x and dy 8 bytes off the
+    async kernel still gives the TMA kernel's bits, with counts, an empty
+    group and a bad id."""
+    rng = np.random.default_rng(14)
+    G, bt, d, f = 64, 128, 256, 1280
+    T = G * bt
+    x = torch.from_numpy(rng.normal(size=(T, d)).astype(np.float32)).to(card)
+    dy = torch.from_numpy(rng.normal(size=(T, f)).astype(np.float32)).to(card)
+    gid = torch.arange(G, dtype=torch.int32)
+    gid[5] = G + 3  # no group
+    gid[9] = 8  # group 9 has no tile, group 8 two
+    rows = torch.from_numpy(rng.integers(0, bt + 1, size=G).astype(np.int32))
+    gid, rows = gid.to(card), rows.to(card)
+    xm, dym = misaligned(x, 8), misaligned(dy, 8)
+    assert gkernel.dw_kernel_path(x, dy) == "f32"
+    assert gkernel.dw_kernel_path(xm, dym) == "f32_async"
+    want = gkernel.grouped_matmul_dw_kernel(x, dy, gid, G, bt, rows)
+    got = gkernel.grouped_matmul_dw_kernel(xm, dym, gid, G, bt, rows)
+    torch.cuda.synchronize()
+    assert same_bits(got, want)
+    assert bool((got[9] == 0).all()) and bool((got[5] == 0).all())
+
+
+@pytest.mark.cuda
+def test_k5_f32_async_dx_allocates_no_transposed_weights(card):
+    """f32 dX at an output width of 1022 (dy (T, 1024) against w (G, 1022,
+    1024)) takes the async instance and reads w K-major in place: the
+    call's peak memory holds its output, not a copy of w^T."""
+    d, f = 1022, 1024
+    _, dy, w, gid, rows = [t.to(card) for t in _async_case(d, f, 12,
+                                                            torch.float32)]
+    assert gkernel.kernel_path(dy, w) == "f32_async"
+    gkernel._k5(dy, gid, w, 128, rows, "grouped_matmul_dx",
+                w_transposed=True)
+    torch.cuda.synchronize()
+    before = gkernel.KERNEL_LAUNCHES["gmm_f32_async"]
+    base = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    dx = gkernel._k5(dy, gid, w, 128, rows, "grouped_matmul_dx",
+                     w_transposed=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(card) - base
+    assert gkernel.KERNEL_LAUNCHES["gmm_f32_async"] == before + 1
+    out_bytes = dx.numel() * dx.element_size()
+    assert out_bytes <= peak < out_bytes + w.numel() * w.element_size() // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,f", [(torch.bfloat16, 256, 192),
+                                       (torch.float32, 256, 192),
+                                       (torch.float32, 98, 190)],
+                         ids=["bf16", "f32", "f32_async"])
+def test_k5_backward_copies_nothing(card, dtype, d, f):
+    """One ``grouped_matmul_fn`` backward at TMA shapes (bf16 and f32), and
+    at f32 widths TMA cannot describe (the async kernels), runs K5's dX
+    and the dW kernel and no device-to-device copy (torch.profiler's
+    device events): w^T is read K-major as w lies."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    x, _, w = _gmm_case(np.random.default_rng(4), [256] * 4, 256, 192,
-                        dtype)
+    x, _, w = _gmm_case(np.random.default_rng(4), [256] * 4, d, f, dtype)
+    assert gkernel.kernel_path(x.to(card), w.to(card)) == _gmm_path(d, f,
+                                                                    dtype)
     x_ = x.to(card).requires_grad_()
     w_ = w.to(card).requires_grad_()
     gid = (torch.arange(8, dtype=torch.int32) // 2).to(card)
